@@ -1,0 +1,178 @@
+"""Load a JAX `SRFDet` variable tree into the port's `SRFDet`.
+
+`variables` is the flax tree {"params": ..., "batch_stats": ...} as nested
+dicts of numpy arrays (e.g. `jax.tree_util.tree_map(np.asarray, v)`); this
+module never imports JAX.  Every JAX leaf is mapped to one port tensor:
+
+- Dense kernel (in, out) -> Linear weight (out, in); conv kernel HWIO ->
+  OIHW; sparse-conv kernel (K, Cin, Cout) as it is;
+- flax norms: scale -> weight, batch_stats mean/var -> running_mean/var;
+- attention DenseGeneral kernels (C, heads, head_dim) and (heads,
+  head_dim, C) -> (C, C) Linear weights;
+- the head's scan-stacked head_series/single_head leaves (leading axis
+  num_heads) -> one module per iteration;
+- auto-named flax modules (Dense_0, LayerNorm_3, ...) -> the port's names.
+
+It raises on a JAX leaf that maps to nothing and on a port parameter or
+buffer left unset (torch's BatchNorm step counters, `num_batches_tracked`,
+are not weights and stay as they are).
+"""
+
+from __future__ import annotations
+
+import re
+from collections.abc import Mapping
+from typing import Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+
+# single_head submodule -> port submodule of SingleSRFDetHead, given the
+# numbers of cls and reg layers (flax numbers LayerNorms in call order)
+_HEAD_NAMES = {"Dense_0": "ffn1", "Dense_1": "ffn2",
+               "LayerNorm_0": "norm_attn", "LayerNorm_1": "norm_inst",
+               "LayerNorm_2": "norm_ffn",
+               "class_logits": "class_logits", "bboxes_delta": "bboxes_delta"}
+_DYNCONV_NAMES = {"Dense_0": "dynamic_layer", "Dense_1": "out_layer",
+                  "LayerNorm_0": "norm1", "LayerNorm_1": "norm2",
+                  "LayerNorm_2": "norm3"}
+_ATTN_NAMES = {"query": "q_proj", "key": "k_proj", "value": "v_proj",
+               "out": "out_proj"}
+_NORM_LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+              "var": "running_var"}
+
+
+def _leaves(tree, prefix=()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+def _leaf(name: str, a: np.ndarray, norm: bool):
+    """(port leaf name, array) of one module's leaf."""
+    if norm:
+        return _NORM_LEAF[name], a
+    if name == "kernel":
+        if a.ndim == 4:                          # conv HWIO -> OIHW
+            return "weight", a.transpose(3, 2, 0, 1)
+        return "weight", a.T                      # Dense (in, out)
+    return name, a
+
+
+def _single_head(path, a, n_cls):
+    """Map one leaf under single_head (no leading iteration axis)."""
+    mod = path[0]
+    if mod == "self_attn":
+        c = a.shape[0] if path[1] != "out" else a.shape[-1]
+        if path[2] == "kernel":
+            w = a.reshape(c, -1).T if path[1] != "out" else \
+                a.reshape(-1, c).T
+            return f"self_attn.{_ATTN_NAMES[path[1]]}.weight", w
+        return f"self_attn.{_ATTN_NAMES[path[1]]}.bias", a.reshape(-1)
+    if mod == "inst_interact":
+        sub = _DYNCONV_NAMES[path[1]]
+        name, arr = _leaf(path[2], a, path[1].startswith("LayerNorm"))
+        return f"inst_interact.{sub}.{name}", arr
+    m = re.fullmatch(r"(cls|reg)_(\d+)", mod)
+    if m:
+        name, arr = _leaf(path[1], a, False)
+        return f"{m.group(1)}_fcs.{m.group(2)}.{name}", arr
+    m = re.fullmatch(r"LayerNorm_(\d+)", mod)
+    if m and int(m.group(1)) >= 3:
+        i = int(m.group(1)) - 3
+        sub = f"cls_norms.{i}" if i < n_cls else f"reg_norms.{i - n_cls}"
+        return f"{sub}.{_NORM_LEAF[path[1]]}", a
+    name, arr = _leaf(path[1], a, mod.startswith("LayerNorm"))
+    return f"{_HEAD_NAMES[mod]}.{name}", arr
+
+
+def _convbn(prefix: str, path, a):
+    """A ConvBNReLU subtree: Conv_0 -> conv, BatchNorm_0 -> bn."""
+    sub = {"Conv_0": "conv", "BatchNorm_0": "bn"}[path[0]]
+    name, arr = _leaf(path[1], a, sub == "bn")
+    return f"{prefix}.{sub}.{name}", arr
+
+
+def _map(path, a, n_heads, n_cls):
+    """JAX leaf path (collection dropped) -> [(port key, array)]."""
+    top = path[0]
+    if top == "pts_middle_encoder":
+        conv = path[1]
+        if path[2] == "kernel":
+            return [(f"pts_middle_encoder.{conv}.kernel", a)]
+        if path[2] == "MaskedBatchNorm_0":
+            return [(f"pts_middle_encoder.{conv}.bn.{_NORM_LEAF[path[3]]}",
+                     a)]
+    elif top == "pts_backbone":
+        i = int(re.fullmatch(r"ConvBNReLU_(\d+)", path[1]).group(1))
+        return [_convbn(f"pts_backbone.blocks.{i}", path[2:], a)]
+    elif top == "pts_neck":
+        kind, i = re.fullmatch(r"(lateral|fpn|extra)_(\d+)",
+                               path[1]).groups()
+        return [_convbn(f"pts_neck.{kind}.{i}", path[2:], a)]
+    elif top == "bbox_head":
+        sub = path[1]
+        if sub in ("init_proposal_boxes", "init_proposal_feats"):
+            return [(f"bbox_head.{sub}", a)]
+        m = re.fullmatch(r"dpg_dw_lidar_(\d+)", sub)
+        if m:
+            return [_convbn(f"bbox_head.dpg_dw.{m.group(1)}", path[2:], a)]
+        m = re.fullmatch(r"dpg_(fc1|fc2)_lidar", sub)
+        if m:
+            name, arr = _leaf(path[2], a, False)
+            return [(f"bbox_head.dpg_{m.group(1)}.{name}", arr)]
+        if sub == "head_series" and path[2] == "single_head":
+            if a.shape[0] != n_heads:
+                raise ValueError(f"{'/'.join(path)}: leading axis "
+                                 f"{a.shape[0]} != num_heads {n_heads}")
+            out = []
+            for i in range(n_heads):
+                key, arr = _single_head(path[3:], a[i], n_cls)
+                out.append((f"bbox_head.heads.{i}.{key}", arr))
+            return out
+    raise KeyError("/".join(path))
+
+
+def jax_state_dict(variables: Dict, n_heads: int, n_cls_convs: int
+                   ) -> Dict[str, np.ndarray]:
+    """The port's state dict (numpy) from a JAX variable tree; each JAX
+    leaf is consumed once (a leaf that maps to nothing raises KeyError)."""
+    state: Dict[str, np.ndarray] = {}
+    for coll in ("params", "batch_stats"):
+        for path, a in _leaves(variables.get(coll, {})):
+            try:
+                pairs = _map(path, a, n_heads, n_cls_convs)
+            except (KeyError, AttributeError, IndexError) as e:
+                raise KeyError(f"JAX leaf {coll}/{'/'.join(path)} maps to "
+                               f"no port tensor") from e
+            for key, arr in pairs:
+                if key in state:
+                    raise KeyError(f"port tensor {key} set twice")
+                state[key] = arr
+    return state
+
+
+def load_jax_params(model: torch.nn.Module, variables: Dict) -> None:
+    """Fill every parameter and buffer of the port's SRFDet from the JAX
+    variable tree; raises on unused JAX leaves, unset port tensors, and
+    shape mismatches."""
+    hc = model.cfg.head
+    state = jax_state_dict(variables, hc.num_heads, hc.num_cls_convs)
+    target = {k: v for k, v in model.state_dict().items()
+              if not k.endswith("num_batches_tracked")}
+    extra = sorted(set(state) - set(target))
+    if extra:
+        raise KeyError(f"JAX leaves with no port tensor: {extra[:8]}")
+    missing = sorted(set(target) - set(state))
+    if missing:
+        raise KeyError(f"port tensors the JAX tree does not set: "
+                       f"{missing[:8]}")
+    with torch.no_grad():
+        for key, t in target.items():
+            arr = np.array(state[key], copy=True)
+            if tuple(arr.shape) != tuple(t.shape):
+                raise ValueError(f"{key}: JAX shape {arr.shape} vs port "
+                                 f"{tuple(t.shape)}")
+            t.copy_(torch.from_numpy(arr).to(t.dtype))
