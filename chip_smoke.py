@@ -5,21 +5,34 @@
 Phases, each printing one JSON line; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: both CUDA kernels from srfdet3d_torch/csrc, in parallel;
+2. build: the four CUDA kernels' sources in srfdet3d_torch/csrc, in
+   parallel;
 3. gather_conv (K1) against its plain version on real flagship rulebooks,
    at every conv shape of the sparse encoder;
 4. eqmatch (K2) against subm_rulebook_bitmap at the 4 flagship stages,
    exact;
-5. flagship srfdet_voxel_nusc_L predict at full width, batch 1, on a
+5. conv_bwd (K3 subm, K4 strided) against their plain versions on the
+   flagship train step's rulebooks (batch 2), at every conv shape;
+6. roi_bwd (K5) against index_add_ at the flagship head's geometry (batch
+   2 x 900 RoIs, four levels at C 128, patch 32, 64 fallback slots);
+7. flagship srfdet_voxel_nusc_L predict at full width, batch 1, on a
    synthetic scene and seeded random weights: launch counts, finite
    outputs, p50 latency, valid boxes, peak memory; plus decode_boxes with
    score_thr=0 so NMS sees its full 900 x 10 load; then the same predict
    split at its layer boundaries (time and peak memory of each part);
-6. tiny_test_config predict with the kernels on the card against the same
-   weights on the CPU with the plain versions;
-7. the `kernels` line: per kernel, launches per predict, max error against
-   the plain version, and per-predict times (kernel, plain version, bound,
-   one PyTorch library call).
+8. flagship train step at full width, batch 2 with synthetic GT, dropout
+   as configured: launch counts of all five kernels, finite losses, a
+   finite grad for every parameter and every parameter moved, step p50,
+   peak memory, the step split into forward, loss + OTA, backward and
+   optimizer, and one step under torch.profiler (device busy time and
+   share, the kernels that took most of it);
+9. tiny_test_config predict, and 10. two tiny train steps, with the
+   kernels on the card against the same weights on the CPU with the plain
+   versions;
+11. the `kernels` line: per kernel, launches (per predict for K1 and K2, per
+   train step for K3-K5), max error against the plain version, and times
+   per predict or per train step (kernel, plain version, bound, one
+   PyTorch library call).
 
 The second-to-last line is nvidia-smi's name and power limit; the last line
 is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -41,10 +54,11 @@ import torch
 # CUDA-core flop/s, the bound of a float32 kernel without tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
-# K1: rtol + atol * sqrt(K * Cin); the kernel sums over offsets then
-# channels, the plain matmul in another order, so float32 rounding differs
-# by a few ulps per term of the K * Cin-term sums
-K1_RTOL, K1_ATOL = 1e-5, 1e-5
+# every kernel against its plain version: rtol + atol * sqrt(terms summed
+# into an output element); the kernel sums in another order than the plain
+# version (K5 with atomics, in an order that changes from run to run), so
+# float32 rounding differs by a few ulps per term
+RTOL, ATOL = 1e-5, 1e-5
 
 
 def emit(obj) -> None:
@@ -74,28 +88,43 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def synthetic_batch(cfg, seed: int = 0):
+def synthetic_batch(cfg, b: int = 1, seed: int = 0, with_gt: bool = False):
     """The JAX package's synthetic scene (__graft_entry__._synthetic_batch):
-    half of points_cap real, uniform in pc_range, seeded."""
+    half of points_cap real, uniform in pc_range, seeded; with_gt adds
+    gt_cap GT boxes of which the first 8 are valid."""
     rng = np.random.default_rng(seed)
     p = cfg.points_cap
-    pts = np.zeros((1, p, cfg.points_dim), np.float32)
+    pts = np.zeros((b, p, cfg.points_dim), np.float32)
     n = p // 2
     lo, hi = cfg.pc_range[:3], cfg.pc_range[3:6]
     for d in range(3):
-        pts[:, :n, d] = rng.uniform(lo[d], hi[d], (1, n))
-    pts[:, :n, 3:] = rng.uniform(0, 1, (1, n, cfg.points_dim - 3))
-    mask = np.zeros((1, p), bool)
+        pts[:, :n, d] = rng.uniform(lo[d], hi[d], (b, n))
+    pts[:, :n, 3:] = rng.uniform(0, 1, (b, n, cfg.points_dim - 3))
+    mask = np.zeros((b, p), bool)
     mask[:, :n] = True
-    return {"points": torch.from_numpy(pts), "points_mask":
-            torch.from_numpy(mask)}
+    batch = {"points": pts, "points_mask": mask}
+    if with_gt:
+        g = cfg.gt_cap
+        gt = np.zeros((b, g, 9 if cfg.head.code_size == 10 else 7),
+                      np.float32)
+        gt[..., 0] = rng.uniform(lo[0] * 0.8, hi[0] * 0.8, (b, g))
+        gt[..., 1] = rng.uniform(lo[1] * 0.8, hi[1] * 0.8, (b, g))
+        gt[..., 2] = rng.uniform(lo[2] * 0.5, hi[2] * 0.5, (b, g))
+        gt[..., 3:6] = rng.uniform(0.5, 4.0, (b, g, 3))
+        gt[..., 6] = rng.uniform(-np.pi, np.pi, (b, g))
+        batch["gt_labels"] = rng.integers(0, cfg.num_classes,
+                                          (b, g)).astype(np.int32)
+        gmask = np.zeros((b, g), bool)
+        gmask[:, :min(8, g)] = True
+        batch["gt_boxes"], batch["gt_mask"] = gt, gmask
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
 def flagship_rulebooks(cfg, batch, dev):
-    """Walk the flagship encoder's rulebooks on the card.  Returns the
-    gather_conv cases [(name, rows N, rulebook (M, K), Cin, Cout, launches
-    per predict)] and the eq-match cases [(stage, ColumnSet, vcol, vz,
-    vyx, mask)], one per subm stage."""
+    """Walk the flagship encoder's rulebooks on the card for the batch's B
+    samples.  Returns the gather_conv cases [(name, rows N, rulebook (M,
+    K), Cin, Cout, launches per forward)] and the eq-match cases [(stage,
+    ColumnSet, vcol, vz, vyx, mask)], one per subm stage."""
     from srfdet3d_torch.models.sparse_encoder import BitmapRulebooks
     from srfdet3d_torch.ops.voxelize import voxelize_points_batched
     spec = cfg.voxelization
@@ -110,7 +139,8 @@ def flagship_rulebooks(cfg, batch, dev):
         subm.append((i, rb.cs, rb.vcol, rb.vz, rb.vyx, rb.mask))
         return rb.subm().reshape(-1, 27)
 
-    rows = spec.max_voxels
+    b = batch["points"].shape[0]
+    rows = b * spec.max_voxels
     gidx = stage_subm(0)
     conv.append(("conv_input", rows, gidx, m.in_channels, m.base_channels, 1))
     cin = m.base_channels
@@ -122,7 +152,7 @@ def flagship_rulebooks(cfg, batch, dev):
             pad = m.encoder_paddings[i][len(blocks) - 1]
             down = rb.downsample(pad, m.capacities[i]).reshape(-1, 27)
             conv.append((f"down{i}", rows, down, cin, blocks[-1], 1))
-            rows, cin = m.capacities[i], blocks[-1]
+            rows, cin = b * m.capacities[i], blocks[-1]
             gidx = stage_subm(i + 1)
     out = rb.convout(m.capacities[-1]).reshape(-1, 3)
     conv.append(("conv_out", rows, out, cin, m.output_channels, 1))
@@ -143,7 +173,7 @@ def check_gather_conv(cases, dev, gen):
         ref = gather_conv_plain(feats, idx, w)
         torch.cuda.synchronize()
         err = (got - ref).abs()
-        tol = K1_RTOL * ref.abs() + K1_ATOL * math.sqrt(k * cin)
+        tol = RTOL * ref.abs() + ATOL * math.sqrt(k * cin)
         if not bool((err <= tol).all()):
             raise AssertionError(f"gather_conv {name}: max err "
                                  f"{float(err.max())} over tolerance")
@@ -214,15 +244,177 @@ def check_eqmatch(cases):
     return totals
 
 
+def check_conv_bwd(cases, dev, gen):
+    """K3 and K4 at every conv of the flagship train step (batch 2): dfeats
+    (where the step needs it; conv_input's input has no parameters) and dW
+    against the plain versions, then times per launch."""
+    from srfdet3d_torch.ops import gather_conv_bwd as gcb
+    totals = {kind: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                         library_ms=0.0, flop_bound_ms=0.0,
+                         byte_bound_ms=0.0, max_abs_err=0.0)
+              for kind in ("subm", "strided")}
+    for name, n, idx, cin, cout, per_step in cases:
+        m, k = idx.shape
+        subm = name == "conv_input" or name.endswith("_subm")
+        kind = "subm" if subm else "strided"
+        need = name != "conv_input"
+        feats = torch.randn(n, cin, generator=gen).to(dev)
+        w = (torch.randn(k, cin, cout, generator=gen) *
+             math.sqrt(2.0 / (k * cin))).to(dev)
+        g = torch.randn(m, cout, generator=gen).to(dev)
+        if subm:
+            rb = idx
+            w_bwd = w.flip(0)
+
+            def kern():
+                return gcb.subm_conv_bwd(feats, idx, w, g, need)
+
+            def plain():
+                return gcb.gather_bwd_plain(feats, idx, w, g, True, need)
+        else:
+            rb = gcb.reverse_rulebook(idx, n)
+            w_bwd = w
+
+            def kern():
+                return gcb.strided_conv_bwd(feats, idx, w, g, need)
+
+            def plain():
+                return gcb.scatter_bwd_plain(feats, idx, w, g, need)
+        (got_f, got_w), (ref_f, ref_w) = kern(), plain()
+        torch.cuda.synchronize()
+        hits = idx < n
+        nnz = int(hits.sum())
+        per_offset = int(hits.sum(0).max())
+        errs = []
+        for what, got, ref, terms in (("dW", got_w, ref_w, per_offset),
+                                      ("dfeats", got_f, ref_f, k * cout)):
+            if ref is None:
+                continue
+            err = (got - ref).abs()
+            tol = RTOL * ref.abs() + ATOL * math.sqrt(max(terms, 1))
+            if not bool((err <= tol).all()):
+                raise AssertionError(f"conv_bwd {name} {what}: max err "
+                                     f"{float(err.max())} over tolerance")
+            errs.append(float(err.max()))
+        g0 = torch.cat([g, g.new_zeros(1, cout)])
+        flat_rb = rb.reshape(-1).long()
+        wt2 = w_bwd.transpose(1, 2).reshape(k * cout, cin)
+
+        def library():
+            gat = torch.index_select(g0, 0, flat_rb).view(n, k * cout)
+            dw = feats.t() @ gat
+            return (gat @ wt2 if need else None), dw
+        ms = time_ms(kern)
+        plain_ms = time_ms(plain)
+        lib_ms = time_ms(library)
+        products = 2 if need else 1
+        flops = products * 2.0 * nnz * cin * cout
+        nbytes = 4.0 * (n * cin + m * k + m * cout + 2 * k * cin * cout +
+                        (n * cin if need else 0))
+        fb, bb = flops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+        emit(dict(phase="conv_bwd", kernel="K3" if subm else "K4", conv=name,
+                  n=n, m=m, k=k, cin=cin, cout=cout, dfeats=need,
+                  launches_per_step=per_step, max_abs_err=max(errs), ms=ms,
+                  plain_ms=plain_ms, library_ms=lib_ms,
+                  bound_ms=max(fb, bb),
+                  bound_by="operations" if fb >= bb else "bytes", nnz=nnz))
+        t = totals[kind]
+        t["max_abs_err"] = max(t["max_abs_err"], max(errs))
+        for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                         ("library_ms", lib_ms), ("bound_ms", max(fb, bb)),
+                         ("flop_bound_ms", fb if fb >= bb else 0.0),
+                         ("byte_bound_ms", bb if bb > fb else 0.0)):
+            t[key] += per_step * val
+    return totals
+
+
+def check_roi_bwd(cfg, dev, gen):
+    """K5 at the flagship head's geometry: batch 2 x 900 RoIs from boxes
+    of nuScenes-like sizes anywhere in range, the four FPN levels at C 128,
+    patch 32 with 64 fallback slots; against index_add_ (the plain
+    version).  Returns one launch's numbers."""
+    from srfdet3d_torch.models.detector import bev_geometry
+    from srfdet3d_torch.models.head import lidar_rois_from_boxes
+    from srfdet3d_torch.ops.roi_align import corner_samples
+    from srfdet3d_torch.ops.roi_scatter import (roi_scatter,
+                                                roi_scatter_plain,
+                                                sample_grads)
+    hc = cfg.head
+    b, r, c, out, sr = 2, hc.num_proposals, hc.feat_channels_lidar, 7, 2
+    _, sizes = bev_geometry(cfg)
+    rng = np.random.default_rng(1)
+    lo, hi = np.array(cfg.pc_range[:3]), np.array(cfg.pc_range[3:6])
+    boxes = np.zeros((b, r, hc.code_size), np.float32)
+    boxes[..., :3] = rng.uniform(lo, hi, (b, r, 3))
+    boxes[..., 3:6] = np.log(rng.uniform(0.5, 12.0, (b, r, 3)))
+    yaw = rng.uniform(-np.pi, np.pi, (b, r))
+    boxes[..., 6], boxes[..., 7] = np.sin(yaw), np.cos(yaw)
+    rois = lidar_rois_from_boxes(torch.from_numpy(boxes).to(dev),
+                                 cfg.pc_range, cfg.voxel_size)
+    idx, wgt, drop = corner_samples(sizes, rois, hc.lidar_strides, out, sr,
+                                    patch=hc.roi_patch,
+                                    patch_fallback=hc.roi_patch_fallback)
+    rows = b * sum(h * w for h, w in sizes)
+    gp = torch.randn(b * r, out, out, c, generator=gen).to(dev)
+
+    def kern():
+        return roi_scatter(gp, idx, wgt, drop, rows, sr)
+
+    def plain():
+        return roi_scatter_plain(gp, idx, wgt, drop, rows, sr)
+    got, ref = kern(), plain()
+    torch.cuda.synchronize()
+    live = (wgt != 0) & ~drop[:, None, None, None]
+    per_row = int(torch.bincount(idx[live].reshape(-1),
+                                 minlength=rows).max())
+    err = (got - ref).abs()
+    tol = RTOL * ref.abs() + ATOL * math.sqrt(max(per_row, 1))
+    if not bool((err <= tol).all()):
+        raise AssertionError(f"roi_scatter: max err {float(err.max())} "
+                             f"over tolerance")
+    flat_idx = idx.reshape(-1)
+    contrib = (wgt[..., None] * sample_grads(gp, drop, sr)[:, None]
+               ).reshape(-1, c)
+    dt0 = torch.zeros(rows, c, device=dev)
+
+    def library():
+        return dt0.index_add_(0, flat_idx, contrib)
+    ms, plain_ms, lib_ms = time_ms(kern), time_ms(plain), time_ms(library)
+    del contrib
+    nbytes = (4.0 * (gp.numel() + 2 * idx.numel() + rows * c) +
+              drop.numel())
+    bound = nbytes / PEAK_BYTES * 1e3
+    row = dict(phase="roi_bwd", rois=b * r, levels=sizes, c=c,
+               patch=hc.roi_patch, fallback=hc.roi_patch_fallback,
+               dropped=int(drop.sum()), max_adds_per_row=per_row,
+               max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms,
+               library_ms=lib_ms, bound_ms=bound, bound_by="bytes")
+    emit(row)
+    return row
+
+
+COUNTED = ("gather_conv", "eqmatch", "subm_bwd", "strided_bwd",
+           "roi_scatter")
+
+
 def reset_counts():
-    from srfdet3d_torch.ops import eqmatch, gather_conv
+    from srfdet3d_torch.ops import (eqmatch, gather_conv, gather_conv_bwd,
+                                    roi_scatter)
     gather_conv.launches = 0
     eqmatch.launches = 0
+    gather_conv_bwd.subm_launches = 0
+    gather_conv_bwd.strided_launches = 0
+    roi_scatter.launches = 0
 
 
 def read_counts():
-    from srfdet3d_torch.ops import eqmatch, gather_conv
-    return gather_conv.launches, eqmatch.launches
+    """Launches since reset_counts of the kernels in COUNTED order."""
+    from srfdet3d_torch.ops import (eqmatch, gather_conv, gather_conv_bwd,
+                                    roi_scatter)
+    return dict(zip(COUNTED, (gather_conv.launches, eqmatch.launches,
+                              gather_conv_bwd.subm_launches,
+                              gather_conv_bwd.strided_launches,
+                              roi_scatter.launches)))
 
 
 def all_finite(out) -> bool:
@@ -239,7 +431,10 @@ def flagship_predict(cfg, batch, smi):
     reset_counts()
     out = model.predict(dev_batch)
     torch.cuda.synchronize()
-    k1, k2 = read_counts()
+    counts = read_counts()
+    k1, k2 = counts["gather_conv"], counts["eqmatch"]
+    if any(counts[k] for k in COUNTED[2:]):
+        raise AssertionError(f"predict launched a backward kernel: {counts}")
     predict_sweeps = iou.last_nms_sweeps
     if (k1, k2) != (21, 4):
         raise AssertionError(f"flagship predict launched gather_conv {k1} "
@@ -339,6 +534,238 @@ def flagship_parts(model, batch, smi, runs: int = 5):
               peak_mem_bytes=peak))
 
 
+def train_launches(model):
+    """Launches per train step the model's structure gives: every gathered
+    conv once forward (K1), one eq-match per subm stage (K2), every subm
+    conv's backward (K3), every strided and conv_out backward (K4), one
+    RoIAlign backward per head iteration (K5)."""
+    from srfdet3d_torch.models.sparse_encoder import GatheredConvBN
+    convs = [mod for mod in model.pts_middle_encoder.modules()
+             if isinstance(mod, GatheredConvBN)]
+    n_subm = sum(c.subm for c in convs)
+    stages = len(model.cfg.middle.encoder_channels)
+    return dict(zip(COUNTED, (len(convs), stages, n_subm,
+                              len(convs) - n_subm,
+                              len(model.bbox_head.heads))))
+
+
+def device_busy(fn, top: int = 10):
+    """One call of fn under torch.profiler: its host ms, the summed device
+    ms of its kernels (one stream, so they do not overlap), the busy share
+    and the kernels that took most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        kernels.append((us / 1e3, e.count, e.key))
+    kernels.sort(reverse=True)
+    busy_ms = sum(k[0] for k in kernels)
+    return dict(host_ms=wall_ms, device_busy_ms=busy_ms,
+                busy_share=busy_ms / wall_ms if busy_ms else None,
+                top_kernels=[dict(ms=ms, calls=n, name=name[:90])
+                             for ms, n, name in kernels[:top]])
+
+
+def flagship_train(cfg, smi, warmup: int = 2, steps: int = 10):
+    """The flagship train step at full width, batch 2, synthetic scene and
+    GT, dropout as configured, seeded random weights."""
+    from srfdet3d_torch.models.detector import SRFDet
+    from srfdet3d_torch.models.losses import srfdet_losses
+    from srfdet3d_torch.train.trainer import make_optimizer, train_step
+    model = SRFDet(cfg, device="cuda", seed=0)
+    batch = {k: v.cuda() for k, v in
+             synthetic_batch(cfg, 2, seed=0, with_gt=True).items()}
+    opt = make_optimizer(model, cfg, total_steps=1000)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    want = train_launches(model)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    def step():
+        reset_counts()
+        metrics = train_step(model, opt, batch, gen)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if counts != want:
+            raise AssertionError(f"train step launched {counts}, the "
+                                 f"model's structure gives {want}")
+        bad = [k for k, v in metrics.items()
+               if not bool(torch.isfinite(v).all())]
+        if bad:
+            raise AssertionError(f"train step: non-finite {bad}")
+        return metrics
+
+    first = step()
+    # every parameter got a finite grad and moved; a parameter can only
+    # stay put under AdamW if its grad and its value are exactly zero
+    stuck = []
+    for name, p in model.named_parameters():
+        if p.grad is None or not bool(torch.isfinite(p.grad).all()):
+            raise AssertionError(f"train step: {name} has no finite grad")
+        if torch.equal(p.detach(), before[name]):
+            stuck.append(name)
+            if bool(p.grad.any()) or bool(p.detach().any()):
+                raise AssertionError(f"train step: {name} did not move")
+    del before
+    for _ in range(warmup - 1):
+        step()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last = step()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+
+    busy = device_busy(step)
+    parts = {}
+    gt = (batch["gt_boxes"], batch["gt_labels"], batch["gt_mask"])
+    for _ in range(3):
+        model.train()
+        for p in opt.params:
+            p.grad = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, boxes = model(batch, generator=gen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses = srfdet_losses(logits, boxes, *gt, cfg.loss, cfg.ota,
+                               decoder_num_heads=cfg.head.num_heads)
+        total = sum(losses.values())
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        total.backward()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        opt.step()
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for part, a, b_ in (("forward", t0, t1), ("loss_ota", t1, t2),
+                            ("backward", t2, t3), ("optimizer", t3, t4)):
+            parts.setdefault(part, []).append((b_ - a) * 1e3)
+    emit(dict(phase="flagship_train", config=cfg.name, batch=2,
+              points=cfg.points_cap, gt_valid=8, dropout=cfg.head.dropout,
+              launches_per_step=want, finite=True,
+              params=sum(p.numel() for p in opt.params),
+              leaves=len(opt.params), zero_grad_unmoved=stuck,
+              first_loss=float(first["loss"]),
+              last_loss=float(last["loss"]),
+              first_grad_norm=float(first["grad_norm"]),
+              losses={k: float(v) for k, v in last.items()},
+              p50_ms=statistics.median(times), min_ms=min(times),
+              max_ms=max(times), runs=len(times), peak_mem_bytes=peak,
+              parts_p50_ms={k: statistics.median(v)
+                            for k, v in parts.items()},
+              profiled_step=busy, device=smi))
+    return want
+
+
+def tiny_train(steps: int = 2):
+    """Tiny train steps: kernels on the card vs plain versions on the CPU.
+    Each step starts both from the same state (the CPU's weights, BN
+    statistics and AdamW moments), so each compares one step, not two
+    drifting runs.  Per step: losses and the grad norm within rtol 1e-4 +
+    atol 1e-5; every grad within 2e-3 of its leaf's largest, or of 1e-5 of
+    the tree's largest where that is more (the attention key bias, whose
+    grad is zero up to rounding: the softmax ignores a shift along the
+    keys, so its few 1e-8 of noise exceed 2e-3 of its own largest); BN
+    statistics within rtol
+    1e-4 + atol 1e-5; parameters within 1e-6 where both grads are outside
+    that tolerance with one sign, and within 2 lr + 1e-6 elsewhere (Adam
+    moves a parameter by about lr * sign(grad)).
+
+    The grads of a float32 step are discontinuous where an activation sits
+    at a ReLU's kink, so a 1e-6 change of the weights can move a leaf's
+    grad by percents.  The config and seeds are picked where it does not:
+    `tiny_test_config(points_cap=256, voxels_cap=256, gt_cap=4)`, the
+    patch RoIAlign scaled down (8 cells, 2 fallback slots), model seed 2,
+    batch seed 5, dropout 0; tests/test_torch_port_train.py::
+    test_tiny_train_seeds_are_well_conditioned holds every leaf's grad
+    within 1e-3 under 1e-6 noise on the weights, for both steps."""
+    import dataclasses
+    from srfdet3d_torch.configs import tiny_test_config
+    from srfdet3d_torch.models.detector import SRFDet
+    from srfdet3d_torch.train.trainer import (make_lr_schedule,
+                                              make_optimizer, train_step)
+    cfg = tiny_test_config(points_cap=256, voxels_cap=256, gt_cap=4)
+    cfg = cfg.replace(head=dataclasses.replace(cfg.head, roi_patch=8,
+                                               roi_patch_fallback=2))
+    batch = synthetic_batch(cfg, 2, seed=5, with_gt=True)
+    gbatch = {k: v.cuda() for k, v in batch.items()}
+    cpu = SRFDet(cfg, device="cpu", seed=2)
+    gpu = SRFDet(cfg, device="cuda", seed=2)
+    opt_c, opt_g = make_optimizer(cpu, cfg, 100), make_optimizer(gpu, cfg,
+                                                                 100)
+    lr = make_lr_schedule(cfg.optim, 100)
+    worst = dict(loss=0.0, grad_rel_leaf=0.0, param_resolved=0.0,
+                 param_any=0.0)
+    worst_leaf = None
+    for i in range(steps):
+        gpu.load_state_dict(cpu.state_dict())
+        opt_g.mu.copy_(opt_c.mu)
+        opt_g.nu.copy_(opt_c.nu)
+        opt_g.count = opt_c.count
+        step_lr = lr(opt_c.count)
+        mc = train_step(cpu, opt_c, batch, torch.Generator().manual_seed(0))
+        reset_counts()
+        mg = train_step(gpu, opt_g, gbatch,
+                        torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if not all(counts[k] for k in COUNTED):
+            raise AssertionError(f"tiny train step skipped a kernel: "
+                                 f"{counts}")
+        for k, v in mc.items():
+            torch.testing.assert_close(mg[k].cpu(), v, rtol=1e-4, atol=1e-5)
+            worst["loss"] = max(worst["loss"],
+                                float((mg[k].cpu() - v).abs()))
+        pc = dict(cpu.named_parameters())
+        pg = dict(gpu.named_parameters())
+        tree_max = max(float(p.grad.abs().max()) for p in pc.values())
+        for n, p in pc.items():
+            ref, got = p.grad, pg[n].grad.cpu()
+            scale = max(float(ref.abs().max()), 1e-5 * tree_max)
+            err = float((got - ref).abs().max())
+            if err > 2e-3 * scale:
+                raise AssertionError(f"tiny train step {i}: grad of {n} off "
+                                     f"by {err} ({err / scale} of its "
+                                     f"largest)")
+            if err / scale > worst["grad_rel_leaf"]:
+                worst["grad_rel_leaf"] = err / scale
+                worst_leaf = f"step {i}: {n}"
+            resolved = ((ref.abs() > 2e-3 * scale) &
+                        (got.abs() > 2e-3 * scale) &
+                        (torch.sign(ref) == torch.sign(got)))
+            diff = (pg[n].detach().cpu() - p.detach()).abs()
+            near = float(diff[resolved].max()) if bool(resolved.any()) \
+                else 0.0
+            far = float(diff.max())
+            if near > 1e-6 or far > 2 * step_lr + 1e-6:
+                raise AssertionError(f"tiny train step {i}: {n} off by "
+                                     f"{near} (resolved) / {far}")
+            worst["param_resolved"] = max(worst["param_resolved"], near)
+            worst["param_any"] = max(worst["param_any"], far)
+        for (n, bc), bg in zip(cpu.named_buffers(), gpu.buffers()):
+            if not n.endswith("num_batches_tracked"):
+                torch.testing.assert_close(bg.cpu(), bc, rtol=1e-4,
+                                           atol=1e-5)
+    emit(dict(phase="tiny_train", steps=steps, launches_last_step=counts,
+              lr=lr(0), loss_first=float(mc["loss"]), worst_leaf=worst_leaf,
+              **{f"max_{k}_err": v for k, v in worst.items()}))
+
+
 def tiny_end_to_end():
     """tiny_test_config predict: kernels on the card vs plain versions on
     the CPU, same weights (same seed).  Forward outputs agree within
@@ -374,7 +801,8 @@ def tiny_end_to_end():
     with torch.no_grad():
         lg, bg = gpu(batch)
         lc, bc = cpu(batch)
-    k1, k2 = read_counts()
+    counts = read_counts()
+    k1, k2 = counts["gather_conv"], counts["eqmatch"]
     if k1 == 0 or k2 == 0:
         raise AssertionError("tiny predict on the card skipped a kernel")
     ferr = max(float((lg.cpu() - lc).abs().max()),
@@ -409,6 +837,16 @@ def tiny_end_to_end():
               eqmatch_launches=k2, forward_max_abs_err=ferr, **worst))
 
 
+def kernel_entry(name, source, replaces, launches, t, max_err):
+    bound_by = t.get("bound_by") or (
+        "operations" if t["flop_bound_ms"] >= t["byte_bound_ms"]
+        else "bytes")
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=launches, max_abs_err=max_err, ms=t["ms"],
+                plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                bound_by=bound_by, library_ms=t.get("library_ms"))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -422,38 +860,56 @@ def main() -> int:
     emit(dict(phase="device", nvidia_smi=smi, kind=kind,
               count=torch.cuda.device_count(), torch=torch.__version__,
               cuda=torch.version.cuda))
-    secs = cuda_build.build_kernels(["gather_conv", "eqmatch"])
+    secs = cuda_build.build_kernels(["gather_conv", "eqmatch",
+                                     "gather_conv_bwd", "roi_scatter"])
     emit(dict(phase="build", seconds=secs))
 
     cfg = srfdet_voxel_nusc_L()
-    batch = synthetic_batch(cfg, seed=0)
+    batch = synthetic_batch(cfg, 1, seed=0)
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     with torch.no_grad():
         conv_cases, subm_cases = flagship_rulebooks(cfg, batch, dev)
         k1_err, k1 = check_gather_conv(conv_cases, dev, gen)
         k2 = check_eqmatch(subm_cases)
-    del conv_cases, subm_cases
+        del conv_cases, subm_cases
+        train_cases, _ = flagship_rulebooks(
+            cfg, synthetic_batch(cfg, 2, seed=0), dev)
+        bwd = check_conv_bwd(train_cases, dev, gen)
+        del train_cases
+        k5 = check_roi_bwd(cfg, dev, gen)
     torch.cuda.empty_cache()
 
     k1_launches, k2_launches = flagship_predict(cfg, batch, smi)
+    torch.cuda.empty_cache()
+    per_step = flagship_train(cfg, smi)
+    torch.cuda.empty_cache()
     tiny_end_to_end()
+    tiny_train()
 
+    k5_steps = per_step["roi_scatter"]
+    k5_step = {key: k5_steps * k5[key]
+               for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    k5_step["bound_by"] = "bytes"
     emit({"kernels": [
-        dict(name="gather_conv", route="cuda",
-             source="srfdet3d_torch/csrc/gather_conv.cu",
-             replaces="srfdet3d_tpu/ops/pallas_onehot.py:67",
-             launches=k1_launches, max_abs_err=k1_err, ms=k1["ms"],
-             plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
-             bound_by=("operations" if k1["flop_bound_ms"] >=
-                       k1["byte_bound_ms"] else "bytes"),
-             library_ms=k1["library_ms"]),
-        dict(name="eqmatch", route="cuda",
-             source="srfdet3d_torch/csrc/eqmatch.cu",
-             replaces="srfdet3d_tpu/ops/pallas_eqmatch.py:53",
-             launches=k2_launches, max_abs_err=0.0, ms=k2["ms"],
-             plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
-             bound_by="bytes", library_ms=None)]})
+        kernel_entry("gather_conv", "srfdet3d_torch/csrc/gather_conv.cu",
+                     "srfdet3d_tpu/ops/pallas_onehot.py:67", k1_launches,
+                     k1, k1_err),
+        kernel_entry("eqmatch", "srfdet3d_torch/csrc/eqmatch.cu",
+                     "srfdet3d_tpu/ops/pallas_eqmatch.py:53", k2_launches,
+                     dict(k2, bound_by="bytes", library_ms=None), 0.0),
+        kernel_entry("conv_bwd_subm", "srfdet3d_torch/csrc/gather_conv_bwd.cu",
+                     "srfdet3d_tpu/ops/pallas_onehot_bwd.py:320",
+                     per_step["subm_bwd"], bwd["subm"],
+                     bwd["subm"]["max_abs_err"]),
+        kernel_entry("conv_bwd_strided",
+                     "srfdet3d_torch/csrc/gather_conv_bwd.cu",
+                     "srfdet3d_tpu/ops/pallas_onehot_bwd.py:33",
+                     per_step["strided_bwd"], bwd["strided"],
+                     bwd["strided"]["max_abs_err"]),
+        kernel_entry("roi_scatter", "srfdet3d_torch/csrc/roi_scatter.cu",
+                     "srfdet3d_tpu/ops/pallas_patch_scatter.py:69", k5_steps,
+                     k5_step, k5["max_abs_err"])]})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

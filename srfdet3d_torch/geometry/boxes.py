@@ -9,6 +9,17 @@ from __future__ import annotations
 import torch
 
 
+def normalize_bbox(bboxes: torch.Tensor) -> torch.Tensor:
+    """Raw [cx, cy, cz, w, l, h, yaw (, vx, vy)] -> normalized box code
+    (reference util.py:4-38; the center passes through)."""
+    rot = bboxes[..., 6:7]
+    parts = [bboxes[..., 0:3], torch.log(bboxes[..., 3:6]), torch.sin(rot),
+             torch.cos(rot)]
+    if bboxes.shape[-1] > 7:
+        parts.append(bboxes[..., 7:9])
+    return torch.cat(parts, -1)
+
+
 def denormalize_bbox(normalized: torch.Tensor) -> torch.Tensor:
     """Normalized box code -> raw [cx, cy, cz, w, l, h, yaw (, vx, vy)]."""
     rot = torch.atan2(normalized[..., 6:7], normalized[..., 7:8])

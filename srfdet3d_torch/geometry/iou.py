@@ -1,4 +1,4 @@
-"""Rotated BEV IoU and rotated multiclass NMS, static shapes.
+"""Rotated BEV and 3D IoU and rotated multiclass NMS, static shapes.
 
 The intersection of two rotated rectangles is a Green's-theorem boundary
 integral: box A's edges clipped to box B plus B's edges clipped to A, each
@@ -95,6 +95,28 @@ def rotated_iou_bev(boxes1: torch.Tensor, boxes2: torch.Tensor
     a1 = (boxes1[..., 2] * boxes1[..., 3])[..., :, None]
     a2 = (boxes2[..., 2] * boxes2[..., 3])[..., None, :]
     return inter / (a1 + a2 - inter).clamp_min(_EPS)
+
+
+def iou_3d(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """Pairwise 3D IoU of LiDAR boxes with gravity-center z: (..., N, 7+)
+    x (..., M, 7+) [cx, cy, cz, w, l, h, yaw, ...] raw sizes ->
+    (..., N, M).  Both inputs use the same z convention."""
+    bev1 = torch.cat([boxes1[..., 0:2], boxes1[..., 3:5], boxes1[..., 6:7]],
+                     -1)
+    bev2 = torch.cat([boxes2[..., 0:2], boxes2[..., 3:5], boxes2[..., 6:7]],
+                     -1)
+    inter_bev = rotated_intersection_pairs(bev1[..., :, None, :],
+                                           bev2[..., None, :, :])
+    z1, h1 = boxes1[..., 2], boxes1[..., 5]
+    z2, h2 = boxes2[..., 2], boxes2[..., 5]
+    zmin1, zmax1 = (z1 - h1 / 2)[..., :, None], (z1 + h1 / 2)[..., :, None]
+    zmin2, zmax2 = (z2 - h2 / 2)[..., None, :], (z2 + h2 / 2)[..., None, :]
+    overlap_z = (torch.minimum(zmax1, zmax2) -
+                 torch.maximum(zmin1, zmin2)).clamp_min(0.0)
+    inter = inter_bev * overlap_z
+    vol1 = (boxes1[..., 3] * boxes1[..., 4] * boxes1[..., 5])[..., :, None]
+    vol2 = (boxes2[..., 3] * boxes2[..., 4] * boxes2[..., 5])[..., None, :]
+    return inter / (vol1 + vol2 - inter).clamp_min(_EPS)
 
 
 # fixed-point sweeps of the last rotated_nms_bev call (a host-side count)

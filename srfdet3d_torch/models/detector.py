@@ -8,13 +8,18 @@ head.  Input contract, as in the JAX package:
 
 The model lives on `cuda` unless built with device="cpu"; weights are a
 seeded random init (`seed`) or come from the JAX package through
-`utils.jax_params.load_jax_params`.
+`utils.jax_params.load_jax_params`.  It is built in eval mode; `.train()`
+puts it in train mode (batch-statistics BN, the head's dropout, whose masks
+come from the generator passed to `forward`), except that with
+`cfg.optim.freeze_lidar` the `pts_*` modules stay in eval mode and keep
+their BN statistics, and their features are detached (JAX
+`detector.py:191-203`).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -28,6 +33,10 @@ from .layers import MaskedBatchNorm
 from .second import SECOND
 from .sparse_encoder import GatheredConvBN, SparseEncoder
 from .vfe import HardSimpleVFE
+
+# the LiDAR branch that cfg.optim.freeze_lidar freezes
+LIDAR_MODULES = ("pts_voxel_encoder", "pts_middle_encoder", "pts_backbone",
+                 "pts_neck")
 
 
 def _flatten_voxelization(vox: VoxelizedPoints, v_cap: int
@@ -48,6 +57,29 @@ def _flatten_voxelization(vox: VoxelizedPoints, v_cap: int
 
 def _conv_out_size(n: int, stride: int = 2, pad: int = 1) -> int:
     return (n + 2 * pad - 3) // stride + 1
+
+
+def bev_geometry(cfg: SRFDetConfig):
+    """(depth of the encoder's output, the FPN levels' (H, W)): the plan
+    size after the encoder's downsamples, then SECOND's strides and the
+    FPN's stride-2 extra levels."""
+    m = cfg.middle
+    d, h, w = cfg.voxelization.sparse_shape
+    n_stages = len(m.encoder_channels)
+    for i, blocks in enumerate(m.encoder_channels[:n_stages - 1]):
+        pad = m.encoder_paddings[i][len(blocks) - 1]
+        pz, py, px = (pad,) * 3 if isinstance(pad, int) else pad
+        d = _conv_out_size(d, 2, pz)
+        h, w = _conv_out_size(h, 2, py), _conv_out_size(w, 2, px)
+    d = _conv_out_size(d, 2, 0)
+    sizes = []
+    for s in cfg.backbone.layer_strides:
+        h, w = _conv_out_size(h, s), _conv_out_size(w, s)
+        sizes.append((h, w))
+    while len(sizes) < cfg.neck_num_outs:
+        h, w = _conv_out_size(h), _conv_out_size(w)
+        sizes.append((h, w))
+    return d, sizes
 
 
 def _check_supported(cfg: SRFDetConfig) -> None:
@@ -90,25 +122,10 @@ class SRFDet(nn.Module):
             m.output_channels, m.encoder_channels, m.encoder_paddings,
             m.capacities)
 
-        # BEV geometry: depth and plan size after the encoder's downsamples
-        d, h, w = spec.sparse_shape
-        n_stages = len(m.encoder_channels)
-        for i, blocks in enumerate(m.encoder_channels[:n_stages - 1]):
-            pad = m.encoder_paddings[i][len(blocks) - 1]
-            pz, py, px = (pad,) * 3 if isinstance(pad, int) else pad
-            d = _conv_out_size(d, 2, pz)
-            h, w = _conv_out_size(h, 2, py), _conv_out_size(w, 2, px)
-        d = _conv_out_size(d, 2, 0)
+        d, sizes = bev_geometry(cfg)
         bb = cfg.backbone
         self.pts_backbone = SECOND(d * m.output_channels, bb.out_channels,
                                    bb.layer_nums, bb.layer_strides)
-        sizes = []
-        for s in bb.layer_strides:
-            h, w = _conv_out_size(h, s), _conv_out_size(w, s)
-            sizes.append((h, w))
-        while len(sizes) < cfg.neck_num_outs:
-            h, w = _conv_out_size(h), _conv_out_size(w)
-            sizes.append((h, w))
         self.pts_neck = FPN(bb.out_channels, cfg.neck_out_channels,
                             cfg.neck_num_outs)
         hc = cfg.head
@@ -124,10 +141,17 @@ class SRFDet(nn.Module):
             num_cls_convs=hc.num_cls_convs, num_reg_convs=hc.num_reg_convs,
             num_attn_heads=hc.num_attn_heads, dynamic_dim=hc.dynamic_dim,
             lidar_strides=tuple(hc.lidar_strides), roi_patch=hc.roi_patch,
-            roi_patch_fallback=hc.roi_patch_fallback)
+            roi_patch_fallback=hc.roi_patch_fallback, dropout=hc.dropout)
         self._init_weights(torch.Generator().manual_seed(seed))
         self.to(dev)
         self.eval()
+
+    def train(self, mode: bool = True) -> "SRFDet":
+        super().train(mode)
+        if mode and self.cfg.optim.freeze_lidar:
+            for name in LIDAR_MODULES:
+                getattr(self, name).eval()
+        return self
 
     @property
     def device(self) -> torch.device:
@@ -195,9 +219,15 @@ class SRFDet(nn.Module):
         stages = self.pts_backbone(bev.permute(0, 3, 1, 2).contiguous())
         return self.pts_neck(stages)
 
-    def forward(self, batch: Dict[str, torch.Tensor]):
+    def forward(self, batch: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None):
+        """generator: the head's dropout masks in train mode (on the
+        model's device)."""
         points, mask = self._inputs(batch)
-        return self.bbox_head(self.extract_point_features(points, mask))
+        maps = self.extract_point_features(points, mask)
+        if self.training and self.cfg.optim.freeze_lidar:
+            maps = tuple(f.detach() for f in maps)
+        return self.bbox_head(maps, generator)
 
     @torch.no_grad()
     def predict(self, batch: Dict[str, torch.Tensor]

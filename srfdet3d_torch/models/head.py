@@ -5,12 +5,18 @@ Box code: [cx, cy, cz, log w, log l, log h, sin, cos (, vx, vy)], centers
 normalized to [0, 1] within pc_range between iterations and absolute in the
 returned predictions.  The JAX package scans the iterations over stacked
 weights; here they are `num_heads` modules in a list.
+
+Train mode (`.train()`) applies dropout where flax's head does: on the
+attention weights (one (n_q, n_k) mask shared by batch and heads, flax's
+broadcast_dropout), after self-attention, after the dynamic conv, inside
+the FFN and after it.  Its masks come from a `torch.Generator` the caller
+passes; there is no global seed.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -22,6 +28,21 @@ from ..ops.roi_align import multilevel_roi_align
 from .layers import ConvBNReLU
 
 _DEFAULT_SCALE_CLAMP = math.log(100000.0 / 16)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator],
+            shape: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """flax's nn.Dropout: keep with probability 1 - rate, scale kept values
+    by 1 / (1 - rate).  `shape` draws a mask that broadcasts over x."""
+    if rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in train mode needs a torch.Generator")
+    keep_prob = 1.0 - rate
+    u = torch.rand(tuple(shape or x.shape), generator=generator,
+                   device=x.device)
+    return torch.where(u < keep_prob, x / keep_prob, 0.0)
 
 
 def focal_bias(prior_prob: float) -> float:
@@ -50,7 +71,7 @@ def lidar_rois_from_boxes(boxes_abs: torch.Tensor, pc_range, voxel_size
 class MultiHeadAttention(nn.Module):
     """Self-attention as flax's MultiHeadDotProductAttention computes it:
     q, k, v projections with bias, q scaled by 1/sqrt(head_dim), softmax
-    over keys, output projection."""
+    over keys, dropout on the weights in train mode, output projection."""
 
     def __init__(self, c: int, num_heads: int):
         super().__init__()
@@ -60,7 +81,8 @@ class MultiHeadAttention(nn.Module):
         self.v_proj = nn.Linear(c, c)
         self.out_proj = nn.Linear(c, c)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rate: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         b, n, c = x.shape
         h = self.num_heads
         dh = c // h
@@ -68,6 +90,7 @@ class MultiHeadAttention(nn.Module):
         k = self.k_proj(x).view(b, n, h, dh).transpose(1, 2)
         v = self.v_proj(x).view(b, n, h, dh).transpose(1, 2)
         att = torch.softmax(q @ k.transpose(-1, -2), dim=-1)
+        att = dropout(att, rate, generator, (1, 1, n, n))
         out = (att @ v).transpose(1, 2).reshape(b, n, c)
         return self.out_proj(out)
 
@@ -111,10 +134,12 @@ class SingleSRFDetHead(nn.Module):
                  voxel_size: Sequence[float] = (0.075, 0.075, 0.2),
                  lidar_strides: Sequence[int] = (8, 16, 32, 64),
                  roi_patch: int = 0, roi_patch_fallback: int = -1,
-                 scale_clamp: float = _DEFAULT_SCALE_CLAMP):
+                 scale_clamp: float = _DEFAULT_SCALE_CLAMP,
+                 dropout: float = 0.0):
         super().__init__()
         c = feat_channels
         self.res = pooler_resolution
+        self.dropout = dropout
         self.pc_range, self.voxel_size = tuple(pc_range), tuple(voxel_size)
         self.lidar_strides = tuple(lidar_strides)
         self.roi_patch, self.roi_patch_fallback = roi_patch, roi_patch_fallback
@@ -139,10 +164,17 @@ class SingleSRFDetHead(nn.Module):
         self.bboxes_delta = nn.Linear(c, code_size)
 
     def forward(self, point_feats: Sequence[torch.Tensor],
-                bboxes: torch.Tensor, prop_feats: torch.Tensor):
+                bboxes: torch.Tensor, prop_feats: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
         """point_feats: (B, H, W, C) maps; bboxes (B, n_p, code) with
-        normalized centers; prop_feats (B, n_p, C).  Returns (logits,
-        refined boxes with normalized centers, object features)."""
+        normalized centers; prop_feats (B, n_p, C); generator: dropout's
+        masks in train mode.  Returns (logits, refined boxes with
+        normalized centers, object features)."""
+        rate = self.dropout if self.training else 0.0
+
+        def drop(x):
+            return dropout(x, rate, generator)
+
         bs, n_p = bboxes.shape[:2]
         c = prop_feats.shape[-1]
         boxes_abs = denormalize_centers(bboxes, self.pc_range)
@@ -153,10 +185,12 @@ class SingleSRFDetHead(nn.Module):
                                    patch_fallback=self.roi_patch_fallback)
         roi = roi.reshape(bs * n_p, self.res * self.res, c)
 
-        x = self.norm_attn(prop_feats + self.self_attn(prop_feats))
+        x = self.norm_attn(prop_feats + drop(
+            self.self_attn(prop_feats, rate, generator)))
         flat = x.reshape(bs * n_p, c)
-        obj = self.norm_inst(flat + self.inst_interact(flat, roi))
-        obj = self.norm_ffn(obj + self.ffn2(F.relu(self.ffn1(obj))))
+        obj = self.norm_inst(flat + drop(self.inst_interact(flat, roi)))
+        obj = self.norm_ffn(obj + drop(self.ffn2(drop(F.relu(
+            self.ffn1(obj))))))
         cls_f = reg_f = obj
         for fc, norm in zip(self.cls_fcs, self.cls_norms):
             cls_f = F.relu(norm(fc(cls_f)))
@@ -208,10 +242,14 @@ class SRFDetHead(nn.Module):
                              pc_range=pc_range, **single_kwargs)
             for _ in range(num_heads))
 
-    def forward(self, point_feats: Sequence[torch.Tensor]):
-        """point_feats: L NCHW maps, strides lidar_strides.  Returns
-        pred_logits (L, B, n_p, #cls) and pred_boxes (L, B, n_p, code) with
-        absolute centers."""
+    def forward(self, point_feats: Sequence[torch.Tensor],
+                generator: Optional[torch.Generator] = None):
+        """point_feats: L NCHW maps, strides lidar_strides; generator:
+        dropout's masks in train mode.  Returns pred_logits (L, B, n_p,
+        #cls) and pred_boxes (L, B, n_p, code) with absolute centers; every
+        iteration's outputs keep their graph, and only the boxes carried
+        into the next iteration are detached (JAX: stop_gradient on the
+        scan carry)."""
         bs = point_feats[0].shape[0]
         n_p, n_exp = self.num_proposals, self.num_dpg_exp
         x = point_feats[0]
@@ -228,10 +266,10 @@ class SRFDetHead(nn.Module):
         nhwc = [f.permute(0, 2, 3, 1).contiguous() for f in point_feats]
         logits_all, boxes_all = [], []
         for head in self.heads:
-            logits, boxes, prop = head(nhwc, boxes, prop)
-            boxes = boxes.detach()
+            logits, pred, prop = head(nhwc, boxes, prop, generator)
+            boxes = pred.detach()
             logits_all.append(logits)
-            boxes_all.append(boxes)
+            boxes_all.append(pred)
         if not self.deep_supervision:
             logits_all, boxes_all = logits_all[-1:], boxes_all[-1:]
         return (torch.stack(logits_all),

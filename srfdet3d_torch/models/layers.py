@@ -1,9 +1,10 @@
 """Shared layers: masked batch norm and the conv + BN + ReLU block.
 
-BatchNorm everywhere uses the reference's eps=1e-3 and momentum=0.01.  The
-port runs predict, so BN normalizes with its running statistics; the masked
-statistics of train mode (padding rows excluded) are kept for the sparse
-encoder's layers, whose rows are capacity-padded.
+BatchNorm everywhere uses the reference's eps=1e-3 and momentum=0.01.  In
+eval mode BN normalizes with its running statistics; in train mode with the
+batch's, and updates the running ones as the JAX package does: the sparse
+encoder's masked BN (padding rows excluded) stores the unbiased variance,
+the dense convs' flax BatchNorm the biased one.
 """
 
 from __future__ import annotations
@@ -54,6 +55,24 @@ class MaskedBatchNorm(nn.Module):
         return (y * self.weight + self.bias).to(x.dtype)
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm2d whose train-mode update stores the BIASED batch variance
+    in running_var, as flax's nn.BatchNorm does (torch's stores the
+    unbiased one).  Normalization itself is torch's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(m * mean)
+            self.running_var.mul_(1 - m).add_(m * var)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
+
+
 class ConvBNReLU(nn.Module):
     """Conv2d (no bias) + BatchNorm2d + ReLU on NCHW tensors."""
 
@@ -62,7 +81,7 @@ class ConvBNReLU(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, kernel, stride, padding,
                               groups=groups, bias=False)
-        self.bn = nn.BatchNorm2d(cout, eps=1e-3, momentum=0.01)
+        self.bn = BatchNorm2d(cout, eps=1e-3, momentum=0.01)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.relu(self.bn(self.conv(x)))

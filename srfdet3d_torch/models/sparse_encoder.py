@@ -37,17 +37,20 @@ def _pad3(p):
 
 class GatheredConvBN(nn.Module):
     """Gather-GEMM conv + masked BN + optional ReLU over a rulebook.  The
-    kernel keeps the JAX layout (K, Cin, Cout)."""
+    kernel keeps the JAX layout (K, Cin, Cout); `subm` marks a submanifold
+    rulebook, whose backward is the symmetric one."""
 
     def __init__(self, cin: int, cout: int, num_offsets: int,
-                 relu: bool = True):
+                 relu: bool = True, subm: bool = False):
         super().__init__()
         self.kernel = nn.Parameter(torch.zeros(num_offsets, cin, cout))
         self.bn = MaskedBatchNorm(cout)
         self.relu = relu
+        self.subm = subm
 
     def forward(self, feats, gidx, mask):
-        out = gathered_conv_apply_batched(feats, gidx, self.kernel)
+        out = gathered_conv_apply_batched(feats, gidx, self.kernel,
+                                          subm=self.subm)
         out = self.bn(out, mask)
         if self.relu:
             out = F.relu(out)
@@ -100,7 +103,8 @@ class SparseEncoder(nn.Module):
         self.encoder_channels = encoder_channels
         self.encoder_paddings = encoder_paddings
         self.capacities = tuple(capacities)
-        self.conv_input = GatheredConvBN(in_channels, base_channels, 27)
+        self.conv_input = GatheredConvBN(in_channels, base_channels, 27,
+                                         subm=True)
         # (kind, name, pad) in run order; convs registered under JAX names
         self.plan: List[Tuple[str, str, Any]] = []
         cin = base_channels
@@ -116,9 +120,9 @@ class SparseEncoder(nn.Module):
                     if cin != out_ch:
                         raise ValueError("a basic block keeps its width")
                     self.add_module(f"bb{i}_{j}_conv1", GatheredConvBN(
-                        cin, out_ch, 27))
+                        cin, out_ch, 27, subm=True))
                     self.add_module(f"bb{i}_{j}_conv2", GatheredConvBN(
-                        out_ch, out_ch, 27, relu=False))
+                        out_ch, out_ch, 27, relu=False, subm=True))
                     self.plan.append(("block", f"bb{i}_{j}", pad))
                 cin = out_ch
         self.conv_out = GatheredConvBN(cin, output_channels, 3)

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
 Each kernel is one CUDA C++ source in `srfdet3d_torch/csrc/` with a plain C
-interface.  At first use it is compiled with nvcc for sm_90a into a shared
-library under `build/kernels/` at the root of the checkout, named by a hash
-of its source and flags, and loaded with ctypes.  A library that is already
-built is loaded as it is.  `build_kernels` starts one nvcc per source, all
-at once, and waits for them.
+interface; device code that two kernels share lives in a header
+(`csrc/*.cuh`).  At first use it is compiled with nvcc for sm_90a into a
+shared library under `build/kernels/` at the root of the checkout, named by
+a hash of its source, the headers and the flags, and loaded with ctypes.
+A library that is already built is loaded as it is.  `build_kernels` starts
+one nvcc per source, all at once, and waits for them.
 """
 
 from __future__ import annotations
@@ -40,7 +41,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library of kernel `name`, named by a hash of its source, the
+    shared headers it may include (csrc/*.cuh) and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}_{digest[:16]}.so"
 

@@ -1,4 +1,4 @@
-"""Multi-level RoIAlign over flattened FPN levels, forward only.
+"""Multi-level RoIAlign over flattened FPN levels, with its backward.
 
 mmdet's SingleRoIExtractor + RoIAlign (output_size=7, sampling_ratio=2,
 aligned): each RoI maps to one level,
@@ -13,6 +13,11 @@ The patch option reproduces the JAX package's capacity rule: a RoI whose
 weighted cells do not fit a P x P window is a misfit; misfits take the
 first `patch_fallback` slots in RoI order (-1: all of them) and keep their
 exact value, and the misfits after those slots pool to zeros.
+
+The backward (`CornerPool`) gives the feature table its cotangent through
+the roi_scatter kernel (K5, ops/roi_scatter.py) and the corner weights
+theirs, which flow on to the RoIs: the sample positions, and so the boxes
+they come from, carry gradient, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+
+from .roi_scatter import roi_scatter, sample_grads
 
 
 def _level_geometry(shapes, rois, strides, finest_scale):
@@ -92,6 +99,76 @@ def patch_fits(shapes, rois: torch.Tensor, strides: Sequence[int],
     return _axis_fits(sx, w_l, patch) & _axis_fits(sy, h_l, patch)
 
 
+class CornerPool(torch.autograd.Function):
+    """Weighted corner gather + sr x sr mean + the capacity rule's drop.
+
+    table (T, C); idx (R, 4, S, S) table rows of the 4 bilinear corners of
+    every sample; wgt (R, 4, S, S) their weights; drop (R,) bool -> pooled
+    (R, out, out, C), zero for dropped RoIs.  Backward: the table's
+    cotangent is K5; the weights' is sum_c table[idx] * g, plain torch."""
+
+    @staticmethod
+    def forward(ctx, table, idx, wgt, drop, out_size: int, sr: int):
+        r, _, n_s, _ = idx.shape
+        c = table.shape[1]
+        acc = table.new_zeros(r, n_s, n_s, c)
+        for q in range(4):
+            acc += table[idx[:, q]] * wgt[:, q, ..., None]
+        pooled = acc.reshape(r, out_size, sr, out_size, sr, c).mean((2, 4))
+        pooled = torch.where(drop[:, None, None, None], 0.0, pooled)
+        ctx.save_for_backward(table, idx, wgt, drop)
+        ctx.sr = sr
+        return pooled
+
+    @staticmethod
+    def backward(ctx, gp):
+        table, idx, wgt, drop = ctx.saved_tensors
+        gp = gp.contiguous()
+        dtable = dwgt = None
+        if ctx.needs_input_grad[0]:
+            dtable = roi_scatter(gp, idx, wgt, drop, table.shape[0], ctx.sr)
+        if ctx.needs_input_grad[2]:
+            gs = sample_grads(gp, drop, ctx.sr)                # (R, S, S, C)
+            dwgt = torch.stack([(table[idx[:, q]] * gs).sum(-1)
+                                for q in range(4)], 1)
+        return dtable, None, dwgt, None, None, None
+
+
+def corner_samples(shapes, rois: torch.Tensor, strides: Sequence[int],
+                   out_size: int = 7, sampling_ratio: int = 2,
+                   finest_scale: float = 56.0, patch: int = 0,
+                   patch_fallback: int = -1):
+    """The bilinear corners of every sample of every RoI.  shapes: the
+    levels' (H, W); rois (B, R, 4).  Returns idx (B*R, 4, S, S) rows of the
+    (B * rows, C) table the levels flatten into, their weights wgt (same
+    shape) and drop (B*R,), the misfits past the fallback slots."""
+    b, r, _ = rois.shape
+    rows = sum(h * w for h, w in shapes)
+    flat = rois.reshape(b * r, 4)
+    lvl, s, h_l, w_l, off = _level_geometry(shapes, flat, strides,
+                                            finest_scale)
+    sx, sy = _sample_grid(flat, s, out_size, sampling_ratio)
+    x0, x1, wx0, wx1, _ = _axis_corners(sx, w_l)       # (BR, S)
+    y0, y1, wy0, wy1, _ = _axis_corners(sy, h_l)
+    base = (off + torch.arange(b, device=rois.device).repeat_interleave(r)
+            * rows)[:, None, None]
+    wl = w_l.long()[:, None, None]
+    idx, wgt = [], []
+    for yy, wy in ((y0, wy0), (y1, wy1)):
+        for xx, wx in ((x0, wx0), (x1, wx1)):
+            idx.append(base + yy[:, :, None] * wl + xx[:, None, :])
+            wgt.append(wy[:, :, None] * wx[:, None, :])
+    drop = torch.zeros(b * r, dtype=torch.bool, device=rois.device)
+    if patch:
+        fits = patch_fits(shapes, flat, strides, patch, out_size,
+                          sampling_ratio, finest_scale)
+        cap = r if patch_fallback < 0 else patch_fallback
+        mis = ~fits.reshape(b, r)
+        slot = torch.cumsum(mis.long(), 1) - 1
+        drop = (mis & (slot >= cap)).reshape(-1)
+    return torch.stack(idx, 1), torch.stack(wgt, 1), drop
+
+
 def multilevel_roi_align(feats: Sequence[torch.Tensor], rois: torch.Tensor,
                          strides: Sequence[int], out_size: int = 7,
                          sampling_ratio: int = 2, finest_scale: float = 56.0,
@@ -102,33 +179,11 @@ def multilevel_roi_align(feats: Sequence[torch.Tensor], rois: torch.Tensor,
     b, r, _ = rois.shape
     c = feats[0].shape[-1]
     shapes = [(f.shape[1], f.shape[2]) for f in feats]
-    rows = sum(h * w for h, w in shapes)
     table = torch.cat([f.reshape(b, -1, c) for f in feats], 1
-                      ).reshape(b * rows, c)
-    flat = rois.reshape(b * r, 4)
-    lvl, s, h_l, w_l, off = _level_geometry(shapes, flat, strides,
-                                            finest_scale)
-    sx, sy = _sample_grid(flat, s, out_size, sampling_ratio)
-    x0, x1, wx0, wx1, _ = _axis_corners(sx, w_l)       # (BR, S)
-    y0, y1, wy0, wy1, _ = _axis_corners(sy, h_l)
-    base = (off + torch.arange(b, device=rois.device).repeat_interleave(r)
-            * rows)[:, None, None]
-    wl = w_l.long()[:, None, None]
-    n_s = sx.shape[1]
-    acc = table.new_zeros(b * r, n_s, n_s, c)
-    for yy, wy in ((y0, wy0), (y1, wy1)):
-        for xx, wx in ((x0, wx0), (x1, wx1)):
-            idx = base + yy[:, :, None] * wl + xx[:, None, :]
-            wgt = wy[:, :, None] * wx[:, None, :]
-            acc += table[idx] * wgt[..., None]
-    sr = sampling_ratio
-    pooled = acc.reshape(b * r, out_size, sr, out_size, sr, c).mean((2, 4))
-    if patch:
-        fits = patch_fits(shapes, flat, strides, patch, out_size,
-                          sampling_ratio, finest_scale)
-        cap = r if patch_fallback < 0 else patch_fallback
-        mis = ~fits.reshape(b, r)
-        slot = torch.cumsum(mis.long(), 1) - 1
-        drop = (mis & (slot >= cap)).reshape(-1)
-        pooled = torch.where(drop[:, None, None, None], 0.0, pooled)
+                      ).reshape(-1, c)
+    idx, wgt, drop = corner_samples(shapes, rois, strides, out_size,
+                                    sampling_ratio, finest_scale, patch,
+                                    patch_fallback)
+    pooled = CornerPool.apply(table, idx, wgt, drop, out_size,
+                              sampling_ratio)
     return pooled.reshape(b, r, out_size, out_size, c)

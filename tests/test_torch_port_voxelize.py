@@ -92,7 +92,8 @@ def test_vfe_and_flatten_match_jax():
 
 
 def test_port_imports_no_jax():
-    """Importing the whole port pulls in neither jax nor srfdet3d_tpu."""
+    """Importing the whole port, the train step's modules included, pulls
+    in neither jax nor srfdet3d_tpu."""
     code = (
         "import sys, pkgutil, importlib, srfdet3d_torch\n"
         "for m in pkgutil.walk_packages(srfdet3d_torch.__path__, "
@@ -101,6 +102,11 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'srfdet3d_tpu')]\n"
         "assert not bad, bad\n"
+        "need = ['assign.ota', 'models.losses', 'ops.focal_loss', "
+        "'ops.gather_conv_bwd', 'ops.roi_scatter', 'train.trainer']\n"
+        "missed = [n for n in need if 'srfdet3d_torch.' + n not in "
+        "sys.modules]\n"
+        "assert not missed, missed\n"
         "print('ok')\n")
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "-c", code], cwd=repo,
