@@ -5,7 +5,7 @@
 Phases, each printing one JSON line; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: the four CUDA kernels' sources in srfdet3d_torch/csrc, in
+2. build: the five CUDA kernels' sources in srfdet3d_torch/csrc, in
    parallel;
 3. gather_conv (K1) against its plain version on real flagship rulebooks,
    at every conv shape of the sparse encoder;
@@ -15,24 +15,31 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    flagship train step's rulebooks (batch 2), at every conv shape;
 6. roi_bwd (K5) against index_add_ at the flagship head's geometry (batch
    2 x 900 RoIs, four levels at C 128, patch 32, 64 fallback slots);
-7. flagship srfdet_voxel_nusc_L predict at full width, batch 1, on a
+7. rulebook_lookup (K6) against its plain version, exact, at every lookup
+   of the table-backend encoder of srfdet_voxel_kitti_L (65,536 voxel
+   slots) and of the flagship (120k voxel slots), walking the rulebooks
+   only;
+8. flagship srfdet_voxel_nusc_L predict at full width, batch 1, on a
    synthetic scene and seeded random weights: launch counts, finite
    outputs, p50 latency, valid boxes, peak memory; plus decode_boxes with
    score_thr=0 so NMS sees its full 900 x 10 load; then the same predict
    split at its layer boundaries (time and peak memory of each part);
-8. flagship train step at full width, batch 2 with synthetic GT, dropout
+9. srfdet_voxel_kitti_L predict at full width, batch 1, the same way, once
+   on its shipped bitmap backend and once with middle.rulebook="table";
+10. flagship train step at full width, batch 2 with synthetic GT, dropout
    as configured: launch counts of all five kernels, finite losses, a
    finite grad for every parameter and every parameter moved, step p50,
    peak memory, the step split into forward, loss + OTA, backward and
    optimizer, and one step under torch.profiler (device busy time and
    share, the kernels that took most of it);
-9. tiny_test_config predict, and 10. two tiny train steps, with the
-   kernels on the card against the same weights on the CPU with the plain
-   versions;
-11. the `kernels` line: per kernel, launches (per predict for K1 and K2, per
-   train step for K3-K5), max error against the plain version, and times
-   per predict or per train step (kernel, plain version, bound, one
-   PyTorch library call).
+11. tiny predicts (tiny_test_config; tiny_kitti_test_config and
+   tiny_test_config with middle.rulebook="table"), and 12. two tiny train
+   steps, with the kernels on the card against the same weights on the CPU
+   with the plain versions;
+13. the `kernels` line: per kernel, launches (per flagship predict for K1
+   and K2, per flagship train step for K3-K5, per KITTI table predict for
+   K6), max error against the plain version, and times per predict or per
+   train step (kernel, plain version, bound, one PyTorch library call).
 
 The second-to-last line is nvidia-smi's name and power limit; the last line
 is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -393,35 +400,145 @@ def check_roi_bwd(cfg, dev, gen):
     return row
 
 
+def table_lookups(cfg, batch, dev):
+    """Walk the table-backend encoder's rulebooks on the card and keep the
+    inputs of every K6 launch: [(lookup name, keys, rows, queries,
+    sentinel)], in run order (the stage-0 subm, then per downsample its
+    input lookup and the next stage's subm, then conv_out)."""
+    from srfdet3d_torch.models.sparse_encoder import (TableRulebooks,
+                                                      down_pads)
+    from srfdet3d_torch.ops import sparse_conv
+    from srfdet3d_torch.ops.voxelize import voxelize_points_batched
+    spec = cfg.voxelization
+    m = cfg.middle
+    vox = voxelize_points_batched(batch["points"].to(dev),
+                                  batch["points_mask"].to(dev), spec)
+    cases = []
+    real = sparse_conv.rulebook_lookup
+
+    def record(keys, rows, queries, sentinel):
+        cases.append((names.pop(0), keys, rows, queries, sentinel))
+        return real(keys, rows, queries, sentinel)
+    pads = down_pads(m.block_type, m.encoder_channels, m.encoder_paddings)
+    first = 1 if m.block_type == "conv_module" else 0
+    names = ["stage0_subm"]
+    for i in range(len(pads)):
+        names += [f"down{i + first}", f"stage{i + 1}_subm"]
+    names.append("conv_out")
+    sparse_conv.rulebook_lookup = record
+    try:
+        rb = TableRulebooks(vox.voxel_coords, vox.voxel_mask,
+                            spec.sparse_shape)
+        rb.subm()
+        for i, pad in enumerate(pads):
+            rb.downsample(pad, m.capacities[i])
+            rb.subm()
+        rb.convout(m.capacities[-1])
+    finally:
+        sparse_conv.rulebook_lookup = real
+    return cases
+
+
+def check_rulebook_lookup(config, cases):
+    """K6 at every lookup of one table encoder walk: exact against the
+    plain version; ms a launch, the plain version, torch.searchsorted on
+    the same sorted keys with its equality check and row gather, and the
+    byte bound (queries, output, keys and rows once).  Returns the sums
+    over the walk (one predict's lookups)."""
+    from srfdet3d_torch.ops.rulebook_lookup import (rulebook_lookup,
+                                                    rulebook_lookup_plain)
+    totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    for name, keys, rows, queries, sentinel in cases:
+        n = keys.numel()
+
+        def kernel():
+            return rulebook_lookup(keys, rows, queries, sentinel)
+
+        def plain():
+            return rulebook_lookup_plain(keys, rows, queries, sentinel)
+        flat = queries.reshape(-1)
+
+        def library():
+            pos = torch.searchsorted(keys, flat).clamp_max_(n - 1)
+            return torch.where(keys[pos] == flat, rows[pos], n)
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            bad = int((got != ref).sum())
+            raise AssertionError(f"rulebook_lookup {config} {name}: {bad} "
+                                 f"entries differ from the plain version")
+        lib = library()
+        if not torch.equal(lib.view(ref.shape).to(torch.int32), ref):
+            raise AssertionError(f"rulebook_lookup {config} {name}: the "
+                                 f"library route disagrees")
+        ms, plain_ms, lib_ms = time_ms(kernel), time_ms(plain), \
+            time_ms(library)
+        nbytes = queries.numel() * (8 + 4) + n * (8 + 4)
+        bound = nbytes / PEAK_BYTES * 1e3
+        emit(dict(phase="rulebook_lookup", config=config, lookup=name,
+                  keys=n, queries=list(queries.shape),
+                  hits=int((ref < n).sum()), exact=True, ms=ms,
+                  plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                  bound_by="bytes"))
+        for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                         ("library_ms", lib_ms), ("bound_ms", bound)):
+            totals[key] += val
+    return totals
+
+
 COUNTED = ("gather_conv", "eqmatch", "subm_bwd", "strided_bwd",
-           "roi_scatter")
+           "roi_scatter", "rulebook_lookup")
+TRAIN_KERNELS = COUNTED[:5]
 
 
 def reset_counts():
     from srfdet3d_torch.ops import (eqmatch, gather_conv, gather_conv_bwd,
-                                    roi_scatter)
+                                    roi_scatter, rulebook_lookup)
     gather_conv.launches = 0
     eqmatch.launches = 0
     gather_conv_bwd.subm_launches = 0
     gather_conv_bwd.strided_launches = 0
     roi_scatter.launches = 0
+    rulebook_lookup.launches = 0
 
 
 def read_counts():
     """Launches since reset_counts of the kernels in COUNTED order."""
     from srfdet3d_torch.ops import (eqmatch, gather_conv, gather_conv_bwd,
-                                    roi_scatter)
+                                    roi_scatter, rulebook_lookup)
     return dict(zip(COUNTED, (gather_conv.launches, eqmatch.launches,
                               gather_conv_bwd.subm_launches,
                               gather_conv_bwd.strided_launches,
-                              roi_scatter.launches)))
+                              roi_scatter.launches,
+                              rulebook_lookup.launches)))
 
 
 def all_finite(out) -> bool:
     return all(bool(torch.isfinite(v.float()).all()) for v in out.values())
 
 
-def flagship_predict(cfg, batch, smi):
+def predict_launches(model):
+    """Launches per predict the model's structure gives: every gathered
+    conv once (K1); on the bitmap backend one eq-match per subm stage (K2),
+    on the table backend one lookup per subm stage, per downsample and for
+    conv_out (K6)."""
+    from srfdet3d_torch.models.sparse_encoder import GatheredConvBN
+    enc = model.pts_middle_encoder
+    convs = sum(isinstance(mod, GatheredConvBN) for mod in enc.modules())
+    stages = len(model.cfg.middle.encoder_channels)
+    want = dict.fromkeys(COUNTED, 0)
+    want["gather_conv"] = convs
+    if enc.use_bitmap:
+        want["eqmatch"] = stages
+    else:
+        want["rulebook_lookup"] = 2 * stages
+    return want
+
+
+def predict_phase(phase, cfg, batch, smi, expect):
+    """One config's predict at full width, batch 1: launch counts against
+    `expect`, finite outputs, p50 over 20 predicts, peak memory, decode
+    with score_thr=0, then the parts.  Returns the counts."""
     from srfdet3d_torch.geometry import iou
     from srfdet3d_torch.models.detector import SRFDet
     from srfdet3d_torch.models.head import decode_boxes
@@ -432,20 +549,17 @@ def flagship_predict(cfg, batch, smi):
     out = model.predict(dev_batch)
     torch.cuda.synchronize()
     counts = read_counts()
-    k1, k2 = counts["gather_conv"], counts["eqmatch"]
-    if any(counts[k] for k in COUNTED[2:]):
-        raise AssertionError(f"predict launched a backward kernel: {counts}")
     predict_sweeps = iou.last_nms_sweeps
-    if (k1, k2) != (21, 4):
-        raise AssertionError(f"flagship predict launched gather_conv {k1} "
-                             f"and eqmatch {k2} times, expected 21 and 4")
+    if counts != expect:
+        raise AssertionError(f"{phase} launched {counts}, expected "
+                             f"{expect}")
     if not all_finite(out):
-        raise AssertionError("flagship predict gave non-finite outputs")
+        raise AssertionError(f"{phase} gave non-finite outputs")
     with torch.no_grad():
         logits, boxes = model(dev_batch)
     if not (bool(torch.isfinite(logits).all()) and
             bool(torch.isfinite(boxes).all())):
-        raise AssertionError("flagship forward gave non-finite outputs")
+        raise AssertionError(f"{phase}: forward gave non-finite outputs")
     t = cfg.test
     full = decode_boxes(logits[-1], boxes[-1], nms_thr=t.nms_thr,
                         score_thr=0.0, max_per_img=t.max_per_img,
@@ -477,9 +591,8 @@ def flagship_predict(cfg, batch, smi):
         decode_full()
         torch.cuda.synchronize()
         decode_ms.append((time.perf_counter() - t0) * 1e3)
-    emit(dict(phase="flagship_predict", config=cfg.name, batch=1,
-              points=cfg.points_cap, gather_conv_launches=k1,
-              eqmatch_launches=k2, finite=True,
+    emit(dict(phase=phase, config=cfg.name, rulebook=cfg.middle.rulebook,
+              batch=1, points=cfg.points_cap, launches=counts, finite=True,
               p50_ms=statistics.median(times), min_ms=min(times),
               max_ms=max(times), runs=len(times),
               valid_boxes=int(out["valid"].sum()),
@@ -489,11 +602,11 @@ def flagship_predict(cfg, batch, smi):
               full_nms_sweeps=full_sweeps,
               full_nms_decode_p50_ms=statistics.median(decode_ms),
               peak_mem_bytes=peak, device=smi))
-    flagship_parts(model, dev_batch, smi)
-    return k1, k2
+    predict_parts(phase.replace("predict", "parts"), model, dev_batch, smi)
+    return counts
 
 
-def flagship_parts(model, batch, smi, runs: int = 5):
+def predict_parts(phase, model, batch, smi, runs: int = 5):
     """Predict split at its layer boundaries, each part ended by a
     synchronize: median host ms and peak device memory of each part."""
     from srfdet3d_torch.models.head import decode_boxes
@@ -529,24 +642,25 @@ def flagship_parts(model, batch, smi, runs: int = 5):
                 peak[part] = torch.cuda.max_memory_allocated()
                 torch.cuda.reset_peak_memory_stats()
                 t0 = time.perf_counter()
-    emit(dict(phase="flagship_parts", device=smi,
+    emit(dict(phase=phase, config=model.cfg.name,
+              rulebook=model.cfg.middle.rulebook, device=smi,
               p50_ms={k: statistics.median(v) for k, v in ms.items()},
               peak_mem_bytes=peak))
 
 
 def train_launches(model):
-    """Launches per train step the model's structure gives: every gathered
-    conv once forward (K1), one eq-match per subm stage (K2), every subm
-    conv's backward (K3), every strided and conv_out backward (K4), one
-    RoIAlign backward per head iteration (K5)."""
+    """Launches per train step the model's structure gives: the forward's
+    (predict_launches), every subm conv's backward (K3), every strided and
+    conv_out backward (K4), one RoIAlign backward per head iteration
+    (K5)."""
     from srfdet3d_torch.models.sparse_encoder import GatheredConvBN
     convs = [mod for mod in model.pts_middle_encoder.modules()
              if isinstance(mod, GatheredConvBN)]
     n_subm = sum(c.subm for c in convs)
-    stages = len(model.cfg.middle.encoder_channels)
-    return dict(zip(COUNTED, (len(convs), stages, n_subm,
-                              len(convs) - n_subm,
-                              len(model.bbox_head.heads))))
+    want = predict_launches(model)
+    want.update(subm_bwd=n_subm, strided_bwd=len(convs) - n_subm,
+                roi_scatter=len(model.bbox_head.heads))
+    return want
 
 
 def device_busy(fn, top: int = 10):
@@ -724,7 +838,7 @@ def tiny_train(steps: int = 2):
                         torch.Generator(device="cuda").manual_seed(0))
         torch.cuda.synchronize()
         counts = read_counts()
-        if not all(counts[k] for k in COUNTED):
+        if not all(counts[k] for k in TRAIN_KERNELS):
             raise AssertionError(f"tiny train step skipped a kernel: "
                                  f"{counts}")
         for k, v in mc.items():
@@ -766,26 +880,27 @@ def tiny_train(steps: int = 2):
               **{f"max_{k}_err": v for k, v in worst.items()}))
 
 
-def tiny_end_to_end():
-    """tiny_test_config predict: kernels on the card vs plain versions on
+def tiny_end_to_end(cfg):
+    """A tiny config's predict: kernels on the card vs plain versions on
     the CPU, same weights (same seed).  Forward outputs agree within
     rtol = atol = 1e-4 (float32 op order); decoded valid flags exactly and
     scores within 1e-5; labels exactly and boxes within 1e-4 at every valid
     detection whose score is more than 1e-4 from its neighbours' (closer
-    scores may swap order)."""
+    scores may swap order).  Points: half of points_cap, x and y uniform
+    1 m inside the range, z in its middle half."""
     import dataclasses
-    from srfdet3d_torch.configs import tiny_test_config
     from srfdet3d_torch.models.detector import SRFDet
     from srfdet3d_torch.models.head import decode_boxes
-    cfg = tiny_test_config()
     cfg = cfg.replace(head=dataclasses.replace(cfg.head, roi_patch=8,
                                                roi_patch_fallback=2))
     rng = np.random.default_rng(0)
-    p = cfg.points_cap
-    pts = np.zeros((2, p, 5), np.float32)
-    pts[:, :p // 2, :2] = rng.uniform(-9, 9, (2, p // 2, 2))
-    pts[:, :p // 2, 2] = rng.uniform(-3, 1, (2, p // 2))
-    pts[:, :p // 2, 3:] = rng.uniform(0, 1, (2, p // 2, 2))
+    p, dim = cfg.points_cap, cfg.points_dim
+    lo, hi = np.array(cfg.pc_range[:3]), np.array(cfg.pc_range[3:])
+    zq = (hi[2] - lo[2]) / 4
+    pts = np.zeros((2, p, dim), np.float32)
+    pts[:, :p // 2, :2] = rng.uniform(lo[:2] + 1, hi[:2] - 1, (2, p // 2, 2))
+    pts[:, :p // 2, 2] = rng.uniform(lo[2] + zq, hi[2] - zq, (2, p // 2))
+    pts[:, :p // 2, 3:] = rng.uniform(0, 1, (2, p // 2, dim - 3))
     mask = np.zeros((2, p), bool)
     mask[:, :p // 2] = True
     batch = {"points": torch.from_numpy(pts),
@@ -800,11 +915,13 @@ def tiny_end_to_end():
     reset_counts()
     with torch.no_grad():
         lg, bg = gpu(batch)
+        torch.cuda.synchronize()
+        counts = read_counts()
         lc, bc = cpu(batch)
-    counts = read_counts()
-    k1, k2 = counts["gather_conv"], counts["eqmatch"]
-    if k1 == 0 or k2 == 0:
-        raise AssertionError("tiny predict on the card skipped a kernel")
+    want = predict_launches(gpu)
+    if counts != want:
+        raise AssertionError(f"tiny predict {cfg.name} on the card launched "
+                             f"{counts}, its structure gives {want}")
     ferr = max(float((lg.cpu() - lc).abs().max()),
                float((bg.cpu() - bc).abs().max()))
     torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
@@ -833,8 +950,16 @@ def tiny_end_to_end():
         torch.testing.assert_close(dg["boxes"].cpu()[stable],
                                    dc["boxes"][stable], rtol=1e-4, atol=1e-4)
         worst[f"valid_at_thr_{thr}"] = int(dc["valid"].sum())
-    emit(dict(phase="tiny_end_to_end", gather_conv_launches=k1,
-              eqmatch_launches=k2, forward_max_abs_err=ferr, **worst))
+    emit(dict(phase="tiny_end_to_end", config=cfg.name,
+              rulebook=cfg.middle.rulebook, launches=counts,
+              forward_max_abs_err=ferr, **worst))
+
+
+def table_backend(cfg):
+    """The config with middle.rulebook="table"."""
+    import dataclasses
+    return cfg.replace(middle=dataclasses.replace(cfg.middle,
+                                                  rulebook="table"))
 
 
 def kernel_entry(name, source, replaces, launches, t, max_err):
@@ -852,7 +977,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from srfdet3d_torch import set_backend_flags
-    from srfdet3d_torch.configs import srfdet_voxel_nusc_L
+    from srfdet3d_torch.configs import (srfdet_voxel_kitti_L,
+                                        srfdet_voxel_nusc_L,
+                                        tiny_kitti_test_config,
+                                        tiny_test_config)
     from srfdet3d_torch.ops import cuda_build
     set_backend_flags()
     smi = nvidia_smi()
@@ -861,7 +989,8 @@ def main() -> int:
               count=torch.cuda.device_count(), torch=torch.__version__,
               cuda=torch.version.cuda))
     secs = cuda_build.build_kernels(["gather_conv", "eqmatch",
-                                     "gather_conv_bwd", "roi_scatter"])
+                                     "gather_conv_bwd", "roi_scatter",
+                                     "rulebook_lookup"])
     emit(dict(phase="build", seconds=secs))
 
     cfg = srfdet_voxel_nusc_L()
@@ -878,13 +1007,31 @@ def main() -> int:
         bwd = check_conv_bwd(train_cases, dev, gen)
         del train_cases
         k5 = check_roi_bwd(cfg, dev, gen)
+        kcfg = srfdet_voxel_kitti_L()
+        kbatch = synthetic_batch(kcfg, 1, seed=0)
+        k6 = check_rulebook_lookup(
+            kcfg.name, table_lookups(table_backend(kcfg), kbatch, dev))
+        check_rulebook_lookup(
+            cfg.name, table_lookups(table_backend(cfg), batch, dev))
     torch.cuda.empty_cache()
 
-    k1_launches, k2_launches = flagship_predict(cfg, batch, smi)
+    none = dict.fromkeys(COUNTED, 0)
+    counts = predict_phase("flagship_predict", cfg, batch, smi,
+                           dict(none, gather_conv=21, eqmatch=4))
+    k1_launches, k2_launches = counts["gather_conv"], counts["eqmatch"]
+    torch.cuda.empty_cache()
+    predict_phase("kitti_predict", kcfg, kbatch, smi,
+                  dict(none, gather_conv=12, eqmatch=4))
+    torch.cuda.empty_cache()
+    counts = predict_phase("kitti_predict", table_backend(kcfg), kbatch, smi,
+                           dict(none, gather_conv=12, rulebook_lookup=8))
+    k6_launches = counts["rulebook_lookup"]
     torch.cuda.empty_cache()
     per_step = flagship_train(cfg, smi)
     torch.cuda.empty_cache()
-    tiny_end_to_end()
+    tiny_end_to_end(tiny_test_config())
+    tiny_end_to_end(table_backend(tiny_kitti_test_config()))
+    tiny_end_to_end(table_backend(tiny_test_config()))
     tiny_train()
 
     k5_steps = per_step["roi_scatter"]
@@ -909,7 +1056,11 @@ def main() -> int:
                      bwd["strided"]["max_abs_err"]),
         kernel_entry("roi_scatter", "srfdet3d_torch/csrc/roi_scatter.cu",
                      "srfdet3d_tpu/ops/pallas_patch_scatter.py:69", k5_steps,
-                     k5_step, k5["max_abs_err"])]})
+                     k5_step, k5["max_abs_err"]),
+        kernel_entry("rulebook_lookup",
+                     "srfdet3d_torch/csrc/rulebook_lookup.cu",
+                     "srfdet3d_tpu/ops/pallas_rulebook.py:43", k6_launches,
+                     dict(k6, bound_by="bytes"), 0.0)]})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -1,7 +1,7 @@
 """SRFDet detector, LiDAR path (reference models/detectors/srfdet.py).
 
-Voxelization -> HardSimpleVFE -> sparse encoder -> SECOND -> FPN -> SRFDet
-head.  Input contract, as in the JAX package:
+Voxelization -> VFE (HardSimpleVFE or DynamicVFE) -> sparse encoder ->
+SECOND -> FPN -> SRFDet head.  Input contract, as in the JAX package:
 
     batch = {"points": (B, P_cap, D) padded float32 point clouds,
              "points_mask": (B, P_cap) bool}
@@ -31,8 +31,8 @@ from .fpn import FPN
 from .head import SRFDetHead, decode_boxes, focal_bias
 from .layers import MaskedBatchNorm
 from .second import SECOND
-from .sparse_encoder import GatheredConvBN, SparseEncoder
-from .vfe import HardSimpleVFE
+from .sparse_encoder import GatheredConvBN, SparseEncoder, down_pads
+from .vfe import DynamicVFE, HardSimpleVFE
 
 # the LiDAR branch that cfg.optim.freeze_lidar freezes
 LIDAR_MODULES = ("pts_voxel_encoder", "pts_middle_encoder", "pts_backbone",
@@ -62,12 +62,12 @@ def _conv_out_size(n: int, stride: int = 2, pad: int = 1) -> int:
 def bev_geometry(cfg: SRFDetConfig):
     """(depth of the encoder's output, the FPN levels' (H, W)): the plan
     size after the encoder's downsamples, then SECOND's strides and the
-    FPN's stride-2 extra levels."""
+    FPN's stride-2 extra levels (a 3x3 conv with pad 1 and a kernel-1 max
+    pool give the same size)."""
     m = cfg.middle
     d, h, w = cfg.voxelization.sparse_shape
-    n_stages = len(m.encoder_channels)
-    for i, blocks in enumerate(m.encoder_channels[:n_stages - 1]):
-        pad = m.encoder_paddings[i][len(blocks) - 1]
+    for pad in down_pads(m.block_type, m.encoder_channels,
+                         m.encoder_paddings):
         pz, py, px = (pad,) * 3 if isinstance(pad, int) else pad
         d = _conv_out_size(d, 2, pz)
         h, w = _conv_out_size(h, 2, py), _conv_out_size(w, 2, px)
@@ -88,14 +88,10 @@ def _check_supported(cfg: SRFDetConfig) -> None:
         unsupported.append("use_img")
     if cfg.compute_dtype != "float32":
         unsupported.append(f"compute_dtype={cfg.compute_dtype}")
-    if cfg.vfe.kind != "hard_simple":
+    if cfg.vfe.kind not in ("hard_simple", "dynamic"):
         unsupported.append(f"vfe.kind={cfg.vfe.kind}")
-    if cfg.middle.kind != "sparse" or cfg.middle.rulebook != "bitmap":
-        unsupported.append("middle: sparse bitmap only")
-    if cfg.middle.block_type != "basicblock":
-        unsupported.append(f"block_type={cfg.middle.block_type}")
-    if not cfg.neck_extra_convs:
-        unsupported.append("neck_extra_convs=False")
+    if cfg.middle.kind != "sparse":
+        unsupported.append(f"middle.kind={cfg.middle.kind}")
     if not cfg.head.with_dpg or cfg.head.with_lidar_encoder:
         unsupported.append("head: DPG on, no lidar encoder")
     if unsupported:
@@ -116,18 +112,28 @@ class SRFDet(nn.Module):
         self.cfg = cfg
         spec = cfg.voxelization
         m = cfg.middle
-        self.pts_voxel_encoder = HardSimpleVFE(cfg.vfe.in_channels)
+        v = cfg.vfe
+        if v.kind == "dynamic":
+            self.pts_voxel_encoder = DynamicVFE(
+                spec, v.in_channels, v.feat_channels,
+                with_distance=v.with_distance,
+                with_cluster_center=v.with_cluster_center,
+                with_voxel_center=v.with_voxel_center,
+                with_centroid_aware=v.with_centroid_aware)
+        else:
+            self.pts_voxel_encoder = HardSimpleVFE(v.in_channels)
         self.pts_middle_encoder = SparseEncoder(
             m.in_channels, spec.sparse_shape, m.base_channels,
             m.output_channels, m.encoder_channels, m.encoder_paddings,
-            m.capacities)
+            m.capacities, block_type=m.block_type, rulebook=m.rulebook)
 
         d, sizes = bev_geometry(cfg)
         bb = cfg.backbone
         self.pts_backbone = SECOND(d * m.output_channels, bb.out_channels,
                                    bb.layer_nums, bb.layer_strides)
         self.pts_neck = FPN(bb.out_channels, cfg.neck_out_channels,
-                            cfg.neck_num_outs)
+                            cfg.neck_num_outs,
+                            extra_convs=cfg.neck_extra_convs)
         hc = cfg.head
         if hc.feat_channels_lidar != cfg.neck_out_channels:
             raise ValueError("head.feat_channels_lidar must equal the neck's")
@@ -160,10 +166,15 @@ class SRFDet(nn.Module):
     @torch.no_grad()
     def _init_weights(self, g: torch.Generator) -> None:
         """Seeded init in the JAX package's families: xavier-uniform dense
-        layers, lecun-normal convs, kaiming-normal sparse kernels, N(0, 1)
-        proposal embeddings, unit norms, the focal prior on class biases."""
-        for mod in self.modules():
-            if isinstance(mod, nn.Linear):
+        layers of the head, lecun-normal VFE dense layers and convs,
+        kaiming-normal sparse kernels, N(0, 1) proposal embeddings, unit
+        norms, the focal prior on class biases."""
+        for name, mod in self.named_modules():
+            if (isinstance(mod, nn.Linear) and
+                    name.startswith("pts_voxel_encoder.")):
+                mod.weight.copy_(torch.randn(mod.weight.shape, generator=g)
+                                 / math.sqrt(mod.in_features))
+            elif isinstance(mod, nn.Linear):
                 fan_out, fan_in = mod.weight.shape
                 lim = math.sqrt(6.0 / (fan_in + fan_out))
                 mod.weight.copy_(torch.rand(mod.weight.shape, generator=g)

@@ -98,6 +98,20 @@ def _convbn(prefix: str, path, a):
 def _map(path, a, n_heads, n_cls):
     """JAX leaf path (collection dropped) -> [(port key, array)]."""
     top = path[0]
+    if top == "pts_voxel_encoder":
+        # DynamicVFE: DynamicVFELayer_{i}/{Dense_0, MaskedBatchNorm_0}, and
+        # the centroid-aware MLP's Dense_{0,1} / MaskedBatchNorm_{0,1}
+        m = re.fullmatch(r"DynamicVFELayer_(\d+)", path[1])
+        if m:
+            sub = {"Dense_0": "linear", "MaskedBatchNorm_0": "bn"}[path[2]]
+            name, arr = _leaf(path[3], a, sub == "bn")
+            return [(f"pts_voxel_encoder.layers.{m.group(1)}.{sub}.{name}",
+                     arr)]
+        kind, i = re.fullmatch(r"(Dense|MaskedBatchNorm)_([01])",
+                               path[1]).groups()
+        sub = {"Dense": "centroid_fc", "MaskedBatchNorm": "centroid_bn"}[kind]
+        name, arr = _leaf(path[2], a, kind == "MaskedBatchNorm")
+        return [(f"pts_voxel_encoder.{sub}{int(i) + 1}.{name}", arr)]
     if top == "pts_middle_encoder":
         conv = path[1]
         if path[2] == "kernel":
