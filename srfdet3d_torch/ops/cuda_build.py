@@ -6,7 +6,8 @@ interface; device code that two kernels share lives in a header
 shared library under `build/kernels/` at the root of the checkout, named by
 a hash of its source, the headers and the flags, and loaded with ctypes.
 A library that is already built is loaded as it is.  `build_kernels` starts
-one nvcc per source, all at once, and waits for them.
+one nvcc per source, all at once, and waits for them; `start_nvcc` and
+`wait_nvcc` build one source from any directory with the same flags.
 """
 
 from __future__ import annotations
@@ -50,25 +51,35 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}_{digest[:16]}.so"
 
 
+def start_nvcc(source: Path, out: Path) -> subprocess.Popen:
+    """Start nvcc on one CUDA source (its headers in its own directory)
+    with NVCC_FLAGS, into the shared library `out`."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(source)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def wait_nvcc(proc: subprocess.Popen, what: str) -> None:
+    """Wait for a start_nvcc process; raise with nvcc's log on failure."""
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {what}:\n{log}")
+
+
 def _start_build(name: str):
     out = library_path(name)
     if out.exists():
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
+    return start_nvcc(CSRC / f"{name}.cu", tmp), tmp, out
 
 
 def _finish_build(name: str, started) -> None:
     if started is None:
         return
     proc, tmp, out = started
-    log, _ = proc.communicate()
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    wait_nvcc(proc, f"{name}.cu")
     os.replace(tmp, out)
 
 

@@ -62,6 +62,9 @@ def gather_conv(feats: torch.Tensor, idx: torch.Tensor,
             raise ValueError(f"gather_conv: {name} must be contiguous")
     if n >= 2 ** 31:
         raise ValueError("gather_conv: N must fit int32")
+    if not 1 <= k <= 32:
+        raise ValueError(f"gather_conv: the kernel takes 1 to 32 offsets, "
+                         f"got K = {k}")
     cout = weights.shape[2]
     out = torch.empty(m, cout, dtype=torch.float32, device=dev)
     lib = cuda_build.load_library("gather_conv", _SIGNATURES)

@@ -35,7 +35,8 @@ from . import cuda_build
 subm_launches = 0
 strided_launches = 0
 
-# rows of the input a dW block sums before its partial is written
+# rows of the input a dW block compacts and sums before its partial is
+# written (the kernel takes at most 4096)
 DW_CHUNK = 1024
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -128,6 +129,9 @@ def _check(name, feats, rb, weights, g):
                          f"{tuple(weights.shape)}, g {tuple(g.shape)}")
     if max(n, g.shape[0]) >= 2 ** 31:
         raise ValueError(f"{name}: row counts must fit int32")
+    if not 1 <= k <= 32:
+        raise ValueError(f"{name}: the kernel takes 1 to 32 offsets, got "
+                         f"K = {k}")
 
 
 def _kernel_bwd(feats: torch.Tensor, rb: torch.Tensor,
