@@ -20,9 +20,19 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    exact;
 5. conv_bwd (K3 subm, K4 strided) against their plain versions on the
    flagship train step's rulebooks (batch 2), at every conv shape, with
-   the same times and bounds as K1;
+   the same times and bounds as K1; K4 also holds its reverse rulebook and
+   row grouping (strided_prep, on the card) exactly against the plain
+   versions and reports their time (prep_ms), the host time of a wrapper
+   call (host_ms: the enqueue, the wrapper never waits on the card) and
+   the dfeats tiles' offset steps, grouped and in voxel order, against
+   the hits' least;
 6. roi_bwd (K5) against index_add_ at the flagship head's geometry (batch
-   2 x 900 RoIs, four levels at C 128, patch 32, 64 fallback slots);
+   2 x 900 RoIs, four levels at C 128, patch 32, 64 fallback slots), with
+   the global atomics a launch before the window sums (one a live corner
+   sample and channel) and after (one a distinct live cell and channel),
+   and the max difference of two launches (atomic order); then sync_free:
+   one K4 and one K5 backward under torch.cuda.set_sync_debug_mode("error")
+   (a host sync raises), their results equal to the checked ones;
 7. rulebook_lookup (K6) against its plain version, exact, at every lookup
    of the table-backend encoder of srfdet_voxel_kitti_L (65,536 voxel
    slots) and of the flagship (120k voxel slots), walking the rulebooks
@@ -46,14 +56,16 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    with the plain versions;
 13. gather_gemm device times of every K1 conv (flagship and KITTI) and
    every K3 / K4 conv, one line each: the kernels' own device time from
-   torch.profiler (kernel_device_ms), measured after every end-to-end
-   phase;
+   torch.profiler (kernel_device_ms; for K4 with its preparation kernels,
+   and their share as prep_device_ms), and K5's (roi_bwd_device),
+   measured after every end-to-end phase;
 14. the `kernels` line: per kernel, launches (per flagship predict for K1
    and K2, per flagship train step for K3-K5, per KITTI table predict for
    K6), max error against the plain version, and times per predict or per
    train step (kernel, plain version, bound, one PyTorch library call);
    the gather-GEMM kernels K1, K3 and K4 also carry tc_bound_ms (equal
-   to their bound_ms), simt_bound_ms and device_ms (profiler).
+   to their bound_ms), simt_bound_ms and device_ms (profiler), K5
+   device_ms.
 
 The second-to-last line is nvidia-smi's name and power limit; the last line
 is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -78,9 +90,14 @@ import torch
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 PEAK_3XTF32 = 495e12 / 3
-# the gather-GEMM kernels' own device code, by name in a profiler trace
+# the gather-GEMM kernels' own device code, by name in a profiler trace;
+# the strided backward (K4) also runs its preparation kernels (reverse
+# rulebook, row grouping: 5 launches), K5 its one kernel
 GATHER_GEMM_KERNELS = ("gather_gemm::kernel", "dw_partial_kernel",
                        "dw_reduce_kernel")
+STRIDED_PREP_KERNELS = ("strided_prep",)
+STRIDED_PREP_LAUNCHES = 5
+ROI_SCATTER_KERNELS = ("roi_scatter_kernel",)
 # cycles of torch.cuda._sleep that keep the card busy (~10 ms) at a
 # profiler session's start, so that the session sees every launch after it
 SPIN_CYCLES = 20_000_000
@@ -208,10 +225,11 @@ def encoder_rulebooks(cfg, batch, dev):
     return conv, subm
 
 
-def kernel_device_ms(fn, per_call: int, iters: int = 10, tries: int = 3):
-    """The gather-GEMM kernels' own device ms (GATHER_GEMM_KERNELS) a call
-    of fn, from torch.profiler key_averages over `iters` calls; unlike a
-    back-to-back event timing it leaves out the wrapper's host path.  A
+def kernel_device_ms(fn, per_call: int, iters: int = 10, tries: int = 3,
+                     names=GATHER_GEMM_KERNELS):
+    """The named kernels' own device ms (default GATHER_GEMM_KERNELS) a
+    call of fn, from torch.profiler key_averages over `iters` calls; unlike
+    a back-to-back event timing it leaves out the wrapper's host path.  A
     session may miss the launches at its start, so each starts with a spin
     of the card and counts only if it saw per_call of those kernels a call;
     None when none of `tries` sessions did."""
@@ -230,7 +248,7 @@ def kernel_device_ms(fn, per_call: int, iters: int = 10, tries: int = 3):
         own, seen = 0.0, 0
         for e in prof.key_averages():
             if getattr(e, "device_type", None) != DeviceType.CUDA or \
-                    not any(name in e.key for name in GATHER_GEMM_KERNELS):
+                    not any(name in e.key for name in names):
                 continue
             us = getattr(e, "self_device_time_total", None)
             if us is None:
@@ -352,12 +370,52 @@ def check_eqmatch(cases):
     return totals
 
 
+def host_ms(fn, calls: int = 20) -> float:
+    """Host ms of one call of fn, which must not wait on the card: the
+    mean over `calls` back-to-back calls of the time to enqueue them."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return ms
+
+
+def check_strided_prep(idx, n, cin):
+    """K4's preparation on the card (reverse rulebook, row grouping)
+    exactly against the plain versions on the CPU; its event ms and the
+    dfeats tiles' offset steps (tile rows: 64 above 64 channels of dfeats,
+    else 128), grouped and in voxel order, and the least the hits need.
+    Returns (rev, extra fields of the conv_bwd line)."""
+    from srfdet3d_torch.ops import gather_conv_bwd as gcb
+    m = idx.shape[0]
+    rev, perm = gcb.strided_prep(idx, n)
+    torch.cuda.synchronize()
+    ref_rev, ref_perm = gcb.strided_prep(idx.cpu(), n)
+    if not torch.equal(rev.cpu(), ref_rev):
+        raise AssertionError("strided_prep: the reverse rulebook differs")
+    if not torch.equal(perm.cpu(), ref_perm):
+        raise AssertionError("strided_prep: the row grouping differs")
+    bm = 64 if cin > 64 else 128
+    extra = dict(prep_ms=time_ms(lambda: gcb.strided_prep(idx, n)),
+                 groups=int(gcb.group_keys(rev, m).unique().numel()),
+                 tile_rows=bm,
+                 tile_offset_steps=gcb.tile_offset_steps(rev, m, perm, bm),
+                 tile_offset_steps_voxel_order=gcb.tile_offset_steps(
+                     rev, m, None, bm),
+                 hit_offset_steps=gcb.tile_offset_steps(rev, m, None, 1)
+                 / bm)
+    return rev, extra
+
+
 def check_conv_bwd(cases, dev, gen):
     """K3 and K4 at every conv of the flagship train step (batch 2): dfeats
     (where the step needs it; conv_input's input has no parameters) and dW
     against the plain versions, then times per launch: back-to-back
     events, the plain version, gather + cuBLAS, and the 3xTF32 and SIMT
-    bounds."""
+    bounds; for K4 also check_strided_prep and the wrapper's host ms."""
     from srfdet3d_torch.ops import gather_conv_bwd as gcb
     totals = {kind: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                          tc_bound_ms=0.0, simt_bound_ms=0.0,
@@ -383,7 +441,7 @@ def check_conv_bwd(cases, dev, gen):
             def plain():
                 return gcb.gather_bwd_plain(feats, idx, w, g, True, need)
         else:
-            rb = gcb.reverse_rulebook(idx, n)
+            rb, extra = check_strided_prep(idx, n, cin)
             w_bwd = w
 
             def kern():
@@ -393,6 +451,8 @@ def check_conv_bwd(cases, dev, gen):
                 return gcb.scatter_bwd_plain(feats, idx, w, g, need)
         (got_f, got_w), (ref_f, ref_w) = kern(), plain()
         torch.cuda.synchronize()
+        if not subm:
+            extra["host_ms"] = host_ms(kern)
         hits = idx < n
         nnz = int(hits.sum())
         per_offset = int(hits.sum(0).max())
@@ -428,7 +488,7 @@ def check_conv_bwd(cases, dev, gen):
                   launches_per_step=per_step, max_abs_err=max(errs), ms=ms,
                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
                   bound_by=bound_by, tc_bound_ms=bound, simt_bound_ms=simt,
-                  nnz=nnz))
+                  nnz=nnz, **({} if subm else extra)))
         t = totals[kind]
         t["max_abs_err"] = max(t["max_abs_err"], max(errs))
         for key, val in (("ms", ms), ("plain_ms", plain_ms),
@@ -442,7 +502,10 @@ def check_roi_bwd(cfg, dev, gen):
     """K5 at the flagship head's geometry: batch 2 x 900 RoIs from boxes
     of nuScenes-like sizes anywhere in range, the four FPN levels at C 128,
     patch 32 with 64 fallback slots; against index_add_ (the plain
-    version).  Returns one launch's numbers."""
+    version).  The global atomics a launch, counted from the corners on the
+    card: before the window sums one a live corner sample and channel,
+    after one a distinct live table row of a RoI and channel.  Returns one
+    launch's numbers and the launch's inputs."""
     from srfdet3d_torch.models.detector import bev_geometry
     from srfdet3d_torch.models.head import lidar_rois_from_boxes
     from srfdet3d_torch.ops.roi_align import corner_samples
@@ -461,18 +524,21 @@ def check_roi_bwd(cfg, dev, gen):
     boxes[..., 6], boxes[..., 7] = np.sin(yaw), np.cos(yaw)
     rois = lidar_rois_from_boxes(torch.from_numpy(boxes).to(dev),
                                  cfg.pc_range, cfg.voxel_size)
-    idx, wgt, drop = corner_samples(sizes, rois, hc.lidar_strides, out, sr,
-                                    patch=hc.roi_patch,
-                                    patch_fallback=hc.roi_patch_fallback)
+    cs = corner_samples(sizes, rois, hc.lidar_strides, out, sr,
+                        patch=hc.roi_patch,
+                        patch_fallback=hc.roi_patch_fallback)
+    idx, wgt, drop = cs.idx, cs.wgt, cs.drop
     rows = b * sum(h * w for h, w in sizes)
     gp = torch.randn(b * r, out, out, c, generator=gen).to(dev)
+    args = (gp, cs.cells, cs.cw, cs.level, drop, rows, sr)
 
     def kern():
-        return roi_scatter(gp, idx, wgt, drop, rows, sr)
+        return roi_scatter(*args)
 
     def plain():
         return roi_scatter_plain(gp, idx, wgt, drop, rows, sr)
     got, ref = kern(), plain()
+    again = kern()
     torch.cuda.synchronize()
     live = (wgt != 0) & ~drop[:, None, None, None]
     per_row = int(torch.bincount(idx[live].reshape(-1),
@@ -482,6 +548,10 @@ def check_roi_bwd(cfg, dev, gen):
     if not bool((err <= tol).all()):
         raise AssertionError(f"roi_scatter: max err {float(err.max())} "
                              f"over tolerance")
+    rid = torch.arange(b * r, device=dev)[:, None, None, None]
+    touched = torch.unique(rid.expand_as(idx)[live] * rows + idx[live])
+    atomics_before = int(live.sum()) * c
+    atomics_after = int(touched.numel()) * c
     flat_idx = idx.reshape(-1)
     contrib = (wgt[..., None] * sample_grads(gp, drop, sr)[:, None]
                ).reshape(-1, c)
@@ -491,16 +561,54 @@ def check_roi_bwd(cfg, dev, gen):
         return dt0.index_add_(0, flat_idx, contrib)
     ms, plain_ms, lib_ms = time_ms(kern), time_ms(plain), time_ms(library)
     del contrib
-    nbytes = (4.0 * (gp.numel() + 2 * idx.numel() + rows * c) +
-              drop.numel())
+    # the function's inputs read once (gp, the per-axis corners, their
+    # weights, the levels, drop) and the table cotangent written once
+    nbytes = (4.0 * (gp.numel() + cs.cells.numel() + cs.cw.numel() +
+                     cs.level.numel() + rows * c) + drop.numel())
     bound = nbytes / PEAK_BYTES * 1e3
     row = dict(phase="roi_bwd", rois=b * r, levels=sizes, c=c,
                patch=hc.roi_patch, fallback=hc.roi_patch_fallback,
                dropped=int(drop.sum()), max_adds_per_row=per_row,
-               max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms,
-               library_ms=lib_ms, bound_ms=bound, bound_by="bytes")
+               max_abs_err=float(err.max()),
+               run_to_run_max_diff=float((got - again).abs().max()),
+               atomics_before=atomics_before, atomics_after=atomics_after,
+               ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+               bound_by="bytes")
     emit(row)
-    return row
+    return row, (args, got, per_row)
+
+
+def sync_free(strided_case, roi_case, dev, gen):
+    """One K4 backward (a strided conv of the train step) and one K5
+    backward under torch.cuda.set_sync_debug_mode("error"), which raises at
+    any host sync; each result equal to the same call's outside it."""
+    from srfdet3d_torch.ops import gather_conv_bwd as gcb
+    from srfdet3d_torch.ops.roi_scatter import roi_scatter
+    name, n, idx, cin, cout, _ = strided_case
+    k = idx.shape[1]
+    feats = torch.randn(n, cin, generator=gen).to(dev)
+    w = torch.randn(k, cin, cout, generator=gen).to(dev)
+    g = torch.randn(idx.shape[0], cout, generator=gen).to(dev)
+    roi_args, roi_ref, per_row = roi_case
+    ref_f, ref_w = gcb.strided_conv_bwd(feats, idx, w, g)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got_f, got_w = gcb.strided_conv_bwd(feats, idx, w, g)
+        got_t = roi_scatter(*roi_args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    # K4 sums in a fixed order: equal bits; K5's atomics add RoIs in an
+    # order that changes from run to run, so within the roi_bwd tolerance
+    if not (torch.equal(got_f, ref_f) and torch.equal(got_w, ref_w)):
+        raise AssertionError(f"sync_free: K4 at {name} differs")
+    diff = float((got_t - roi_ref).abs().max())
+    tol = RTOL * roi_ref.abs() + ATOL * math.sqrt(max(per_row, 1))
+    if not bool(((got_t - roi_ref).abs() <= tol).all()):
+        raise AssertionError(f"sync_free: K5 differs by {diff}")
+    emit(dict(phase="sync_free", mode="error", k4_conv=name,
+              k5_rois=roi_args[0].shape[0], k5_max_diff=diff, ok=True))
 
 
 def table_lookups(cfg, batch, dev):
@@ -1065,15 +1173,17 @@ def table_backend(cfg):
                                                   rulebook="table"))
 
 
-def gather_gemm_device_times(cfg, kcfg, batch, kbatch, dev, gen):
+def gather_gemm_device_times(cfg, kcfg, batch, kbatch, roi_args, dev, gen):
     """Kernel-only device ms (kernel_device_ms) of every K1 conv (flagship
     and KITTI, batch 1) and every K3 / K4 conv (flagship, batch 2), one
     line per conv beside the gather_conv and conv_bwd lines, after every
     end-to-end timing, so that no profiler session runs before them.
-    Returns the sums per flagship predict (K1) and train step (K3, K4) as
-    {device_ms}, None where a conv's is missing."""
+    Then K5's at roi_bwd's inputs (roi_args).  Returns the sums per
+    flagship predict (K1) and train step (K3, K4) as {device_ms}, None
+    where a conv's is missing, and K5's a launch."""
     from srfdet3d_torch.ops import gather_conv_bwd as gcb
     from srfdet3d_torch.ops.gather_conv import gather_conv
+    from srfdet3d_torch.ops.roi_scatter import roi_scatter
     sums = {key: dict(device_ms=0.0)
             for key in ("gather_conv", "subm", "strided")}
 
@@ -1104,12 +1214,38 @@ def gather_gemm_device_times(cfg, kcfg, batch, kbatch, dev, gen):
             w = torch.randn(k, cin, cout, generator=gen).to(dev)
             g = torch.randn(m, cout, generator=gen).to(dev)
             bwd = gcb.subm_conv_bwd if subm else gcb.strided_conv_bwd
-            # the dfeats gather-GEMM where asked, the dW pass, its reduction
+            # the dfeats gather-GEMM where asked, the dW pass, its
+            # reduction; K4 first prepares its rulebooks (dfeats: grouped)
+            line = {}
+            launches = 2 + need
+            names = GATHER_GEMM_KERNELS
+            if not subm:
+                # fill + reverse, and the grouping's 3 where dfeats runs
+                prep = STRIDED_PREP_LAUNCHES if need else 2
+                launches += prep
+                names += STRIDED_PREP_KERNELS
+                line["prep_device_ms"] = kernel_device_ms(
+                    lambda: gcb.strided_prep(idx, n, need), prep,
+                    names=STRIDED_PREP_KERNELS)
+                # its dfeats gather-GEMM and its dW passes apart
+                for what, part, count in (
+                        ("dfeats", GATHER_GEMM_KERNELS[:1], int(need)),
+                        ("dw", GATHER_GEMM_KERNELS[1:], 2)):
+                    if count:
+                        line[f"{what}_device_ms"] = kernel_device_ms(
+                            lambda: bwd(feats, idx, w, g, need), count,
+                            names=part)
             own = kernel_device_ms(lambda: bwd(feats, idx, w, g, need),
-                                   2 + need)
+                                   launches, names=names)
             emit(dict(phase="conv_bwd_device", kernel="K3" if subm else "K4",
-                      conv=name, device_ms=own, launches_per_step=per_step))
+                      conv=name, device_ms=own, launches_per_step=per_step,
+                      **line))
             add("subm" if subm else "strided", own, per_step)
+        # K5 at roi_bwd's inputs: its kernel alone (not the table's zeros)
+        own = kernel_device_ms(lambda: roi_scatter(*roi_args), 1,
+                               names=ROI_SCATTER_KERNELS)
+        emit(dict(phase="roi_bwd_device", device_ms=own))
+        sums["roi_scatter"] = dict(device_ms=own)
     return sums
 
 
@@ -1170,8 +1306,11 @@ def main() -> int:
         train_cases, _ = encoder_rulebooks(
             cfg, synthetic_batch(cfg, 2, seed=0), dev)
         bwd = check_conv_bwd(train_cases, dev, gen)
-        del train_cases
-        k5 = check_roi_bwd(cfg, dev, gen)
+        k5, roi_case = check_roi_bwd(cfg, dev, gen)
+        sync_free(next(c for c in train_cases if c[0] == "down2"), roi_case,
+                  dev, gen)
+        roi_args = roi_case[0]
+        del train_cases, roi_case
         k6 = check_rulebook_lookup(
             kcfg.name, table_lookups(table_backend(kcfg), kbatch, dev))
         check_rulebook_lookup(
@@ -1196,7 +1335,8 @@ def main() -> int:
     tiny_end_to_end(table_backend(tiny_kitti_test_config()))
     tiny_end_to_end(table_backend(tiny_test_config()))
     tiny_train()
-    device = gather_gemm_device_times(cfg, kcfg, batch, kbatch, dev, gen)
+    device = gather_gemm_device_times(cfg, kcfg, batch, kbatch, roi_args,
+                                      dev, gen)
     k1.update(device["gather_conv"])
     bwd["subm"].update(device["subm"])
     bwd["strided"].update(device["strided"])
@@ -1205,6 +1345,8 @@ def main() -> int:
     k5_step = {key: k5_steps * k5[key]
                for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
     k5_step["bound_by"] = "bytes"
+    k5_dev = device["roi_scatter"]["device_ms"]
+    k5_step["device_ms"] = None if k5_dev is None else k5_steps * k5_dev
     emit({"kernels": [
         kernel_entry("gather_conv", "srfdet3d_torch/csrc/gather_conv.cu",
                      "srfdet3d_tpu/ops/pallas_onehot.py:67", k1_launches,

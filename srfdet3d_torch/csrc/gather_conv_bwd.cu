@@ -36,6 +36,16 @@
 //     rows at a time through a 3-stage cp.async ring (zero-filled past the
 //     last hit).  Each block writes its tile to part[chunk]; a second pass
 //     adds the partials in chunk order.  Deterministic, no atomics.
+//   - the strided backward's preparation runs on the card, with no host
+//     sync: a kernel writes the reverse rulebook (one thread per (m, j)),
+//     and a stable counting sort groups the input rows by their lowest hit
+//     offset.  An input row of a 3x3x3 stride-2 conv hits only the offsets
+//     its coordinate parities allow (8 classes; 27/8 hits a row on
+//     average); in voxel order a 128-row tile mixes every class and runs
+//     all 27 offsets, grouped it runs about its class's offsets only.  The
+//     dfeats gather-GEMM reads its rows through the permutation and writes
+//     each row back to its own place (gather_gemm::launch<true>).  dW keeps
+//     the voxel order: it compacts each offset's hit rows already.
 // The TPU kernels' windows, one-hot matmuls and read-modify-write window
 // accumulation exist because Mosaic has no dynamic gather or scatter; here
 // rows load by index and the reverse rulebook turns the scatter into a
@@ -222,6 +232,123 @@ __global__ void dw_reduce_kernel(const float* __restrict__ part,
   dw[e] = v;
 }
 
+// ---- the strided backward's preparation: reverse rulebook, row grouping
+
+constexpr int kGroupRows = 1024;    // input rows a grouping block orders
+constexpr int kGroupThreads = 256;
+constexpr int kMaxKeys = 33;        // lowest hit offset 0..31, or K: none
+
+__global__ void strided_prep_fill(int* __restrict__ rev, long long total,
+                                  int value) {
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       e < total; e += (long long)gridDim.x * blockDim.x)
+    rev[e] = value;
+}
+
+// rev[idx[m, j], j] = m where idx[m, j] < n; each (r, j) is hit at most
+// once (a fixed offset maps an input cell to at most one output cell)
+__global__ void strided_prep_reverse(const int* __restrict__ idx,
+                                     int* __restrict__ rev, long long m,
+                                     int n, int k) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= m * k) return;
+  const int r = idx[e];
+  if ((unsigned)r < (unsigned)n) {
+    const long long mm = e / k;
+    rev[(long long)r * k + (e - mm * k)] = (int)mm;
+  }
+}
+
+// key[r] = the lowest offset j with rev[r, j] < mg, or K; hist[key][block]
+// = the rows of the block with that key (key-major, for the scan)
+__global__ void __launch_bounds__(kGroupThreads)
+strided_prep_hist(const int* __restrict__ rev, unsigned char* __restrict__ key,
+                  int* __restrict__ hist, long long n, int mg, int k,
+                  int blocks) {
+  __shared__ int cnt[kMaxKeys];
+  for (int i = threadIdx.x; i <= k; i += blockDim.x) cnt[i] = 0;
+  __syncthreads();
+  const long long r0 = (long long)blockIdx.x * kGroupRows;
+  for (int i = threadIdx.x; i < kGroupRows && r0 + i < n; i += blockDim.x) {
+    const int* row = rev + (r0 + i) * k;
+    unsigned mask = 0;
+    for (int j = 0; j < k; ++j)
+      if ((unsigned)row[j] < (unsigned)mg) mask |= 1u << j;
+    const int kk = mask ? __ffs(mask) - 1 : k;
+    key[r0 + i] = (unsigned char)kk;
+    atomicAdd(&cnt[kk], 1);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i <= k; i += blockDim.x)
+    hist[(long long)i * blocks + blockIdx.x] = cnt[i];
+}
+
+// exclusive prefix sum of hist (total entries) in place, one block of 1024
+__global__ void __launch_bounds__(1024)
+strided_prep_scan(int* __restrict__ hist, int total) {
+  __shared__ int part[1024];
+  const int t = threadIdx.x;
+  const int per = (total + 1023) / 1024;
+  const int b = t * per < total ? t * per : total;
+  const int e = b + per < total ? b + per : total;
+  int sum = 0;
+  for (int i = b; i < e; ++i) sum += hist[i];
+  part[t] = sum;
+  __syncthreads();
+  for (int off = 1; off < 1024; off <<= 1) {
+    const int v = t >= off ? part[t - off] : 0;
+    __syncthreads();
+    part[t] += v;
+    __syncthreads();
+  }
+  int run = t ? part[t - 1] : 0;
+  for (int i = b; i < e; ++i) {
+    const int v = hist[i];
+    hist[i] = run;
+    run += v;
+  }
+}
+
+// perm[offs[key][block] + rank] = r, rank = the rows before r in the block
+// with r's key: a stable counting sort (rows go in block, warp, lane order)
+__global__ void __launch_bounds__(kGroupThreads)
+strided_prep_scatter(const unsigned char* __restrict__ key,
+                     const int* __restrict__ offs, int* __restrict__ perm,
+                     long long n, int k, int blocks) {
+  constexpr int W = kGroupThreads / 32;
+  __shared__ int base[kMaxKeys];
+  __shared__ int wcnt[W][kMaxKeys];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  for (int i = t; i <= k; i += blockDim.x)
+    base[i] = offs[(long long)i * blocks + blockIdx.x];
+  const long long r0 = (long long)blockIdx.x * kGroupRows;
+  for (int round = 0; round < kGroupRows && r0 + round < n;
+       round += kGroupThreads) {
+    for (int i = t; i < W * kMaxKeys; i += blockDim.x)
+      wcnt[i / kMaxKeys][i % kMaxKeys] = 0;
+    __syncthreads();
+    const long long r = r0 + round + t;
+    const bool live = r < n;
+    const int kk = live ? key[r] : -1;
+    const unsigned peers = __match_any_sync(0xffffffffu, kk);
+    const int rank = __popc(peers & ((1u << lane) - 1u));
+    if (live && lane == __ffs(peers) - 1) wcnt[warp][kk] = __popc(peers);
+    __syncthreads();
+    if (live) {
+      int at = base[kk] + rank;
+      for (int w = 0; w < warp; ++w) at += wcnt[w][kk];
+      perm[at] = (int)r;
+    }
+    __syncthreads();
+    if (t <= k) {
+      int add = 0;
+      for (int w = 0; w < W; ++w) add += wcnt[w][t];
+      base[t] += add;
+    }
+    __syncthreads();
+  }
+}
+
 template <int TM, int TN>
 cudaError_t launch_dw(const float* feats, const int* rb, const float* g,
                       float* part, long long nrows, int mg, int k, int cin,
@@ -259,6 +386,52 @@ int conv_bwd_dfeats_f32(const void* g, const void* rb, const void* wt,
   return (int)gather_gemm::launch((const float*)g, (const int*)rb,
                                   (const float*)wt, (float*)dfeats, mg,
                                   nrows, k, cout, cin, (cudaStream_t)stream);
+}
+
+// dfeats through the row grouping: tile rows perm[m0 ..] of rb (N, K)
+int conv_bwd_dfeats_perm_f32(const void* g, const void* rb, const void* perm,
+                             const void* wt, void* dfeats, int mg,
+                             long long nrows, int k, int cout, int cin,
+                             void* stream) {
+  return (int)gather_gemm::launch<true>(
+      (const float*)g, (const int*)rb, (const float*)wt, (float*)dfeats, mg,
+      nrows, k, cout, cin, (cudaStream_t)stream, (const int*)perm);
+}
+
+// rev (N, K) int32: the reverse rulebook of idx (M, K) over N input rows,
+// rev[r, j] = the m with idx[m, j] == r, else M (0 <= M < 2^31)
+int strided_reverse_i32(const void* idx, void* rev, long long m, int n,
+                        int k, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (m < 0 || m > 0x7fffffffLL || n < 0 || k < 1)
+    return (int)cudaErrorInvalidValue;
+  const long long total = (long long)n * k;
+  if (total > 0) {
+    const long long blocks = (total + 255) / 256;
+    strided_prep_fill<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0,
+                        s>>>((int*)rev, total, (int)m);
+  }
+  if (m * k > 0)
+    strided_prep_reverse<<<(unsigned)((m * k + 255) / 256), 256, 0, s>>>(
+        (const int*)idx, (int*)rev, m, n, k);
+  return (int)cudaGetLastError();
+}
+
+// perm (N,) int32: the input rows ordered stably by their lowest hit offset
+// in rev (N, K) (K: no hit).  Scratch: key N bytes, hist (K + 1) *
+// ceil(N / 1024) ints.
+int strided_group_i32(const void* rev, void* key, void* hist, void* perm,
+                      long long n, int mg, int k, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (k < 1 || k > 32 || n < 0) return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaSuccess;
+  const int blocks = (int)((n + kGroupRows - 1) / kGroupRows);
+  strided_prep_hist<<<blocks, kGroupThreads, 0, s>>>(
+      (const int*)rev, (unsigned char*)key, (int*)hist, n, mg, k, blocks);
+  strided_prep_scan<<<1, 1024, 0, s>>>((int*)hist, (k + 1) * blocks);
+  strided_prep_scatter<<<blocks, kGroupThreads, 0, s>>>(
+      (const unsigned char*)key, (const int*)hist, (int*)perm, n, k, blocks);
+  return (int)cudaGetLastError();
 }
 
 // dW (K, Cin, Cout); part holds chunks * K * Cin * Cout floats of scratch,

@@ -153,6 +153,29 @@ __device__ __forceinline__ void store_tile(const float (&acc)[MT][NT][4],
     }
 }
 
+// store_tile through a row map: the warp's tile row r (from r0, below
+// rows) goes to dst row rowmap[r]
+template <int MT, int NT>
+__device__ __forceinline__ void store_tile_rows(
+    const float (&acc)[MT][NT][4], float* dst, const int* rowmap, int rows,
+    int cols, long long ld, int r0, int c0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + i * 16 + g + h * 8;
+      if (r >= rows) continue;
+      float* row = dst + (long long)rowmap[r] * ld;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int c = c0 + j * 8 + 2 * t;
+        if (c < cols) row[c] = acc[i][j][2 * h];
+        if (c + 1 < cols) row[c + 1] = acc[i][j][2 * h + 1];
+      }
+    }
+}
+
 inline bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
 }  // namespace tc
@@ -179,11 +202,12 @@ __device__ __forceinline__ int nth_bit(unsigned mask, int q) {
   return __ffs(mask) - 1;
 }
 
-template <int BM, int BN, int BK, int WM, int WN>
+template <int BM, int BN, int BK, int WM, int WN, bool kPerm>
 __global__ void __launch_bounds__(WM * WN * 32, 2)
 kernel(const float* __restrict__ feats, const int* __restrict__ idx,
        const float* __restrict__ w, float* __restrict__ out, int n,
-       long long m, int k, int cin, int cout, int vec_a, int vec_b) {
+       long long m, int k, int cin, int cout, int vec_a, int vec_b,
+       const int* __restrict__ perm) {
   using C = Cfg<BM, BN, BK, WM, WN>;
   constexpr int T = C::kThreads;
   extern __shared__ __align__(16) float smem[];
@@ -195,13 +219,39 @@ kernel(const float* __restrict__ feats, const int* __restrict__ idx,
   const int n0 = blockIdx.y * BN;
   const long long tile_rows = m - m0 < BM ? m - m0 : BM;
 
-  // the tile's rulebook slice, and the offsets that hit some row of it
+  // the tile's rulebook slice, and the offsets that hit some row of it.
+  // kPerm: the tile's rows are staged first (in the BM ints after the
+  // slice), then the slice is copied by cp.async, all of it in flight at
+  // once: the grouped rows are scattered, and a tile of few steps would
+  // otherwise wait on its rulebook reads one after another
   unsigned mine = 0;
-  for (int e = tid; e < BM * k; e += T) {
-    const int r = e / k;
-    const int row = r < tile_rows ? idx[m0 * k + e] : n;
-    rows[e] = row;
-    if ((unsigned)row < (unsigned)n) mine |= 1u << (e - r * k);
+  if constexpr (kPerm) {
+    int* prow = rows + BM * k;
+    for (int r = tid; r < BM; r += T)
+      prow[r] = r < tile_rows ? perm[m0 + r] : 0;
+    __syncthreads();
+    for (int e = tid; e < BM * k; e += T) {
+      const int r = e / k;
+      const bool ok = r < tile_rows;
+      tc::cp_async4(rows + e,
+                    ok ? idx + (long long)prow[r] * k + (e - r * k) : idx,
+                    ok ? 4 : 0);
+    }
+    tc::cp_commit();
+    tc::cp_wait<0>();
+    for (int e = tid; e < BM * k; e += T) {  // this thread's own copies
+      const int r = e / k;
+      const int row = r < tile_rows ? rows[e] : n;
+      rows[e] = row;
+      if ((unsigned)row < (unsigned)n) mine |= 1u << (e - r * k);
+    }
+  } else {
+    for (int e = tid; e < BM * k; e += T) {
+      const int r = e / k;
+      const int row = r < tile_rows ? idx[m0 * k + e] : n;
+      rows[e] = row;
+      if ((unsigned)row < (unsigned)n) mine |= 1u << (e - r * k);
+    }
   }
   mine = __reduce_or_sync(0xffffffffu, mine);
   if (lane == 0) warp_mask[warp] = mine;
@@ -278,23 +328,28 @@ kernel(const float* __restrict__ feats, const int* __restrict__ idx,
   }
   tc::cp_wait<0>();
 
-  tc::store_tile(acc, out, m, cout, cout, m0 + wm0, n0 + wn0, lane);
+  if constexpr (kPerm)
+    tc::store_tile_rows(acc, out, rows + BM * k, (int)tile_rows, cout, cout,
+                        wm0, n0 + wn0, lane);
+  else
+    tc::store_tile(acc, out, m, cout, cout, m0 + wm0, n0 + wn0, lane);
 }
 
-template <int BM, int BN, int BK, int WM, int WN>
+template <int BM, int BN, int BK, int WM, int WN, bool kPerm>
 cudaError_t launch_cfg(const float* feats, const int* idx, const float* w,
                        float* out, int n, long long m, int k, int cin,
-                       int cout, int vec_a, int vec_b, cudaStream_t s) {
+                       int cout, int vec_a, int vec_b, const int* perm,
+                       cudaStream_t s) {
   using C = Cfg<BM, BN, BK, WM, WN>;
   const size_t smem = sizeof(float) * kStages * C::STAGE_FLOATS +
-                      sizeof(int) * BM * k;
-  auto fn = kernel<BM, BN, BK, WM, WN>;
+                      sizeof(int) * BM * (k + (kPerm ? 1 : 0));
+  auto fn = kernel<BM, BN, BK, WM, WN, kPerm>;
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((unsigned)((m + BM - 1) / BM), (unsigned)((cout + BN - 1) / BN));
   fn<<<grid, C::kThreads, smem, s>>>(feats, idx, w, out, n, m, k, cin, cout,
-                                     vec_a, vec_b);
+                                     vec_a, vec_b, perm);
   return cudaGetLastError();
 }
 
@@ -303,42 +358,49 @@ cudaError_t launch_cfg(const float* feats, const int* idx, const float* w,
 // every warp holds a 32 x 32 (or 32 x 16) accumulator.  (Measured on the
 // card: 128 x 128 tiles leave SMs idle at 15k rows; 64 x 64 tiles re-read
 // W[j] twice as often.)
-template <int BK>
+template <int BK, bool kPerm>
 cudaError_t launch_bk(const float* feats, const int* idx, const float* w,
                       float* out, int n, long long m, int k, int cin,
-                      int cout, int vec_a, int vec_b, cudaStream_t s) {
+                      int cout, int vec_a, int vec_b, const int* perm,
+                      cudaStream_t s) {
   if (cout > 64)
-    return launch_cfg<64, 128, BK, 2, 4>(feats, idx, w, out, n, m, k, cin,
-                                         cout, vec_a, vec_b, s);
+    return launch_cfg<64, 128, BK, 2, 4, kPerm>(
+        feats, idx, w, out, n, m, k, cin, cout, vec_a, vec_b, perm, s);
   if (cout > 32)
-    return launch_cfg<128, 64, BK, 4, 2>(feats, idx, w, out, n, m, k, cin,
-                                         cout, vec_a, vec_b, s);
+    return launch_cfg<128, 64, BK, 4, 2, kPerm>(
+        feats, idx, w, out, n, m, k, cin, cout, vec_a, vec_b, perm, s);
   if (cout > 16)
-    return launch_cfg<128, 32, BK, 4, 1>(feats, idx, w, out, n, m, k, cin,
-                                         cout, vec_a, vec_b, s);
-  return launch_cfg<128, 16, BK, 4, 1>(feats, idx, w, out, n, m, k, cin,
-                                       cout, vec_a, vec_b, s);
+    return launch_cfg<128, 32, BK, 4, 1, kPerm>(
+        feats, idx, w, out, n, m, k, cin, cout, vec_a, vec_b, perm, s);
+  return launch_cfg<128, 16, BK, 4, 1, kPerm>(
+      feats, idx, w, out, n, m, k, cin, cout, vec_a, vec_b, perm, s);
 }
 
 // The channel chunk follows Cin: 32 above 16 channels, else 16 or 8
 // (Cin 4 and 5 pad their chunk with zero-filled copies).  K above 32 does
-// not fit the offset mask and is refused.
+// not fit the offset mask and is refused.  kPerm: the block's rows are
+// perm[m0 .. m0 + BM) (a permutation of the M rows), both for the rulebook
+// rows read and for the output rows written, so that rows which hit the
+// same offsets can share a tile (the strided backward's row grouping);
+// without it, row i of the tile is row m0 + i.
+template <bool kPerm = false>
 inline cudaError_t launch(const float* feats, const int* idx, const float* w,
                           float* out, int n, long long m, int k, int cin,
-                          int cout, cudaStream_t s) {
+                          int cout, cudaStream_t s,
+                          const int* perm = nullptr) {
   if (k < 1 || k > 32 || cin < 1 || cout < 0 || n < 0 || m < 0)
     return cudaErrorInvalidValue;
   if (m == 0 || cout == 0) return cudaSuccess;
   const int vec_a = cin % 4 == 0 && tc::aligned16(feats);
   const int vec_b = cout % 4 == 0 && tc::aligned16(w);
   if (cin > 16)
-    return launch_bk<32>(feats, idx, w, out, n, m, k, cin, cout, vec_a,
-                         vec_b, s);
+    return launch_bk<32, kPerm>(feats, idx, w, out, n, m, k, cin, cout,
+                                vec_a, vec_b, perm, s);
   if (cin > 8)
-    return launch_bk<16>(feats, idx, w, out, n, m, k, cin, cout, vec_a,
-                         vec_b, s);
-  return launch_bk<8>(feats, idx, w, out, n, m, k, cin, cout, vec_a, vec_b,
-                      s);
+    return launch_bk<16, kPerm>(feats, idx, w, out, n, m, k, cin, cout,
+                                vec_a, vec_b, perm, s);
+  return launch_bk<8, kPerm>(feats, idx, w, out, n, m, k, cin, cout, vec_a,
+                             vec_b, perm, s);
 }
 
 }  // namespace gather_gemm

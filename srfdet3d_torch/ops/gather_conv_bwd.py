@@ -14,7 +14,12 @@ that maps each input row to the output rows that read it
 - strided and conv_out rulebooks are transposed first:
   rev[r, j] = the unique m with idx[m, j] == r (a fixed offset maps each
   input cell to at most one output cell), else the miss M
-  (`strided_conv_bwd`, K4; replaces `gather_matmul_onehot_bwd`).
+  (`strided_conv_bwd`, K4; replaces `gather_matmul_onehot_bwd`).  For
+  dfeats the input rows are then grouped by their lowest hit offset (a
+  stable order, `group_rows_plain`): an input row of a stride-2 conv hits only
+  the offsets its coordinate parities allow, so a tile of grouped rows
+  skips the offsets its class misses.  Both run on the card without a
+  host sync (`strided_prep`).
 
 Each wrapper runs its plain version for tensors on the CPU and the kernel,
 or raises, for tensors on the card.  The plain versions are the JAX
@@ -43,10 +48,19 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     # g, rb, wt, dfeats, M, N, K, Cout, Cin, stream
     "conv_bwd_dfeats_f32": [_P, _P, _P, _P, _I, _LL, _I, _I, _I, _P],
+    # g, rb, perm, wt, dfeats, M, N, K, Cout, Cin, stream
+    "conv_bwd_dfeats_perm_f32": [_P, _P, _P, _P, _P, _I, _LL, _I, _I, _I,
+                                 _P],
     # feats, rb, g, part, dW, N, M, K, Cin, Cout, chunk, flip, stream
     "conv_bwd_dw_f32": [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I,
                         _P],
+    # idx, rev, M, N, K, stream
+    "strided_reverse_i32": [_P, _P, _LL, _I, _I, _P],
+    # rev, key, hist, perm, N, M, K, stream
+    "strided_group_i32": [_P, _P, _P, _P, _LL, _I, _I, _P],
 }
+# input rows a grouping block orders (kGroupRows in the kernel)
+GROUP_ROWS = 1024
 
 Grads = Tuple[Optional[torch.Tensor], torch.Tensor]
 
@@ -62,6 +76,70 @@ def reverse_rulebook(idx: torch.Tensor, n: int) -> torch.Tensor:
     rows = torch.arange(m, dtype=torch.int32, device=idx.device)[:, None]
     rev[dest[hit]] = rows.expand(m, k)[hit]
     return rev.view(n, k)
+
+
+def group_keys(rev: torch.Tensor, m: int) -> torch.Tensor:
+    """(N,) int64: each row's lowest offset j with rev[r, j] < m, or K
+    where the row hits none."""
+    k = rev.shape[1]
+    j = torch.arange(k, device=rev.device)
+    return torch.where(rev < m, j, k).amin(1)
+
+
+def group_rows_plain(rev: torch.Tensor, m: int) -> torch.Tensor:
+    """(N,) int32 permutation: the rows of the reverse rulebook rev (N, K)
+    in a stable order of their group_keys."""
+    return torch.sort(group_keys(rev, m), stable=True).indices.int()
+
+
+def strided_prep(idx: torch.Tensor, n: int, group: bool = True):
+    """The strided backward's rulebooks: (rev (N, K) int32, perm (N,)
+    int32 or None).  On the card two kernels (reverse rulebook, stable
+    counting sort) with no host sync; on the CPU reverse_rulebook and
+    group_rows_plain.  perm only where `group`."""
+    m, k = idx.shape
+    if not _on_card("strided_prep", idx):
+        rev = reverse_rulebook(idx, n)
+        return rev, group_rows_plain(rev, m) if group else None
+    if idx.dtype != torch.int32 or not idx.is_contiguous():
+        raise ValueError("strided_prep: idx must be contiguous int32")
+    if max(m, n) >= 2 ** 31 or not 1 <= k <= 32:
+        raise ValueError(f"strided_prep: rows must fit int32 and K be 1 to "
+                         f"32, got idx {tuple(idx.shape)}, n {n}")
+    dev = idx.device
+    lib = cuda_build.load_library("gather_conv_bwd", _SIGNATURES)
+    rev = torch.empty(n, k, dtype=torch.int32, device=dev)
+    perm = None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.strided_reverse_i32(idx.data_ptr(), rev.data_ptr(), m, n, k,
+                                     stream)
+        cuda_build.check(lib, rc, "strided_prep reverse")
+        if group:
+            blocks = (n + GROUP_ROWS - 1) // GROUP_ROWS
+            key = torch.empty(n, dtype=torch.uint8, device=dev)
+            hist = torch.empty(max((k + 1) * blocks, 1), dtype=torch.int32,
+                               device=dev)
+            perm = torch.empty(n, dtype=torch.int32, device=dev)
+            rc = lib.strided_group_i32(rev.data_ptr(), key.data_ptr(),
+                                       hist.data_ptr(), perm.data_ptr(), n,
+                                       m, k, stream)
+            cuda_build.check(lib, rc, "strided_prep group")
+    return rev, perm
+
+
+def tile_offset_steps(rev: torch.Tensor, m: int,
+                      perm: Optional[torch.Tensor], bm: int) -> int:
+    """Offset steps the dfeats gather-GEMM issues over rev (N, K) in tiles
+    of bm rows taken in the order perm (None: voxel order): per tile, the
+    offsets that some row of it hits (the kernel skips the others).  At
+    bm = 1 it counts the hits."""
+    hit = rev < m
+    if perm is not None:
+        hit = hit[perm.long()]
+    n, k = hit.shape
+    hit = torch.cat([hit, hit.new_zeros((-n) % bm, k)]).view(-1, bm, k)
+    return int(hit.any(1).sum())
 
 
 def gather_bwd_plain(feats: torch.Tensor, rb: torch.Tensor,
@@ -82,6 +160,19 @@ def gather_bwd_plain(feats: torch.Tensor, rb: torch.Tensor,
     dw = (feats.float().t() @ gat).reshape(cin, k, cout).transpose(0, 1)
     dw = dw.flip(0) if flip else dw
     return dfeats, dw.contiguous()
+
+
+def grouped_bwd_plain(feats: torch.Tensor, rev: torch.Tensor,
+                      perm: torch.Tensor, weights: torch.Tensor,
+                      g: torch.Tensor) -> Grads:
+    """Plain version of the strided kernel path: the gather formula over
+    the rows of rev taken in the order perm, each dfeats row written back
+    to its own row."""
+    p = perm.long()
+    dsorted, dw = gather_bwd_plain(feats[p], rev[p], weights, g, False)
+    dfeats = torch.empty_like(dsorted)
+    dfeats[p] = dsorted
+    return dfeats, dw
 
 
 def scatter_bwd_plain(feats: torch.Tensor, idx: torch.Tensor,
@@ -136,8 +227,10 @@ def _check(name, feats, rb, weights, g):
 
 def _kernel_bwd(feats: torch.Tensor, rb: torch.Tensor,
                 weights: torch.Tensor, g: torch.Tensor, flip: bool,
-                need_dfeats: bool, name: str) -> Grads:
-    """Launch the dfeats gather (if asked) and the two dW passes."""
+                need_dfeats: bool, name: str,
+                perm: Optional[torch.Tensor] = None) -> Grads:
+    """Launch the dfeats gather (if asked; its tile rows through perm
+    where given) and the two dW passes."""
     _check(name, feats, rb, weights, g)
     n, cin = feats.shape
     k = rb.shape[1]
@@ -155,9 +248,15 @@ def _kernel_bwd(feats: torch.Tensor, rb: torch.Tensor,
             w = weights.flip(0) if flip else weights
             wt = w.transpose(1, 2).contiguous()             # (K, Cout, Cin)
             dfeats = torch.empty(n, cin, dtype=torch.float32, device=dev)
-            rc = lib.conv_bwd_dfeats_f32(g.data_ptr(), rb.data_ptr(),
-                                         wt.data_ptr(), dfeats.data_ptr(),
-                                         mg, n, k, cout, cin, stream)
+            if perm is None:
+                rc = lib.conv_bwd_dfeats_f32(g.data_ptr(), rb.data_ptr(),
+                                             wt.data_ptr(), dfeats.data_ptr(),
+                                             mg, n, k, cout, cin, stream)
+            else:
+                rc = lib.conv_bwd_dfeats_perm_f32(
+                    g.data_ptr(), rb.data_ptr(), perm.data_ptr(),
+                    wt.data_ptr(), dfeats.data_ptr(), mg, n, k, cout, cin,
+                    stream)
             cuda_build.check(lib, rc, f"{name} dfeats")
         rc = lib.conv_bwd_dw_f32(feats.data_ptr(), rb.data_ptr(),
                                  g.data_ptr(), part.data_ptr(),
@@ -193,13 +292,16 @@ def strided_conv_bwd(feats: torch.Tensor, idx: torch.Tensor,
                      weights: torch.Tensor, g: torch.Tensor,
                      need_dfeats: bool = True) -> Grads:
     """K4: backward of a strided or conv_out conv, idx (M, K) over N input
-    rows, through its reverse rulebook.
+    rows, through its reverse rulebook (dfeats over the grouped rows).
     Returns (dfeats (N, Cin) or None, dW (K, Cin, Cout))."""
     if not _on_card("strided_conv_bwd", feats):
         return scatter_bwd_plain(feats, idx, weights, g, need_dfeats)
     global strided_launches
-    rev = reverse_rulebook(idx, feats.shape[0])
+    if idx.device != feats.device or g.shape[0] != idx.shape[0]:
+        raise ValueError(f"strided_conv_bwd: idx {tuple(idx.shape)} on "
+                         f"{idx.device}, g {tuple(g.shape)}")
+    rev, perm = strided_prep(idx, feats.shape[0], need_dfeats)
     out = _kernel_bwd(feats, rev, weights, g, False, need_dfeats,
-                      "strided_conv_bwd")
+                      "strided_conv_bwd", perm)
     strided_launches += 1
     return out

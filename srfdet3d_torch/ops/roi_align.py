@@ -22,11 +22,11 @@ they come from, carry gradient, as in the JAX package.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 
-from .roi_scatter import roi_scatter, sample_grads
+from .roi_scatter import expand_axes, roi_scatter, sample_grads
 
 
 def _level_geometry(shapes, rois, strides, finest_scale):
@@ -99,16 +99,34 @@ def patch_fits(shapes, rois: torch.Tensor, strides: Sequence[int],
     return _axis_fits(sx, w_l, patch) & _axis_fits(sy, h_l, patch)
 
 
+class Corners(NamedTuple):
+    """The bilinear corners of every sample of every RoI: idx (R, 4, S, S)
+    table rows, wgt (R, 4, S, S) weights (differentiable in the RoIs),
+    drop (R,) bool; and the same per axis, as K5 takes them: cells (R, 4,
+    S) int32 [y0, y1, x0, x1], cw (R, 4, S) their weights (detached),
+    level (R, 2) int32 [table row of the level's cell (0, 0), level
+    width].  idx, wgt = expand_axes(cells, cw, level)."""
+    idx: torch.Tensor
+    wgt: torch.Tensor
+    drop: torch.Tensor
+    cells: torch.Tensor
+    cw: torch.Tensor
+    level: torch.Tensor
+
+
 class CornerPool(torch.autograd.Function):
     """Weighted corner gather + sr x sr mean + the capacity rule's drop.
 
     table (T, C); idx (R, 4, S, S) table rows of the 4 bilinear corners of
-    every sample; wgt (R, 4, S, S) their weights; drop (R,) bool -> pooled
-    (R, out, out, C), zero for dropped RoIs.  Backward: the table's
-    cotangent is K5; the weights' is sum_c table[idx] * g, plain torch."""
+    every sample; wgt (R, 4, S, S) their weights; drop (R,) bool; cells,
+    cw, level the same corners per axis (Corners) -> pooled (R, out, out,
+    C), zero for dropped RoIs.  Backward: the table's cotangent is K5, from
+    the per-axis corners; the weights' is sum_c table[idx] * g, plain
+    torch."""
 
     @staticmethod
-    def forward(ctx, table, idx, wgt, drop, out_size: int, sr: int):
+    def forward(ctx, table, idx, wgt, drop, cells, cw, level, out_size: int,
+                sr: int):
         r, _, n_s, _ = idx.shape
         c = table.shape[1]
         acc = table.new_zeros(r, n_s, n_s, c)
@@ -116,32 +134,34 @@ class CornerPool(torch.autograd.Function):
             acc += table[idx[:, q]] * wgt[:, q, ..., None]
         pooled = acc.reshape(r, out_size, sr, out_size, sr, c).mean((2, 4))
         pooled = torch.where(drop[:, None, None, None], 0.0, pooled)
-        ctx.save_for_backward(table, idx, wgt, drop)
+        ctx.save_for_backward(table, idx, wgt, drop, cells, cw, level)
         ctx.sr = sr
         return pooled
 
     @staticmethod
     def backward(ctx, gp):
-        table, idx, wgt, drop = ctx.saved_tensors
+        table, idx, wgt, drop, cells, cw, level = ctx.saved_tensors
         gp = gp.contiguous()
         dtable = dwgt = None
         if ctx.needs_input_grad[0]:
-            dtable = roi_scatter(gp, idx, wgt, drop, table.shape[0], ctx.sr)
+            dtable = roi_scatter(gp, cells, cw, level, drop, table.shape[0],
+                                 ctx.sr)
         if ctx.needs_input_grad[2]:
             gs = sample_grads(gp, drop, ctx.sr)                # (R, S, S, C)
             dwgt = torch.stack([(table[idx[:, q]] * gs).sum(-1)
                                 for q in range(4)], 1)
-        return dtable, None, dwgt, None, None, None
+        return dtable, None, dwgt, None, None, None, None, None, None
 
 
 def corner_samples(shapes, rois: torch.Tensor, strides: Sequence[int],
                    out_size: int = 7, sampling_ratio: int = 2,
                    finest_scale: float = 56.0, patch: int = 0,
-                   patch_fallback: int = -1):
+                   patch_fallback: int = -1) -> Corners:
     """The bilinear corners of every sample of every RoI.  shapes: the
-    levels' (H, W); rois (B, R, 4).  Returns idx (B*R, 4, S, S) rows of the
-    (B * rows, C) table the levels flatten into, their weights wgt (same
-    shape) and drop (B*R,), the misfits past the fallback slots."""
+    levels' (H, W); rois (B, R, 4).  Returns Corners over the B*R RoIs:
+    idx (B*R, 4, S, S) rows of the (B * rows, C) table the levels flatten
+    into, their weights wgt (same shape), drop (B*R,), the misfits past the
+    fallback slots, and the per-axis corners."""
     b, r, _ = rois.shape
     rows = sum(h * w for h, w in shapes)
     flat = rois.reshape(b * r, 4)
@@ -150,14 +170,12 @@ def corner_samples(shapes, rois: torch.Tensor, strides: Sequence[int],
     sx, sy = _sample_grid(flat, s, out_size, sampling_ratio)
     x0, x1, wx0, wx1, _ = _axis_corners(sx, w_l)       # (BR, S)
     y0, y1, wy0, wy1, _ = _axis_corners(sy, h_l)
-    base = (off + torch.arange(b, device=rois.device).repeat_interleave(r)
-            * rows)[:, None, None]
-    wl = w_l.long()[:, None, None]
-    idx, wgt = [], []
-    for yy, wy in ((y0, wy0), (y1, wy1)):
-        for xx, wx in ((x0, wx0), (x1, wx1)):
-            idx.append(base + yy[:, :, None] * wl + xx[:, None, :])
-            wgt.append(wy[:, :, None] * wx[:, None, :])
+    base = off + torch.arange(b, device=rois.device).repeat_interleave(r) \
+        * rows
+    level = torch.stack([base, w_l.long()], 1).int()
+    cells = torch.stack([y0, y1, x0, x1], 1).int()
+    cw = torch.stack([wy0, wy1, wx0, wx1], 1)
+    idx, wgt = expand_axes(cells, cw, level)
     drop = torch.zeros(b * r, dtype=torch.bool, device=rois.device)
     if patch:
         fits = patch_fits(shapes, flat, strides, patch, out_size,
@@ -166,7 +184,7 @@ def corner_samples(shapes, rois: torch.Tensor, strides: Sequence[int],
         mis = ~fits.reshape(b, r)
         slot = torch.cumsum(mis.long(), 1) - 1
         drop = (mis & (slot >= cap)).reshape(-1)
-    return torch.stack(idx, 1), torch.stack(wgt, 1), drop
+    return Corners(idx, wgt, drop, cells, cw.detach(), level)
 
 
 def multilevel_roi_align(feats: Sequence[torch.Tensor], rois: torch.Tensor,
@@ -181,9 +199,8 @@ def multilevel_roi_align(feats: Sequence[torch.Tensor], rois: torch.Tensor,
     shapes = [(f.shape[1], f.shape[2]) for f in feats]
     table = torch.cat([f.reshape(b, -1, c) for f in feats], 1
                       ).reshape(-1, c)
-    idx, wgt, drop = corner_samples(shapes, rois, strides, out_size,
-                                    sampling_ratio, finest_scale, patch,
-                                    patch_fallback)
-    pooled = CornerPool.apply(table, idx, wgt, drop, out_size,
-                              sampling_ratio)
+    cs = corner_samples(shapes, rois, strides, out_size, sampling_ratio,
+                        finest_scale, patch, patch_fallback)
+    pooled = CornerPool.apply(table, cs.idx, cs.wgt, cs.drop, cs.cells,
+                              cs.cw, cs.level, out_size, sampling_ratio)
     return pooled.reshape(b, r, out_size, out_size, c)

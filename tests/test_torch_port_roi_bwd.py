@@ -20,7 +20,8 @@ import torch
 
 from srfdet3d_tpu.ops.roi_align import multilevel_roi_align as jroi
 from srfdet3d_torch.ops.roi_align import multilevel_roi_align, patch_fits
-from srfdet3d_torch.ops.roi_scatter import roi_scatter, roi_scatter_plain
+from srfdet3d_torch.ops.roi_scatter import (expand_axes, roi_scatter,
+                                            roi_scatter_plain)
 
 T = torch.from_numpy
 B, R, C = 2, 30, 6
@@ -96,4 +97,21 @@ def test_roi_scatter_plain_matches_loop():
     args = (T(gp), T(idx), T(w), T(drop), rows, sr)
     np.testing.assert_allclose(roi_scatter_plain(*args).numpy(), ref,
                                rtol=1e-5, atol=1e-6)
-    assert torch.equal(roi_scatter(*args), roi_scatter_plain(*args))
+    # the wrapper takes the corners per axis: on the CPU it expands them
+    # and runs the plain version
+    cells = rng.integers(0, 5, (r, 4, s)).astype(np.int32)
+    cw = rng.uniform(0, 1, (r, 4, s)).astype(np.float32)
+    level = np.stack([rng.integers(0, 10, r), np.full(r, 6)], 1)
+    level = level.astype(np.int32)
+    axes = (T(cells), T(cw), T(level))
+    idx2, w2 = expand_axes(*axes)
+    for i in range(r):
+        for qy in range(2):
+            for qx in range(2):
+                q = 2 * qy + qx
+                assert (idx2[i, q].numpy() == level[i, 0] + cells[
+                    i, qy, :, None] * 6 + cells[i, 2 + qx, None, :]).all()
+                assert (w2[i, q].numpy() == cw[i, qy, :, None] *
+                        cw[i, 2 + qx, None, :]).all()
+    assert torch.equal(roi_scatter(T(gp), *axes, T(drop), rows, sr),
+                       roi_scatter_plain(T(gp), idx2, w2, T(drop), rows, sr))
