@@ -16,8 +16,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    TFLOP/s against HBM's bytes), with simt_bound_ms (flops at the f32
    CUDA-core rate, the bound of the earlier SIMT kernels) beside it; the
    kernel-only device time comes in phase 13;
-4. eqmatch (K2) against subm_rulebook_bitmap at the 4 flagship stages,
-   exact;
+4. eqmatch (K2) against subm_rulebook_bitmap at the 4 flagship stages
+   and (after K1's KITTI shapes) the 4 srfdet_voxel_kitti_L stages, exact,
+   and its plan map against plan_map_plain; ms a launch with its
+   map (events), the map's ms (prep_ms), the host ms of a wrapper call
+   (host_ms), the plain version and the byte bound;
 5. conv_bwd (K3 subm, K4 strided) against their plain versions on the
    flagship train step's rulebooks (batch 2), at every conv shape, with
    the same times and bounds as K1; K4 also holds its reverse rulebook and
@@ -30,13 +33,16 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    2 x 900 RoIs, four levels at C 128, patch 32, 64 fallback slots), with
    the global atomics a launch before the window sums (one a live corner
    sample and channel) and after (one a distinct live cell and channel),
-   and the max difference of two launches (atomic order); then sync_free:
-   one K4 and one K5 backward under torch.cuda.set_sync_debug_mode("error")
-   (a host sync raises), their results equal to the checked ones;
+   and the max difference of two launches (atomic order);
 7. rulebook_lookup (K6) against its plain version, exact, at every lookup
    of the table-backend encoder of srfdet_voxel_kitti_L (65,536 voxel
    slots) and of the flagship (120k voxel slots), walking the rulebooks
-   only;
+   only: the lookup alone (ms, host_ms), and at each stage's first lookup
+   its hash table (occupied slots against the distinct keys, prep_ms);
+   then sync_free: one K4 and one K5 backward, one K2 call with its plan
+   map and one K6 hash build and lookup under
+   torch.cuda.set_sync_debug_mode("error") (a host sync raises), their
+   results equal to the checked ones;
 8. flagship srfdet_voxel_nusc_L predict at full width, batch 1, on a
    synthetic scene and seeded random weights: launch counts, finite
    outputs, p50 latency, valid boxes, peak memory; plus decode_boxes with
@@ -44,6 +50,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    split at its layer boundaries (time and peak memory of each part);
 9. srfdet_voxel_kitti_L predict at full width, batch 1, the same way, once
    on its shipped bitmap backend and once with middle.rulebook="table";
+   each predict line also counts the preparations beside the launches
+   (builds: K2's plan maps, 4 a bitmap predict; K6's hash tables, 4 a
+   KITTI table predict);
 10. flagship train step at full width, batch 2 with synthetic GT, dropout
    as configured: launch counts of all five kernels, finite losses, a
    finite grad for every parameter and every parameter moved, step p50,
@@ -54,18 +63,22 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    tiny_test_config with middle.rulebook="table"), and 12. two tiny train
    steps, with the kernels on the card against the same weights on the CPU
    with the plain versions;
-13. gather_gemm device times of every K1 conv (flagship and KITTI) and
-   every K3 / K4 conv, one line each: the kernels' own device time from
-   torch.profiler (kernel_device_ms; for K4 with its preparation kernels,
-   and their share as prep_device_ms), and K5's (roi_bwd_device),
-   measured after every end-to-end phase;
+13. kernel device times, measured after every end-to-end phase: every K1
+   conv (flagship and KITTI) and every K3 / K4 conv, one line each: the
+   kernels' own device time from torch.profiler (kernel_device_ms; for K4
+   with its preparation kernels, and their share as prep_device_ms), K5's
+   (roi_bwd_device), K2's query kernel at each flagship subm stage with
+   its plan map apart (eqmatch_device: device_ms, prep_device_ms) and
+   K6's lookup kernel at every lookup of both table walks with each
+   table's hash build apart (rulebook_lookup_device);
 14. the `kernels` line: per kernel, launches (per flagship predict for K1
    and K2, per flagship train step for K3-K5, per KITTI table predict for
    K6), max error against the plain version, and times per predict or per
    train step (kernel, plain version, bound, one PyTorch library call);
    the gather-GEMM kernels K1, K3 and K4 also carry tc_bound_ms (equal
    to their bound_ms), simt_bound_ms and device_ms (profiler), K5
-   device_ms.
+   device_ms, K2 and K6 device_ms, host_ms (a wrapper call's, summed),
+   prep_ms and prep_device_ms (plan maps, hash builds) and builds.
 
 The second-to-last line is nvidia-smi's name and power limit; the last line
 is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -98,6 +111,12 @@ GATHER_GEMM_KERNELS = ("gather_gemm::kernel", "dw_partial_kernel",
 STRIDED_PREP_KERNELS = ("strided_prep",)
 STRIDED_PREP_LAUNCHES = 5
 ROI_SCATTER_KERNELS = ("roi_scatter_kernel",)
+# K2's query kernel and its plan map's fill and scatter; K6's lookup kernel
+# and its hash table's fill and insert
+EQMATCH_KERNELS = ("eqmatch_query_kernel",)
+PLAN_MAP_KERNELS = ("plan_map_fill_kernel", "plan_map_scatter_kernel")
+LOOKUP_KERNELS = ("rulebook_lookup_kernel",)
+KEY_HASH_KERNELS = ("key_hash_fill_kernel", "key_hash_insert_kernel")
 # cycles of torch.cuda._sleep that keep the card busy (~10 ms) at a
 # profiler session's start, so that the session sees every launch after it
 SPIN_CYCLES = 20_000_000
@@ -173,8 +192,10 @@ def encoder_rulebooks(cfg, batch, dev):
     conv_module).  Returns the gather_conv cases [(name, rows N, rulebook
     (M, K), Cin, Cout, launches per forward)], the subm convs of one level
     of the same widths merged into one case, and the eq-match cases
-    [(level, ColumnSet, vcol, vz, vyx, mask)], one per subm level.  Names
-    count levels: down{i} leaves level i, stage{i}_subm runs on it."""
+    [(level, ColumnSet, vcol, vz, coords, mask)], one per subm level.  Names
+    count levels: down{i} leaves level i, stage{i}_subm runs on it.  An
+    eq-match case is (level, ColumnSet, vcol, vz, coords (B, V, 3) zyx,
+    mask)."""
     from srfdet3d_torch.models.sparse_encoder import BitmapRulebooks
     from srfdet3d_torch.ops.voxelize import voxelize_points_batched
     spec = cfg.voxelization
@@ -186,7 +207,7 @@ def encoder_rulebooks(cfg, batch, dev):
     conv, subm = [], []
 
     def stage_subm(i):
-        subm.append((i, rb.cs, rb.vcol, rb.vz, rb.vyx, rb.mask))
+        subm.append((i, rb.cs, rb.vcol, rb.vz, rb.coords, rb.mask))
         return rb.subm().reshape(-1, 27)
 
     def add_subm(level, cin, cout, count):
@@ -330,43 +351,69 @@ def check_gather_conv(config, cases, dev, gen):
     return max_err, totals
 
 
-def check_eqmatch(cases):
-    from srfdet3d_torch.ops.bitmap_rulebook import (column_tables,
-                                                    subm_rulebook_bitmap)
-    from srfdet3d_torch.ops.eqmatch import eqmatch_rulebook
-    totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
-    for stage, cs, vcol, vz, vyx, mask in cases:
-        keys, words, starts = column_tables(cs)
-        yb = (vyx[..., 0] - 1).int()
-        xb = (vyx[..., 1] - 1).int()
-        zb = (vz - 1).int()
-        valid = mask.to(torch.uint8)
-        hw = cs.shape[1:]
+def eqmatch_calls(case):
+    """(kernel, plain, prep) closures of one eq-match case: K2's wrapper on
+    the ColumnSet and the voxels the encoder gives it (the plan map and the
+    query kernel), subm_rulebook_bitmap (the sorted-key route), and the
+    plan map alone."""
+    from srfdet3d_torch.ops.bitmap_rulebook import subm_rulebook_bitmap
+    from srfdet3d_torch.ops.eqmatch import eqmatch_rulebook, plan_map
+    stage, cs, vcol, vz, coords, mask = case
 
-        def kernel():
-            return eqmatch_rulebook(keys, words, starts, yb, xb, zb, valid,
-                                    hw, cs.row_cap)
+    def kernel():
+        return eqmatch_rulebook(cs, coords, mask)
 
-        def plain():
-            return subm_rulebook_bitmap(cs, vcol, vz, mask)
+    def plain():
+        return subm_rulebook_bitmap(cs, vcol, vz, mask)
 
-        got, ref = kernel(), plain()
+    def prep():
+        return plan_map(cs)
+    return kernel, plain, prep
+
+
+def eqmatch_bound(case):
+    """K2's byte bound (ms): the column arrays once (ccoords 16 B, cmask
+    1, bits 8, cstart 8 a column slot), the queries once (coords 24 B,
+    mask 1) and the rulebook written once (108 B a query)."""
+    _, cs, _, _, _, mask = case
+    return (cs.cmask.numel() * 33 + mask.numel() * 133) / PEAK_BYTES * 1e3
+
+
+def check_eqmatch(config, cases):
+    """K2 at every subm stage of one config's bitmap encoder: the rulebook
+    exact against subm_rulebook_bitmap and the plan map against
+    plan_map_plain; ms a launch (events, with its plan map), the host ms
+    of a wrapper call, the plan map's ms (prep_ms), the plain version and
+    the byte bound.  Returns the sums over the stages (one predict's)."""
+    from srfdet3d_torch.ops.eqmatch import plan_map_plain
+    totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, host_ms=0.0,
+                  prep_ms=0.0)
+    for case in cases:
+        stage, cs, vcol, vz, coords, mask = case
+        kernel, plain, prep = eqmatch_calls(case)
+        got, ref, pmap = kernel(), plain(), prep()
         torch.cuda.synchronize()
         if not torch.equal(got, ref):
             bad = int((got != ref).sum())
-            raise AssertionError(f"eqmatch stage {stage}: {bad} entries "
-                                 f"differ from subm_rulebook_bitmap")
+            raise AssertionError(f"eqmatch {config} stage {stage}: {bad} "
+                                 f"entries differ from "
+                                 f"subm_rulebook_bitmap")
+        if not torch.equal(pmap, plan_map_plain(cs)):
+            raise AssertionError(f"eqmatch {config} stage {stage}: the plan "
+                                 f"map differs from plan_map_plain")
         ms, plain_ms = time_ms(kernel), time_ms(plain)
-        q = mask.numel()
-        nbytes = keys.numel() * 24 + q * 13 + q * 27 * 4
-        bound = nbytes / PEAK_BYTES * 1e3
-        emit(dict(phase="eqmatch", stage=stage, voxels=q,
+        prep_ms, host = time_ms(prep), host_ms(kernel)
+        bound = eqmatch_bound(case)
+        emit(dict(phase="eqmatch", config=config, stage=stage,
+                  voxels=mask.numel(),
                   valid=int(mask.sum()), columns=int(cs.cmask.sum()),
-                  grid=list(cs.shape), exact=True, ms=ms, plain_ms=plain_ms,
+                  grid=list(cs.shape), map_cells=pmap.numel(), exact=True,
+                  ms=ms, host_ms=host, prep_ms=prep_ms, plain_ms=plain_ms,
                   bound_ms=bound, bound_by="bytes"))
-        totals["ms"] += ms
-        totals["plain_ms"] += plain_ms
-        totals["bound_ms"] += bound
+        for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                         ("bound_ms", bound), ("host_ms", host),
+                         ("prep_ms", prep_ms)):
+            totals[key] += val
     return totals
 
 
@@ -578,24 +625,36 @@ def check_roi_bwd(cfg, dev, gen):
     return row, (args, got, per_row)
 
 
-def sync_free(strided_case, roi_case, dev, gen):
-    """One K4 backward (a strided conv of the train step) and one K5
-    backward under torch.cuda.set_sync_debug_mode("error"), which raises at
-    any host sync; each result equal to the same call's outside it."""
+def sync_free(strided_case, roi_case, eq_case, lookup_case, dev, gen):
+    """One K4 backward (a strided conv of the train step), one K5
+    backward, one K2 call (its plan map and query) and one K6 hash build
+    and lookup under torch.cuda.set_sync_debug_mode("error"), which raises
+    at any host sync; each result equal to the same call's outside it (K2
+    and K6: to their plain versions)."""
     from srfdet3d_torch.ops import gather_conv_bwd as gcb
     from srfdet3d_torch.ops.roi_scatter import roi_scatter
+    from srfdet3d_torch.ops.rulebook_lookup import (key_hash,
+                                                    rulebook_lookup,
+                                                    rulebook_lookup_plain)
     name, n, idx, cin, cout, _ = strided_case
     k = idx.shape[1]
     feats = torch.randn(n, cin, generator=gen).to(dev)
     w = torch.randn(k, cin, cout, generator=gen).to(dev)
     g = torch.randn(idx.shape[0], cout, generator=gen).to(dev)
     roi_args, roi_ref, per_row = roi_case
+    eq_kernel, eq_plain, _ = eqmatch_calls(eq_case)
+    lname, keys, rows, queries, sentinel = lookup_case[:5]
     ref_f, ref_w = gcb.strided_conv_bwd(feats, idx, w, g)
+    eq_ref = eq_plain()
+    lookup_ref = rulebook_lookup_plain(keys, rows, queries, sentinel)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         got_f, got_w = gcb.strided_conv_bwd(feats, idx, w, g)
         got_t = roi_scatter(*roi_args)
+        got_eq = eq_kernel()
+        got_lookup = rulebook_lookup(keys, rows, queries, sentinel,
+                                     key_hash(keys, rows, sentinel))
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
@@ -607,15 +666,21 @@ def sync_free(strided_case, roi_case, dev, gen):
     tol = RTOL * roi_ref.abs() + ATOL * math.sqrt(max(per_row, 1))
     if not bool(((got_t - roi_ref).abs() <= tol).all()):
         raise AssertionError(f"sync_free: K5 differs by {diff}")
+    if not torch.equal(got_eq, eq_ref):
+        raise AssertionError(f"sync_free: K2 at stage {eq_case[0]} differs")
+    if not torch.equal(got_lookup, lookup_ref):
+        raise AssertionError(f"sync_free: K6 at {lname} differs")
     emit(dict(phase="sync_free", mode="error", k4_conv=name,
-              k5_rois=roi_args[0].shape[0], k5_max_diff=diff, ok=True))
+              k5_rois=roi_args[0].shape[0], k5_max_diff=diff,
+              k2_stage=eq_case[0], k6_lookup=lname, ok=True))
 
 
 def table_lookups(cfg, batch, dev):
     """Walk the table-backend encoder's rulebooks on the card and keep the
     inputs of every K6 launch: [(lookup name, keys, rows, queries,
-    sentinel)], in run order (the stage-0 subm, then per downsample its
-    input lookup and the next stage's subm, then conv_out)."""
+    sentinel, hash table, first lookup of its table)], in run order (the
+    stage-0 subm, then per downsample its input lookup and the next
+    stage's subm, then conv_out)."""
     from srfdet3d_torch.models.sparse_encoder import (TableRulebooks,
                                                       down_pads)
     from srfdet3d_torch.ops import sparse_conv
@@ -627,9 +692,11 @@ def table_lookups(cfg, batch, dev):
     cases = []
     real = sparse_conv.rulebook_lookup
 
-    def record(keys, rows, queries, sentinel):
-        cases.append((names.pop(0), keys, rows, queries, sentinel))
-        return real(keys, rows, queries, sentinel)
+    def record(keys, rows, queries, sentinel, hashed):
+        first = not any(c[5] is hashed for c in cases)
+        cases.append((names.pop(0), keys, rows, queries, sentinel, hashed,
+                      first))
+        return real(keys, rows, queries, sentinel, hashed)
     pads = down_pads(m.block_type, m.encoder_channels, m.encoder_paddings)
     first = 1 if m.block_type == "conv_module" else 0
     names = ["stage0_subm"]
@@ -652,18 +719,23 @@ def table_lookups(cfg, batch, dev):
 
 def check_rulebook_lookup(config, cases):
     """K6 at every lookup of one table encoder walk: exact against the
-    plain version; ms a launch, the plain version, torch.searchsorted on
-    the same sorted keys with its equality check and row gather, and the
-    byte bound (queries, output, keys and rows once).  Returns the sums
-    over the walk (one predict's lookups)."""
-    from srfdet3d_torch.ops.rulebook_lookup import (rulebook_lookup,
+    plain version; ms a launch (the lookup alone, as the encoder probes
+    its stage's table), the host ms of a wrapper call, the plain version,
+    torch.searchsorted on the same sorted keys with its equality check and
+    row gather, and the byte bound (queries, output, keys and rows once).
+    At the first lookup of each table, its hash build: the occupied slots
+    against the distinct valid keys, its ms (prep_ms, one build a stage).
+    Returns the sums over the walk (one predict's lookups and builds)."""
+    from srfdet3d_torch.ops.rulebook_lookup import (key_hash,
+                                                    rulebook_lookup,
                                                     rulebook_lookup_plain)
-    totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
-    for name, keys, rows, queries, sentinel in cases:
+    totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                  host_ms=0.0, prep_ms=0.0, builds=0)
+    for name, keys, rows, queries, sentinel, hashed, first in cases:
         n = keys.numel()
 
         def kernel():
-            return rulebook_lookup(keys, rows, queries, sentinel)
+            return rulebook_lookup(keys, rows, queries, sentinel, hashed)
 
         def plain():
             return rulebook_lookup_plain(keys, rows, queries, sentinel)
@@ -684,15 +756,30 @@ def check_rulebook_lookup(config, cases):
                                  f"library route disagrees")
         ms, plain_ms, lib_ms = time_ms(kernel), time_ms(plain), \
             time_ms(library)
+        host = host_ms(kernel)
+        extra = {}
+        if first:
+            occupied = int((hashed.table != -1).sum())
+            distinct = int(torch.unique(keys[(keys >= 0) &
+                                             (keys < sentinel)]).numel())
+            if occupied != distinct:
+                raise AssertionError(f"key_hash {config} {name}: {occupied} "
+                                     f"slots hold {distinct} keys")
+            extra = dict(slots=hashed.table.shape[0], occupied=occupied,
+                         prep_ms=time_ms(lambda: key_hash(keys, rows,
+                                                          sentinel)))
+            totals["prep_ms"] += extra["prep_ms"]
+            totals["builds"] += 1
         nbytes = queries.numel() * (8 + 4) + n * (8 + 4)
         bound = nbytes / PEAK_BYTES * 1e3
         emit(dict(phase="rulebook_lookup", config=config, lookup=name,
                   keys=n, queries=list(queries.shape),
                   hits=int((ref < n).sum()), exact=True, ms=ms,
-                  plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
-                  bound_by="bytes"))
+                  host_ms=host, plain_ms=plain_ms, library_ms=lib_ms,
+                  bound_ms=bound, bound_by="bytes", **extra))
         for key, val in (("ms", ms), ("plain_ms", plain_ms),
-                         ("library_ms", lib_ms), ("bound_ms", bound)):
+                         ("library_ms", lib_ms), ("bound_ms", bound),
+                         ("host_ms", host)):
             totals[key] += val
     return totals
 
@@ -711,6 +798,15 @@ def reset_counts():
     gather_conv_bwd.strided_launches = 0
     roi_scatter.launches = 0
     rulebook_lookup.launches = 0
+    eqmatch.map_builds = 0
+    rulebook_lookup.builds = 0
+
+
+def read_builds():
+    """Preparations since reset_counts, counted apart from the launches:
+    K2's plan maps and K6's hash tables."""
+    from srfdet3d_torch.ops import eqmatch, rulebook_lookup
+    return dict(plan_map=eqmatch.map_builds, key_hash=rulebook_lookup.builds)
 
 
 def read_counts():
@@ -746,10 +842,21 @@ def predict_launches(model):
     return want
 
 
+def predict_builds(model):
+    """Preparations per predict the structure gives: one plan map per
+    eq-match (bitmap backend), one hash table per stage's key table (table
+    backend)."""
+    stages = len(model.cfg.middle.encoder_channels)
+    bitmap = model.pts_middle_encoder.use_bitmap
+    return dict(plan_map=stages if bitmap else 0,
+                key_hash=0 if bitmap else stages)
+
+
 def predict_phase(phase, cfg, batch, smi, expect):
     """One config's predict at full width, batch 1: launch counts against
     `expect`, finite outputs, p50 over 20 predicts, peak memory, decode
-    with score_thr=0, then the parts.  Returns the counts."""
+    with score_thr=0, then the parts.  Returns the counts and the
+    preparations (read_builds), which must equal predict_builds."""
     from srfdet3d_torch.geometry import iou
     from srfdet3d_torch.models.detector import SRFDet
     from srfdet3d_torch.models.head import decode_boxes
@@ -759,11 +866,14 @@ def predict_phase(phase, cfg, batch, smi, expect):
     reset_counts()
     out = model.predict(dev_batch)
     torch.cuda.synchronize()
-    counts = read_counts()
+    counts, builds = read_counts(), read_builds()
     predict_sweeps = iou.last_nms_sweeps
     if counts != expect:
         raise AssertionError(f"{phase} launched {counts}, expected "
                              f"{expect}")
+    if builds != predict_builds(model):
+        raise AssertionError(f"{phase} built {builds}, its structure gives "
+                             f"{predict_builds(model)}")
     if not all_finite(out):
         raise AssertionError(f"{phase} gave non-finite outputs")
     with torch.no_grad():
@@ -803,7 +913,8 @@ def predict_phase(phase, cfg, batch, smi, expect):
         torch.cuda.synchronize()
         decode_ms.append((time.perf_counter() - t0) * 1e3)
     emit(dict(phase=phase, config=cfg.name, rulebook=cfg.middle.rulebook,
-              batch=1, points=cfg.points_cap, launches=counts, finite=True,
+              batch=1, points=cfg.points_cap, launches=counts,
+              builds=builds, finite=True,
               p50_ms=statistics.median(times), min_ms=min(times),
               max_ms=max(times), runs=len(times),
               valid_boxes=int(out["valid"].sum()),
@@ -814,7 +925,7 @@ def predict_phase(phase, cfg, batch, smi, expect):
               full_nms_decode_p50_ms=statistics.median(decode_ms),
               peak_mem_bytes=peak, device=smi))
     predict_parts(phase.replace("predict", "parts"), model, dev_batch, smi)
-    return counts
+    return counts, builds
 
 
 def predict_parts(phase, model, batch, smi, runs: int = 5):
@@ -1173,19 +1284,25 @@ def table_backend(cfg):
                                                   rulebook="table"))
 
 
-def gather_gemm_device_times(cfg, kcfg, batch, kbatch, roi_args, dev, gen):
+def kernel_device_times(cfg, kcfg, batch, kbatch, roi_args, dev, gen):
     """Kernel-only device ms (kernel_device_ms) of every K1 conv (flagship
     and KITTI, batch 1) and every K3 / K4 conv (flagship, batch 2), one
     line per conv beside the gather_conv and conv_bwd lines, after every
     end-to-end timing, so that no profiler session runs before them.
-    Then K5's at roi_bwd's inputs (roi_args).  Returns the sums per
-    flagship predict (K1) and train step (K3, K4) as {device_ms}, None
-    where a conv's is missing, and K5's a launch."""
+    Then K5's at roi_bwd's inputs (roi_args), K2's at every flagship subm
+    stage (eqmatch_device) and K6's at every lookup of the KITTI and
+    flagship table walks (rulebook_lookup_device).  Returns the sums per
+    flagship predict (K1, K2), train step (K3, K4) and KITTI table predict
+    (K6) as {device_ms}, None where a case's is missing, and K5's a
+    launch."""
     from srfdet3d_torch.ops import gather_conv_bwd as gcb
     from srfdet3d_torch.ops.gather_conv import gather_conv
     from srfdet3d_torch.ops.roi_scatter import roi_scatter
+    from srfdet3d_torch.ops.rulebook_lookup import key_hash, rulebook_lookup
     sums = {key: dict(device_ms=0.0)
-            for key in ("gather_conv", "subm", "strided")}
+            for key in ("gather_conv", "subm", "strided", "eqmatch",
+                        "eqmatch_prep", "rulebook_lookup",
+                        "rulebook_lookup_prep")}
 
     def add(key, own, times):
         t = sums[key]
@@ -1193,7 +1310,7 @@ def gather_gemm_device_times(cfg, kcfg, batch, kbatch, roi_args, dev, gen):
             else t["device_ms"] + times * own
     with torch.no_grad():
         for c, b in ((cfg, batch), (kcfg, kbatch)):
-            cases, _ = encoder_rulebooks(c, b, dev)
+            cases, subm_cases = encoder_rulebooks(c, b, dev)
             for name, n, idx, cin, cout, per_predict in cases:
                 k = idx.shape[1]
                 feats = torch.randn(n, cin, generator=gen).to(dev)
@@ -1204,6 +1321,20 @@ def gather_gemm_device_times(cfg, kcfg, batch, kbatch, roi_args, dev, gen):
                           launches_per_predict=per_predict))
                 if c is cfg:
                     add("gather_conv", own, per_predict)
+            if c is cfg:
+                # K2's query kernel, and apart its plan map (fill, scatter)
+                for case in subm_cases:
+                    kernel, _, prep = eqmatch_calls(case)
+                    own = kernel_device_ms(kernel, 1,
+                                           names=EQMATCH_KERNELS)
+                    prep_own = kernel_device_ms(prep, 2,
+                                                names=PLAN_MAP_KERNELS)
+                    emit(dict(phase="eqmatch_device", stage=case[0],
+                              device_ms=own, prep_device_ms=prep_own,
+                              bound_ms=eqmatch_bound(case)))
+                    add("eqmatch", own, 1)
+                    add("eqmatch_prep", prep_own, 1)
+            del cases, subm_cases
         cases, _ = encoder_rulebooks(cfg, synthetic_batch(cfg, 2, seed=0),
                                      dev)
         for name, n, idx, cin, cout, per_step in cases:
@@ -1246,6 +1377,30 @@ def gather_gemm_device_times(cfg, kcfg, batch, kbatch, roi_args, dev, gen):
                                names=ROI_SCATTER_KERNELS)
         emit(dict(phase="roi_bwd_device", device_ms=own))
         sums["roi_scatter"] = dict(device_ms=own)
+        # K6 at every lookup of both table walks (the lookup kernel), and
+        # at each table's first lookup its hash build (fill, insert); the
+        # KITTI sums a predict
+        for c, b in ((kcfg, kbatch), (cfg, batch)):
+            for name, keys, rows, queries, sentinel, hashed, first in \
+                    table_lookups(table_backend(c), b, dev):
+                own = kernel_device_ms(
+                    lambda: rulebook_lookup(keys, rows, queries, sentinel,
+                                            hashed),
+                    1, names=LOOKUP_KERNELS)
+                line = {}
+                if first:
+                    line["prep_device_ms"] = kernel_device_ms(
+                        lambda: key_hash(keys, rows, sentinel), 2,
+                        names=KEY_HASH_KERNELS)
+                    if c is kcfg:
+                        add("rulebook_lookup_prep", line["prep_device_ms"],
+                            1)
+                emit(dict(phase="rulebook_lookup_device", config=c.name,
+                          lookup=name, device_ms=own, **line))
+                if c is kcfg:
+                    add("rulebook_lookup", own, 1)
+    for kind in ("eqmatch", "rulebook_lookup"):
+        sums[kind]["prep_device_ms"] = sums.pop(f"{kind}_prep")["device_ms"]
     return sums
 
 
@@ -1260,7 +1415,8 @@ def kernel_entry(name, source, replaces, launches, t, max_err):
     # the gather-GEMM kernels also carry their 3xTF32 bound (their
     # bound_ms), the bound of the earlier SIMT kernels and their kernel-only
     # device time
-    for key in ("tc_bound_ms", "simt_bound_ms", "device_ms"):
+    for key in ("tc_bound_ms", "simt_bound_ms", "device_ms", "host_ms",
+                "prep_ms", "prep_device_ms", "builds"):
         if key in t:
             entry[key] = t[key]
     return entry
@@ -1296,38 +1452,46 @@ def main() -> int:
     with torch.no_grad():
         conv_cases, subm_cases = encoder_rulebooks(cfg, batch, dev)
         k1_err, k1 = check_gather_conv(cfg.name, conv_cases, dev, gen)
-        k2 = check_eqmatch(subm_cases)
+        k2 = check_eqmatch(cfg.name, subm_cases)
+        eq_case = subm_cases[0]
         del conv_cases, subm_cases
-        # KITTI's widths (conv_input Cin 4, 16/32/64, conv_out 64 -> 128)
-        kitti_cases, _ = encoder_rulebooks(kcfg, kbatch, dev)
+        # KITTI's widths (conv_input Cin 4, 16/32/64, conv_out 64 -> 128),
+        # and K2 at its bitmap encoder's 4 subm stages
+        kitti_cases, kitti_subm = encoder_rulebooks(kcfg, kbatch, dev)
         kitti_err, _ = check_gather_conv(kcfg.name, kitti_cases, dev, gen)
         k1_err = max(k1_err, kitti_err)
-        del kitti_cases
+        check_eqmatch(kcfg.name, kitti_subm)
+        del kitti_cases, kitti_subm
         train_cases, _ = encoder_rulebooks(
             cfg, synthetic_batch(cfg, 2, seed=0), dev)
         bwd = check_conv_bwd(train_cases, dev, gen)
         k5, roi_case = check_roi_bwd(cfg, dev, gen)
-        sync_free(next(c for c in train_cases if c[0] == "down2"), roi_case,
-                  dev, gen)
-        roi_args = roi_case[0]
-        del train_cases, roi_case
-        k6 = check_rulebook_lookup(
-            kcfg.name, table_lookups(table_backend(kcfg), kbatch, dev))
+        lookups = table_lookups(table_backend(kcfg), kbatch, dev)
+        k6 = check_rulebook_lookup(kcfg.name, lookups)
         check_rulebook_lookup(
             cfg.name, table_lookups(table_backend(cfg), batch, dev))
+        sync_free(next(c for c in train_cases if c[0] == "down2"), roi_case,
+                  eq_case, lookups[0], dev, gen)
+        roi_args = roi_case[0]
+        del train_cases, roi_case, eq_case, lookups
     torch.cuda.empty_cache()
 
     none = dict.fromkeys(COUNTED, 0)
-    counts = predict_phase("flagship_predict", cfg, batch, smi,
-                           dict(none, gather_conv=21, eqmatch=4))
+    counts, builds = predict_phase("flagship_predict", cfg, batch, smi,
+                                   dict(none, gather_conv=21, eqmatch=4))
+    k2["builds"] = builds["plan_map"]
     k1_launches, k2_launches = counts["gather_conv"], counts["eqmatch"]
     torch.cuda.empty_cache()
     predict_phase("kitti_predict", kcfg, kbatch, smi,
                   dict(none, gather_conv=12, eqmatch=4))
     torch.cuda.empty_cache()
-    counts = predict_phase("kitti_predict", table_backend(kcfg), kbatch, smi,
-                           dict(none, gather_conv=12, rulebook_lookup=8))
+    counts, builds = predict_phase(
+        "kitti_predict", table_backend(kcfg), kbatch, smi,
+        dict(none, gather_conv=12, rulebook_lookup=8))
     k6_launches = counts["rulebook_lookup"]
+    if builds["key_hash"] != k6["builds"]:
+        raise AssertionError(f"KITTI table predict built {builds} hash "
+                             f"tables, its walk {k6['builds']}")
     torch.cuda.empty_cache()
     per_step = flagship_train(cfg, smi)
     torch.cuda.empty_cache()
@@ -1335,9 +1499,11 @@ def main() -> int:
     tiny_end_to_end(table_backend(tiny_kitti_test_config()))
     tiny_end_to_end(table_backend(tiny_test_config()))
     tiny_train()
-    device = gather_gemm_device_times(cfg, kcfg, batch, kbatch, roi_args,
-                                      dev, gen)
+    device = kernel_device_times(cfg, kcfg, batch, kbatch, roi_args, dev,
+                                 gen)
     k1.update(device["gather_conv"])
+    k2.update(device["eqmatch"])
+    k6.update(device["rulebook_lookup"])
     bwd["subm"].update(device["subm"])
     bwd["strided"].update(device["strided"])
 

@@ -78,17 +78,16 @@ class BitmapRulebooks:
     def __init__(self, coords, mask, shape):
         self.cs, self.vcol, self.vz = build_columns(coords, mask, shape)
         self.mask = mask
-        self.vyx = coords[..., 1:3]
+        self.coords = coords
 
     def subm(self):
-        coords = torch.cat([self.vz[..., None], self.vyx], -1)
-        return subm_rulebook_eqmatch(self.cs, coords, self.mask)
+        return subm_rulebook_eqmatch(self.cs, self.coords, self.mask)
 
     def downsample(self, pad, capacity):
         cs, vcol, vz, vm, gidx, vyx = strided_downsample_bitmap(
             self.cs, _pad3(pad), capacity)
-        self.cs, self.vcol, self.vz, self.mask, self.vyx = (cs, vcol, vz, vm,
-                                                            vyx)
+        self.cs, self.vcol, self.vz, self.mask = cs, vcol, vz, vm
+        self.coords = torch.cat([vz[..., None], vyx], -1)
         return gidx
 
     def convout(self, capacity):

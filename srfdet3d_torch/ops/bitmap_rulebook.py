@@ -23,8 +23,7 @@ from typing import Tuple
 
 import torch
 
-from .eqmatch import (column_rulebook_plain, eqmatch_rulebook, mask_below,
-                      popcount64)
+from .eqmatch import eqmatch_rulebook, mask_below, popcount64
 
 
 # ------------------------------------------------------------ int64 bits
@@ -138,28 +137,59 @@ def _column_yx(cs: ColumnSet, vcol: torch.Tensor) -> torch.Tensor:
     return flat[vcol]
 
 
-def _query(cs: ColumnSet, ybase, xbase, zbase, valid, kernel: bool):
+def column_rulebook_plain(keys: torch.Tensor, words: torch.Tensor,
+                          starts: torch.Tensor, ybase: torch.Tensor,
+                          xbase: torch.Tensor, zbase: torch.Tensor,
+                          valid: torch.Tensor, hw: Tuple[int, int],
+                          row_cap: int) -> torch.Tensor:
+    """The rulebook of queries with base cells (zbase, ybase, xbase) from
+    the flat column tables (column_tables): each tap's column found by a
+    search of the sorted keys.  keys/words/starts (N,) int64, bases and
+    valid (B, Q) -> (B, Q, 27) int32, taps z-major."""
+    b, q = ybase.shape
+    h, w = hw
+    dev = keys.device
+    t = torch.arange(27, device=dev)
+    dz, dy, dx = t // 9, (t // 3) % 3, t % 3
+    y = ybase.to(torch.int64)[..., None] + dy
+    x = xbase.to(torch.int64)[..., None] + dx
+    z = zbase.to(torch.int64)[..., None] + dz
+    gb = torch.arange(b, device=dev)[:, None, None]
+    inb = (y >= 0) & (y < h) & (x >= 0) & (x < w)
+    key = torch.where(inb, gb * (h * w + 1) + y * w + x, -1)
+    pos = torch.searchsorted(keys, key.reshape(-1)).reshape(key.shape)
+    pos = pos.clamp_max(keys.numel() - 1)
+    found = inb & (keys[pos] == key)
+    word = torch.where(found, words[pos], 0)
+    present = bit_get(word, z)
+    row = starts[pos] + popcount64(word & mask_below(z))
+    local = row - gb * row_cap
+    ok = (found & present & (local >= 0) & (local < row_cap) &
+          valid.bool()[..., None])
+    return torch.where(ok, row, b * row_cap).to(torch.int32)
+
+
+def _query(cs: ColumnSet, ybase, xbase, zbase, valid):
     keys, words, starts = column_tables(cs)
-    fn = eqmatch_rulebook if kernel else column_rulebook_plain
-    return fn(keys, words, starts, ybase, xbase, zbase, valid,
-              cs.shape[1:], cs.row_cap)
+    return column_rulebook_plain(keys, words, starts, ybase, xbase, zbase,
+                                 valid, cs.shape[1:], cs.row_cap)
 
 
 def subm_rulebook_bitmap(cs: ColumnSet, vcol: torch.Tensor, vz: torch.Tensor,
                          vmask: torch.Tensor) -> torch.Tensor:
     """Submanifold 3x3x3 rulebook (B, V, 27) int32 of global feature rows,
-    in plain PyTorch: the plain version of the eq-match kernel."""
+    in plain PyTorch through the sorted column keys: the reference that the
+    eq-match kernel's output must equal."""
     yx = _column_yx(cs, vcol)
-    return _query(cs, yx[..., 0] - 1, yx[..., 1] - 1, vz - 1, vmask,
-                  kernel=False)
+    return _query(cs, yx[..., 0] - 1, yx[..., 1] - 1, vz - 1, vmask)
 
 
 def subm_rulebook_eqmatch(cs: ColumnSet, coords: torch.Tensor,
                           vmask: torch.Tensor) -> torch.Tensor:
     """subm_rulebook_bitmap through the eq-match kernel (identical output);
-    coords (B, V, 3) zyx of the plan-major voxels query cells directly."""
-    return _query(cs, coords[..., 1] - 1, coords[..., 2] - 1,
-                  coords[..., 0] - 1, vmask, kernel=True)
+    coords (B, V, 3) int64 zyx and vmask (B, V) bool of the plan-major
+    voxels are the queries, as they are."""
+    return eqmatch_rulebook(cs, coords, vmask)
 
 
 def _expand_sites(bits: torch.Tensor, out_cap: int, ccoords: torch.Tensor):
@@ -261,7 +291,7 @@ def strided_rulebook_bitmap(cs_in: ColumnSet, vyx_out: torch.Tensor,
     (z, y, x) reads input cells 2 * (z, y, x) - pad + {0, 1, 2}^3."""
     pz, py, px = padding
     return _query(cs_in, 2 * vyx_out[..., 0] - py, 2 * vyx_out[..., 1] - px,
-                  2 * vz_out - pz, vmask_out, kernel=False)
+                  2 * vz_out - pz, vmask_out)
 
 
 def convout_sites_bitmap(cs: ColumnSet, out_cap: int):

@@ -2,21 +2,24 @@
 
 Replaces the JAX package's Pallas kernel
 `ops/pallas_eqmatch.py::eqmatch_rulebook` (kernel body `_eqmatch_kernel`).
-For each query row q with base cell (zb, yb, xb) and each of the 27 taps
+For each query row q of a ColumnSet's queries, with base cell
+(zb, yb, xb) = coord * scale - offset, and each of the 27 taps
 (dz, dy, dx) in {0, 1, 2}^3, z-major, the result is the global feature row
 of voxel (zb + dz, yb + dy, xb + dx):
 
-    key  = b * (H*W + 1) + y * W + x      (found in the sorted column keys)
-    row  = column start + popcount(z word & bits below z)
+    slot = plan map[b, y, x]              (the column of cell (y, x))
+    row  = cstart[slot] + popcount(bits[slot] & bits below z)
 
 or the miss row B * row_cap when the cell is out of the plan, its column or
 z bit is absent, the row lies past the stage capacity, or the query row is
-invalid.  A submanifold rulebook queries each voxel at (z-1, y-1, x-1); a
-stride-2 one queries each output site at 2 * (z, y, x) - pad.
+invalid.  A submanifold rulebook queries each voxel with scale 1 and offset
+1; a stride-2 one each output site with scale 2 and offset pad.
 
-The TPU kernel windows the sorted keys because Mosaic has no dynamic gather;
-the CUDA kernel binary-searches the whole key array, so it needs no window
-and no fallback.
+The plan map (B * H * W,) int32 holds each plan cell's global column slot
+b * P + p, or the miss slot B * P: the JAX package's `plan_table`.  The
+kernel builds it on each call (a fill and a scatter), then runs one thread
+per (query, plan column (dy, dx)): one map load and one column load answer
+3 taps.  The plain version below does the same arithmetic in PyTorch.
 """
 
 from __future__ import annotations
@@ -28,15 +31,21 @@ import torch
 
 from . import cuda_build
 
-# kernel launches since the last reset (chip_smoke.py reads it)
+# query-kernel launches since the last reset (chip_smoke.py reads them);
+# the plan map that each call builds first is counted apart
 launches = 0
+map_builds = 0
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# keys, words, starts, N, ybase, xbase, zbase, valid, Q, B, H, W, row_cap,
-# out, stream
-_SIGNATURES = {"eqmatch_rulebook": [_P, _P, _P, _LL, _P, _P, _P, _P, _I, _I,
-                                    _I, _I, _I, _P, _P]}
-
+_SIGNATURES = {
+    # ccoords, cmask, their sample strides, B, P, H, W, map, stream
+    "plan_map": [_P, _P, _LL, _LL, _I, _I, _I, _I, _P, _P],
+    # ccoords, cmask, bits, cstart and their sample strides, coords, valid,
+    # Q, B, P, H, W, row_cap, scale, offset z, y, x, map, out, stream
+    "eqmatch_rulebook": [_P, _P, _LL, _LL, _P, _P, _LL, _LL, _P, _P, _I, _I,
+                         _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+}
+_lib = None
 
 _I64_MAX = (1 << 63) - 1
 
@@ -61,85 +70,155 @@ def mask_below(n: torch.Tensor) -> torch.Tensor:
     return torch.where(n <= 0, torch.zeros_like(m), m)
 
 
-def column_rulebook_plain(keys: torch.Tensor, words: torch.Tensor,
-                          starts: torch.Tensor, ybase: torch.Tensor,
-                          xbase: torch.Tensor, zbase: torch.Tensor,
-                          valid: torch.Tensor, hw: Tuple[int, int],
-                          row_cap: int) -> torch.Tensor:
-    """Plain PyTorch version.  keys/words/starts (N,) int64 column tables
-    (keys ascending), bases and valid (B, Q) -> (B, Q, 27) int32."""
-    b, q = ybase.shape
-    h, w = hw
-    dev = keys.device
-    t = torch.arange(27, device=dev)
-    dz, dy, dx = t // 9, (t // 3) % 3, t % 3
-    y = ybase.to(torch.int64)[..., None] + dy
-    x = xbase.to(torch.int64)[..., None] + dx
-    z = zbase.to(torch.int64)[..., None] + dz
+def plan_map_plain(cs) -> torch.Tensor:
+    """Plain version of the plan map: (B * H * W,) int32, each plan cell's
+    global column slot b * P + p, or B * P where no column sits."""
+    b, p = cs.cmask.shape
+    _, h, w = cs.shape
+    dev = cs.cmask.device
+    cell = (cs.ccoords[..., 0] * w + cs.ccoords[..., 1] +
+            torch.arange(b, device=dev)[:, None] * (h * w))
+    cell = torch.where(cs.cmask, cell, b * h * w).reshape(-1)
+    pmap = torch.full((b * h * w + 1,), b * p, dtype=torch.int32, device=dev)
+    pmap[cell] = torch.arange(b * p, dtype=torch.int32, device=dev)
+    return pmap[:-1]
+
+
+def column_query_plain(cs, pmap: torch.Tensor, coords: torch.Tensor,
+                       valid: torch.Tensor, scale: int = 1,
+                       offset: Tuple[int, int, int] = (1, 1, 1)
+                       ) -> torch.Tensor:
+    """Plain version of the query: coords (B, Q, 3) zyx and valid (B, Q)
+    -> (B, Q, 27) int32, through the plan map of 9 columns a query."""
+    b, q, _ = coords.shape
+    p = cs.cmask.shape[1]
+    _, h, w = cs.shape
+    dev = coords.device
+    oz, oy, ox = offset
+    zb = coords[..., 0] * scale - oz
+    c = torch.arange(9, device=dev)
+    y = (coords[..., 1] * scale - oy)[..., None] + c // 3     # (B, Q, 9)
+    x = (coords[..., 2] * scale - ox)[..., None] + c % 3
     gb = torch.arange(b, device=dev)[:, None, None]
     inb = (y >= 0) & (y < h) & (x >= 0) & (x < w)
-    key = torch.where(inb, gb * (h * w + 1) + y * w + x, -1)
-    pos = torch.searchsorted(keys, key.reshape(-1)).reshape(key.shape)
-    pos = pos.clamp_max(keys.numel() - 1)
-    found = inb & (keys[pos] == key)
-    word = torch.where(found, words[pos], 0)
+    cell = torch.where(inb, (gb * h + y) * w + x, 0)
+    slot = torch.where(inb, pmap[cell].long(), b * p)
+    words = torch.cat([cs.bits.reshape(-1), cs.bits.new_zeros(1)])
+    starts = torch.cat([cs.cstart.reshape(-1), cs.cstart.new_zeros(1)])
+    word = words[slot][..., None, :]                          # (B, Q, 1, 9)
+    start = starts[slot][..., None, :]
+    z = (zb[..., None] + torch.arange(3, device=dev))[..., None]  # (B,Q,3,1)
     present = (z >= 0) & (z < 64) & (((word >> z.clamp(0, 63)) & 1) != 0)
-    row = starts[pos] + popcount64(word & mask_below(z))
-    local = row - gb * row_cap
-    ok = (found & present & (local >= 0) & (local < row_cap) &
-          valid.bool()[..., None])
-    return torch.where(ok, row, b * row_cap).to(torch.int32)
+    row = start + popcount64(word & mask_below(z))
+    local = row - gb[..., None] * cs.row_cap
+    ok = (present & (local >= 0) & (local < cs.row_cap) &
+          valid.bool()[..., None, None])
+    out = torch.where(ok, row, b * cs.row_cap).to(torch.int32)
+    return out.reshape(b, q, 27)
 
 
-def eqmatch_rulebook(keys: torch.Tensor, words: torch.Tensor,
-                     starts: torch.Tensor, ybase: torch.Tensor,
-                     xbase: torch.Tensor, zbase: torch.Tensor,
-                     valid: torch.Tensor, hw: Tuple[int, int],
-                     row_cap: int) -> torch.Tensor:
-    """The column-query rulebook: the CUDA kernel for tensors on the card,
-    the plain version for tensors on the CPU."""
-    if keys.device.type == "cpu":
-        return column_rulebook_plain(keys, words, starts, ybase, xbase,
-                                     zbase, valid, hw, row_cap)
-    if keys.device.type != "cuda":
-        raise RuntimeError(f"eqmatch_rulebook: no kernel for {keys.device}")
-    global launches
-    b, q = ybase.shape
-    h, w = hw
-    n = keys.numel()
-    dev = keys.device
-    for name, t in (("words", words), ("starts", starts)):
-        if t.dtype != torch.int64 or t.shape != (n,) or t.device != dev:
-            raise ValueError(f"eqmatch_rulebook: {name} must be ({n},) "
-                             f"int64 on {dev}")
-    if keys.dtype != torch.int64 or keys.dim() != 1:
-        raise ValueError("eqmatch_rulebook: keys must be 1-D int64")
-    if b * row_cap >= 2 ** 31 or b * (h * w + 1) >= 2 ** 62:
-        raise ValueError("eqmatch_rulebook: rows must fit int32")
-    if n == 0:
-        raise ValueError("eqmatch_rulebook: empty column table")
-    for name, t in (("keys", keys), ("words", words), ("starts", starts)):
-        if not t.is_contiguous():
-            raise ValueError(f"eqmatch_rulebook: {name} must be contiguous")
-    for name, t in (("ybase", ybase), ("xbase", xbase), ("zbase", zbase),
-                    ("valid", valid)):
-        if t.shape != (b, q) or t.device != dev:
-            raise ValueError(f"eqmatch_rulebook: {name} must be ({b}, {q}) "
-                             f"on {dev}")
-    # the kernel reads int32 bases and uint8 flags
-    yb, xb, zb = (t.to(torch.int32).contiguous()
-                  for t in (ybase, xbase, zbase))
-    vq = valid.to(torch.uint8).contiguous()
+def _kernels():
+    global _lib
+    if _lib is None:
+        _lib = cuda_build.load_library("eqmatch", _SIGNATURES)
+    return _lib
+
+
+def _sample_stride(t: torch.Tensor, shape, inner: int, name: str) -> int:
+    """The sample stride (elements) of a (B, P[, 2]) column array whose
+    columns lie `inner` elements apart and whose last axis is dense."""
+    if t.shape != shape or t.stride(1) != inner or (
+            t.dim() == 3 and t.stride(2) != 1) or (
+            shape[0] > 1 and t.stride(0) < shape[1] * inner):
+        raise ValueError(f"eqmatch_rulebook: {name} must be a {shape} view "
+                         f"with dense columns")
+    return t.stride(0)
+
+
+def _columns(cs, dev: torch.device):
+    """Check a ColumnSet's arrays for the kernels: (ccoords, cmask, bits,
+    cstart) with their sample strides, as the C entries take them."""
+    b, p = cs.cmask.shape
+    _, h, w = cs.shape
+    args = []
+    for name, t, dtype, shape, inner in (
+            ("ccoords", cs.ccoords, torch.int64, (b, p, 2), 2),
+            ("cmask", cs.cmask, torch.bool, (b, p), 1),
+            ("bits", cs.bits, torch.int64, (b, p), 1),
+            ("cstart", cs.cstart, torch.int64, (b, p), 1)):
+        if t.dtype != dtype or t.device != dev:
+            raise ValueError(f"eqmatch_rulebook: {name} must be {dtype} on "
+                             f"{dev}")
+        args.append((t.data_ptr(), _sample_stride(t, shape, inner, name)))
+    if b * p >= 2 ** 31 or b * h * w >= 2 ** 31:
+        raise ValueError("eqmatch_rulebook: slots and cells must fit int32")
+    return args
+
+
+def plan_map(cs) -> torch.Tensor:
+    """The plan map of a ColumnSet: the fill and scatter kernels for
+    tensors on the card, the plain version for tensors on the CPU.  The
+    eq-match wrapper builds its own; this one serves checks and timing."""
+    dev = cs.cmask.device
+    if dev.type == "cpu":
+        return plan_map_plain(cs)
+    if dev.type != "cuda":
+        raise RuntimeError(f"plan_map: no kernel for {dev}")
+    b, p = cs.cmask.shape
+    _, h, w = cs.shape
+    (cc, s_cc), (cm, s_cm), _, _ = _columns(cs, dev)
+    pmap = torch.empty(b * h * w, dtype=torch.int32, device=dev)
+    lib = _kernels()
+    with torch.cuda.device(dev):
+        rc = lib.plan_map(cc, cm, s_cc, s_cm, b, p, h, w, pmap.data_ptr(),
+                          torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(lib, rc, "plan_map")
+    return pmap
+
+
+def eqmatch_rulebook(cs, coords: torch.Tensor, valid: torch.Tensor,
+                     scale: int = 1,
+                     offset: Tuple[int, int, int] = (1, 1, 1)
+                     ) -> torch.Tensor:
+    """The column-query rulebook (B, Q, 27) int32 of a ColumnSet `cs` at
+    queries coords (B, Q, 3) int64 zyx and valid (B, Q) bool: the plan map
+    and the query kernel, in one call, for tensors on the card, the plain
+    version for tensors on the CPU."""
+    dev = coords.device
+    if dev.type == "cpu":
+        return column_query_plain(cs, plan_map_plain(cs), coords, valid,
+                                  scale, offset)
+    if dev.type != "cuda":
+        raise RuntimeError(f"eqmatch_rulebook: no kernel for {dev}")
+    global launches, map_builds
+    b, q, _ = coords.shape
+    p = cs.cmask.shape[1]
+    _, h, w = cs.shape
+    if coords.dtype != torch.int64 or coords.shape != (b, q, 3):
+        raise ValueError("eqmatch_rulebook: coords must be (B, Q, 3) int64")
+    if valid.dtype != torch.bool or valid.shape != (b, q) or \
+            valid.device != dev:
+        raise ValueError(f"eqmatch_rulebook: valid must be ({b}, {q}) bool "
+                         f"on {dev}")
+    if cs.cmask.shape[0] != b:
+        raise ValueError("eqmatch_rulebook: queries and columns must share B")
+    if b * cs.row_cap >= 2 ** 31 or b * q >= 2 ** 31:
+        raise ValueError("eqmatch_rulebook: rows and queries must fit int32")
+    (cc, s_cc), (cm, s_cm), (bits, s_bits), (cst, s_st) = _columns(cs, dev)
+    coords, valid = coords.contiguous(), valid.contiguous()
     out = torch.empty(b, q, 27, dtype=torch.int32, device=dev)
     if out.numel() == 0:
         return out
-    lib = cuda_build.load_library("eqmatch", _SIGNATURES)
+    pmap = torch.empty(b * h * w, dtype=torch.int32, device=dev)
+    oz, oy, ox = offset
+    lib = _kernels()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.eqmatch_rulebook(
-            keys.data_ptr(), words.data_ptr(), starts.data_ptr(), n,
-            yb.data_ptr(), xb.data_ptr(), zb.data_ptr(), vq.data_ptr(), q, b,
-            h, w, row_cap, out.data_ptr(), stream)
+            cc, cm, s_cc, s_cm, bits, cst, s_bits, s_st, coords.data_ptr(),
+            valid.data_ptr(), q, b, p, h, w, cs.row_cap, scale, oz, oy, ox,
+            pmap.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(lib, rc, "eqmatch_rulebook")
+    map_builds += 1
     launches += 1
     return out

@@ -6,7 +6,9 @@ backend) key every site by its z-major cell, key = (z * H + y) * W + x, and
 find a neighbour's global feature row by looking its key up in a sorted key
 table (K6, ops/rulebook_lookup.py).  Samples fold into one table by a shift
 of cells + 1 per sample, so a sample's masked rows (key = cells) sort after
-its sites and before the next sample's.  The miss row is B * V.
+its sites and before the next sample's.  The miss row is B * V.  On the card
+a key table also holds the hash table of its keys, built once and probed by
+each of its lookups.
 
 A strided conv's output sites follow spconv: a site exists iff its
 receptive field touches an input site; each input voxel emits its
@@ -28,7 +30,7 @@ import torch
 
 from .gather_conv import gather_conv
 from .gather_conv_bwd import strided_conv_bwd, subm_conv_bwd
-from .rulebook_lookup import rulebook_lookup
+from .rulebook_lookup import KeyHash, key_hash, rulebook_lookup
 
 
 class GatheredConv(torch.autograd.Function):
@@ -159,11 +161,13 @@ def generate_output_sites(coords: torch.Tensor, mask: torch.Tensor, shape,
 @dataclasses.dataclass
 class KeyTable:
     """The sample-folded sorted keys of one stage's sites and the global
-    feature row of each key; queries at or above `sentinel` are invalid."""
+    feature row of each key; queries at or above `sentinel` are invalid.
+    On the card `hashed` is the hash table of the keys (None on the CPU)."""
     keys: torch.Tensor      # (B * V,) int64 ascending
     rows: torch.Tensor      # (B * V,) int32
     cells: int              # cells of one sample's grid
     sentinel: int           # B * (cells + 1)
+    hashed: Optional[KeyHash]
 
 
 def make_key_table(coords: torch.Tensor, mask: torch.Tensor, shape,
@@ -171,7 +175,8 @@ def make_key_table(coords: torch.Tensor, mask: torch.Tensor, shape,
     """The key table of (B, V, 3) sites.  Rows in any order are sorted once
     (one stable sort; its permutation gives each key's row).  Sites that
     are already in key order per sample, with the masked rows at each
-    sample's tail (what generate_output_sites emits), skip the sort."""
+    sample's tail (what generate_output_sites emits), skip the sort.  On
+    the card the keys are hashed here, once for all the table's lookups."""
     b, v = mask.shape
     cells = math.prod(shape)
     shift = cells + 1
@@ -182,7 +187,9 @@ def make_key_table(coords: torch.Tensor, mask: torch.Tensor, shape,
     else:
         keys, order = torch.sort(keys, stable=True)
         rows = order.to(torch.int32)
-    return KeyTable(keys, rows, cells, b * shift)
+    sentinel = b * shift
+    return KeyTable(keys, rows, cells, sentinel,
+                    key_hash(keys, rows, sentinel))
 
 
 def lookup_rows(table: KeyTable, queries: torch.Tensor) -> torch.Tensor:
@@ -193,7 +200,7 @@ def lookup_rows(table: KeyTable, queries: torch.Tensor) -> torch.Tensor:
         table.cells + 1)
     gq = torch.where(queries < table.cells, queries + offs, table.sentinel)
     return rulebook_lookup(table.keys, table.rows, gq.reshape(b * q, k),
-                           table.sentinel).reshape(b, q, k)
+                           table.sentinel, table.hashed).reshape(b, q, k)
 
 
 def subm_gather_indices_batched(coords: torch.Tensor, mask: torch.Tensor,
