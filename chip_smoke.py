@@ -8,16 +8,18 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 2. build: the five CUDA kernels' sources in srfdet3d_torch/csrc, in
    parallel;
 3. gather_conv (K1) against its plain version on real flagship rulebooks,
-   at every conv shape of the sparse encoder, and on srfdet_voxel_kitti_L's
+   at every conv shape of the sparse encoder, on srfdet_voxel_kitti_L's
    bitmap rulebooks at its conv shapes (Cin 4, 16/32/64, conv_out
-   64 -> 128); per conv the time a launch (back-to-back events, which
+   64 -> 128) and on srfdet_dvoxel_waymo_L's (Cin 5, 131,072 rows of a
+   41 x 1536 x 1536 grid); per conv the time a launch (back-to-back events, which
    include the wrapper's host path) and the bound of the 3xTF32 work the
    kernel does (bound_ms, also printed as tc_bound_ms: flops at 165
    TFLOP/s against HBM's bytes), with simt_bound_ms (flops at the f32
    CUDA-core rate, the bound of the earlier SIMT kernels) beside it; the
    kernel-only device time comes in phase 13;
 4. eqmatch (K2) against subm_rulebook_bitmap at the 4 flagship stages
-   and (after K1's KITTI shapes) the 4 srfdet_voxel_kitti_L stages, exact,
+   and (after K1's KITTI and Waymo shapes) the 4 stages of
+   srfdet_voxel_kitti_L and of srfdet_dvoxel_waymo_L, exact,
    and its plan map against plan_map_plain; ms a launch with its
    map (events), the map's ms (prep_ms), the host ms of a wrapper call
    (host_ms), the plain version and the byte bound;
@@ -30,7 +32,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    the dfeats tiles' offset steps, grouped and in voxel order, against
    the hits' least;
 6. roi_bwd (K5) against index_add_ at the flagship head's geometry (batch
-   2 x 900 RoIs, four levels at C 128, patch 32, 64 fallback slots), with
+   2 x 900 RoIs, four levels at C 128, patch 32, 64 fallback slots), then
+   at the KITTI head's (C 256, patch 0) and the pillar head's (strides
+   2-16, a 256 x 256 finest level, patch 0), with
    the global atomics a launch before the window sums (one a live corner
    sample and channel) and after (one a distinct live cell and channel),
    and the max difference of two launches (atomic order);
@@ -50,19 +54,28 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    split at its layer boundaries (time and peak memory of each part);
 9. srfdet_voxel_kitti_L predict at full width, batch 1, the same way, once
    on its shipped bitmap backend and once with middle.rulebook="table";
-   each predict line also counts the preparations beside the launches
+   then the flagship with middle.rulebook="table" (flagship_table_predict),
+   srfdet_dvoxel_nusc_L and srfdet_dvoxel_waymo_L (dvoxel_*_predict) and
+   srfdet_pillar_nusc_L (pillar_predict, no sparse-kernel launch); each
+   predict line also counts the preparations beside the launches
    (builds: K2's plan maps, 4 a bitmap predict; K6's hash tables, 4 a
-   KITTI table predict);
-10. flagship train step at full width, batch 2 with synthetic GT, dropout
-   as configured: launch counts of all five kernels, finite losses, a
-   finite grad for every parameter and every parameter moved, step p50,
-   peak memory, the step split into forward, loss + OTA, backward and
-   optimizer, and one step under torch.profiler (device busy time and
-   share, the kernels that took most of it);
+   table predict, as many as its lookup walk in phase 7 built);
+10. train steps at full width, batch 2 with synthetic GT (7 columns at
+   code size 8), dropout as configured: the flagship (flagship_train),
+   srfdet_voxel_kitti_L (kitti_train: K1-K5 on the conv_module layout)
+   and srfdet_pillar_nusc_L (pillar_train: K5 alone): launch counts of
+   the five kernels against the structure, finite losses, a finite grad
+   for every parameter and every parameter moved, step p50, peak memory,
+   the step split into forward, loss + OTA, backward and optimizer, and
+   one step under torch.profiler (device busy time and share, the
+   kernels that took most of it);
 11. tiny predicts (tiny_test_config; tiny_kitti_test_config and
-   tiny_test_config with middle.rulebook="table"), and 12. two tiny train
-   steps, with the kernels on the card against the same weights on the CPU
-   with the plain versions;
+   tiny_test_config with middle.rulebook="table"; tiny_pillar_test_config
+   with its own corner RoIAlign), and 12. two tiny train steps each of
+   tiny_test_config and of tiny_kitti_test_config (code size 8), with the
+   kernels on the card against the same weights on the CPU with the plain
+   versions; then one profiled predict of each full-width predict config
+   (*_predict_busy: device busy time and share);
 13. kernel device times, measured after every end-to-end phase: every K1
    conv (flagship and KITTI) and every K3 / K4 conv, one line each: the
    kernels' own device time from torch.profiler (kernel_device_ms; for K4
@@ -546,10 +559,11 @@ def check_conv_bwd(cases, dev, gen):
 
 
 def check_roi_bwd(cfg, dev, gen):
-    """K5 at the flagship head's geometry: batch 2 x 900 RoIs from boxes
-    of nuScenes-like sizes anywhere in range, the four FPN levels at C 128,
-    patch 32 with 64 fallback slots; against index_add_ (the plain
-    version).  The global atomics a launch, counted from the corners on the
+    """K5 at one config's head geometry (the flagship's: batch 2 x 900 RoIs,
+    the four FPN levels at C 128, strides 8-64, patch 32 with 64 fallback
+    slots; KITTI's at C 256, patch 0; the pillar head's at strides 2-16, a
+    256 x 256 finest level, patch 0), RoIs from boxes of 0.5-12 m anywhere
+    in range; against index_add_ (the plain version).  The global atomics a launch, counted from the corners on the
     card: before the window sums one a live corner sample and channel,
     after one a distinct live table row of a RoI and channel.  Returns one
     launch's numbers and the launch's inputs."""
@@ -613,7 +627,8 @@ def check_roi_bwd(cfg, dev, gen):
     nbytes = (4.0 * (gp.numel() + cs.cells.numel() + cs.cw.numel() +
                      cs.level.numel() + rows * c) + drop.numel())
     bound = nbytes / PEAK_BYTES * 1e3
-    row = dict(phase="roi_bwd", rois=b * r, levels=sizes, c=c,
+    row = dict(phase="roi_bwd", config=cfg.name, rois=b * r, levels=sizes,
+               strides=list(hc.lidar_strides), c=c,
                patch=hc.roi_patch, fallback=hc.roi_patch_fallback,
                dropped=int(drop.sum()), max_adds_per_row=per_row,
                max_abs_err=float(err.max()),
@@ -786,7 +801,6 @@ def check_rulebook_lookup(config, cases):
 
 COUNTED = ("gather_conv", "eqmatch", "subm_bwd", "strided_bwd",
            "roi_scatter", "rulebook_lookup")
-TRAIN_KERNELS = COUNTED[:5]
 
 
 def reset_counts():
@@ -828,12 +842,14 @@ def predict_launches(model):
     """Launches per predict the model's structure gives: every gathered
     conv once (K1); on the bitmap backend one eq-match per subm stage (K2),
     on the table backend one lookup per subm stage, per downsample and for
-    conv_out (K6)."""
+    conv_out (K6); none on the pillar path, which has no sparse conv."""
     from srfdet3d_torch.models.sparse_encoder import GatheredConvBN
+    want = dict.fromkeys(COUNTED, 0)
+    if model.cfg.middle.kind == "pillar_scatter":
+        return want                     # no sparse conv: no K1, K2 or K6
     enc = model.pts_middle_encoder
     convs = sum(isinstance(mod, GatheredConvBN) for mod in enc.modules())
     stages = len(model.cfg.middle.encoder_channels)
-    want = dict.fromkeys(COUNTED, 0)
     want["gather_conv"] = convs
     if enc.use_bitmap:
         want["eqmatch"] = stages
@@ -846,6 +862,8 @@ def predict_builds(model):
     """Preparations per predict the structure gives: one plan map per
     eq-match (bitmap backend), one hash table per stage's key table (table
     backend)."""
+    if model.cfg.middle.kind == "pillar_scatter":
+        return dict(plan_map=0, key_hash=0)
     stages = len(model.cfg.middle.encoder_channels)
     bitmap = model.pts_middle_encoder.use_bitmap
     return dict(plan_map=stages if bitmap else 0,
@@ -938,9 +956,9 @@ def predict_parts(phase, model, batch, smi, runs: int = 5):
     def run():
         feats, vox = model.voxel_features(points, mask)
         yield "voxelize_vfe"
-        bev = model.pts_middle_encoder(feats, vox.voxel_coords,
-                                       vox.voxel_mask)
-        yield "sparse_encoder"
+        bev = model.middle(feats, vox)
+        yield ("pillar_scatter" if model.cfg.middle.kind == "pillar_scatter"
+               else "sparse_encoder")
         maps = model.pts_neck(model.pts_backbone(
             bev.permute(0, 3, 1, 2).contiguous()))
         yield "second_fpn"
@@ -970,14 +988,31 @@ def predict_parts(phase, model, batch, smi, runs: int = 5):
               peak_mem_bytes=peak))
 
 
+def predict_busy(phase, cfg, batch, smi):
+    """One predict of a fresh model (seed 0, after one warm-up predict)
+    under torch.profiler: host ms, device busy ms and share, top kernels.
+    Run after every end-to-end timing, so no profiler run precedes a
+    p50."""
+    from srfdet3d_torch.models.detector import SRFDet
+    model = SRFDet(cfg, device="cuda", seed=0)
+    dev_batch = {k: v.cuda() for k, v in batch.items()}
+    model.predict(dev_batch)
+    emit(dict(phase=phase, config=cfg.name, rulebook=cfg.middle.rulebook,
+              device=smi,
+              profiled_predict=device_busy(lambda: model.predict(dev_batch),
+                                           top=5)))
+
+
 def train_launches(model):
     """Launches per train step the model's structure gives: the forward's
     (predict_launches), every subm conv's backward (K3), every strided and
     conv_out backward (K4), one RoIAlign backward per head iteration
-    (K5)."""
+    (K5); on the pillar path K5's alone."""
     from srfdet3d_torch.models.sparse_encoder import GatheredConvBN
-    convs = [mod for mod in model.pts_middle_encoder.modules()
-             if isinstance(mod, GatheredConvBN)]
+    convs = []
+    if model.cfg.middle.kind != "pillar_scatter":
+        convs = [mod for mod in model.pts_middle_encoder.modules()
+                 if isinstance(mod, GatheredConvBN)]
     n_subm = sum(c.subm for c in convs)
     want = predict_launches(model)
     want.update(subm_bwd=n_subm, strided_bwd=len(convs) - n_subm,
@@ -1014,9 +1049,13 @@ def device_busy(fn, top: int = 10):
                              for ms, n, name in kernels[:top]])
 
 
-def flagship_train(cfg, smi, warmup: int = 2, steps: int = 10):
-    """The flagship train step at full width, batch 2, synthetic scene and
-    GT, dropout as configured, seeded random weights."""
+def train_phase(phase, cfg, smi, warmup: int = 2, steps: int = 10):
+    """One config's train step at full width, batch 2, synthetic scene and
+    GT (7 columns at code size 8, else 9), dropout as configured, seeded
+    random weights: launch counts against train_launches every step,
+    finite losses, a finite grad and a move for every parameter, step p50
+    over `steps`, peak memory, the step's parts and one profiled step.
+    Returns the launches a step."""
     from srfdet3d_torch.models.detector import SRFDet
     from srfdet3d_torch.models.losses import srfdet_losses
     from srfdet3d_torch.train.trainer import make_optimizer, train_step
@@ -1091,8 +1130,10 @@ def flagship_train(cfg, smi, warmup: int = 2, steps: int = 10):
         for part, a, b_ in (("forward", t0, t1), ("loss_ota", t1, t2),
                             ("backward", t2, t3), ("optimizer", t3, t4)):
             parts.setdefault(part, []).append((b_ - a) * 1e3)
-    emit(dict(phase="flagship_train", config=cfg.name, batch=2,
-              points=cfg.points_cap, gt_valid=8, dropout=cfg.head.dropout,
+    emit(dict(phase=phase, config=cfg.name, batch=2,
+              points=cfg.points_cap, gt_valid=8,
+              gt_columns=batch["gt_boxes"].shape[-1],
+              dropout=cfg.head.dropout,
               launches_per_step=want, finite=True,
               params=sum(p.numel() for p in opt.params),
               leaves=len(opt.params), zero_grad_unmoved=stuck,
@@ -1108,11 +1149,35 @@ def flagship_train(cfg, smi, warmup: int = 2, steps: int = 10):
     return want
 
 
-def tiny_train(steps: int = 2):
+def tiny_train_setup():
+    """tiny_train's flagship-family config and (model, batch) seeds:
+    `tiny_test_config(points_cap=256, voxels_cap=256, gt_cap=4)` with the
+    patch RoIAlign scaled down (8 cells, 2 fallback slots), model seed 2,
+    batch seed 5."""
+    import dataclasses
+    from srfdet3d_torch.configs import tiny_test_config
+    cfg = tiny_test_config(points_cap=256, voxels_cap=256, gt_cap=4)
+    cfg = cfg.replace(head=dataclasses.replace(cfg.head, roi_patch=8,
+                                               roi_patch_fallback=2))
+    return cfg, 2, 5
+
+
+def tiny_kitti_train_setup():
+    """The code-size-8 tiny train step's config and seeds:
+    `tiny_kitti_test_config(points_cap=256, voxels_cap=256, gt_cap=4)`
+    (conv_module encoder, 7-column GT, roi_patch 0), model seed 23, batch
+    seed 5."""
+    from srfdet3d_torch.configs import tiny_kitti_test_config
+    return tiny_kitti_test_config(points_cap=256, voxels_cap=256,
+                                  gt_cap=4), 23, 5
+
+
+def tiny_train(cfg, model_seed: int, batch_seed: int, steps: int = 2):
     """Tiny train steps: kernels on the card vs plain versions on the CPU.
     Each step starts both from the same state (the CPU's weights, BN
     statistics and AdamW moments), so each compares one step, not two
-    drifting runs.  Per step: losses and the grad norm within rtol 1e-4 +
+    drifting runs.  The card's launches each step equal train_launches.
+    Per step: losses and the grad norm within rtol 1e-4 +
     atol 1e-5; every grad within 2e-3 of its leaf's largest, or of 1e-5 of
     the tree's largest where that is more (the attention key bias, whose
     grad is zero up to rounding: the softmax ignores a shift along the
@@ -1124,24 +1189,20 @@ def tiny_train(steps: int = 2):
 
     The grads of a float32 step are discontinuous where an activation sits
     at a ReLU's kink, so a 1e-6 change of the weights can move a leaf's
-    grad by percents.  The config and seeds are picked where it does not:
-    `tiny_test_config(points_cap=256, voxels_cap=256, gt_cap=4)`, the
-    patch RoIAlign scaled down (8 cells, 2 fallback slots), model seed 2,
-    batch seed 5, dropout 0; tests/test_torch_port_train.py::
-    test_tiny_train_seeds_are_well_conditioned holds every leaf's grad
+    grad by percents.  The configs and seeds (tiny_train_setup,
+    tiny_kitti_train_setup; dropout 0) are picked where it does not:
+    tests/test_torch_port_train.py::test_tiny_train_seeds_are_well_conditioned
+    and tests/test_torch_port_dvoxel.py::
+    test_tiny_kitti_train_seeds_are_well_conditioned hold every leaf's grad
     within 1e-3 under 1e-6 noise on the weights, for both steps."""
-    import dataclasses
-    from srfdet3d_torch.configs import tiny_test_config
     from srfdet3d_torch.models.detector import SRFDet
     from srfdet3d_torch.train.trainer import (make_lr_schedule,
                                               make_optimizer, train_step)
-    cfg = tiny_test_config(points_cap=256, voxels_cap=256, gt_cap=4)
-    cfg = cfg.replace(head=dataclasses.replace(cfg.head, roi_patch=8,
-                                               roi_patch_fallback=2))
-    batch = synthetic_batch(cfg, 2, seed=5, with_gt=True)
+    batch = synthetic_batch(cfg, 2, seed=batch_seed, with_gt=True)
     gbatch = {k: v.cuda() for k, v in batch.items()}
-    cpu = SRFDet(cfg, device="cpu", seed=2)
-    gpu = SRFDet(cfg, device="cuda", seed=2)
+    cpu = SRFDet(cfg, device="cpu", seed=model_seed)
+    gpu = SRFDet(cfg, device="cuda", seed=model_seed)
+    want = train_launches(gpu)
     opt_c, opt_g = make_optimizer(cpu, cfg, 100), make_optimizer(gpu, cfg,
                                                                  100)
     lr = make_lr_schedule(cfg.optim, 100)
@@ -1160,9 +1221,9 @@ def tiny_train(steps: int = 2):
                         torch.Generator(device="cuda").manual_seed(0))
         torch.cuda.synchronize()
         counts = read_counts()
-        if not all(counts[k] for k in TRAIN_KERNELS):
-            raise AssertionError(f"tiny train step skipped a kernel: "
-                                 f"{counts}")
+        if counts != want:
+            raise AssertionError(f"tiny train step {cfg.name} launched "
+                                 f"{counts}, its structure gives {want}")
         for k, v in mc.items():
             torch.testing.assert_close(mg[k].cpu(), v, rtol=1e-4, atol=1e-5)
             worst["loss"] = max(worst["loss"],
@@ -1197,24 +1258,29 @@ def tiny_train(steps: int = 2):
             if not n.endswith("num_batches_tracked"):
                 torch.testing.assert_close(bg.cpu(), bc, rtol=1e-4,
                                            atol=1e-5)
-    emit(dict(phase="tiny_train", steps=steps, launches_last_step=counts,
+    emit(dict(phase="tiny_train", config=cfg.name,
+              code_size=cfg.head.code_size, seeds=[model_seed, batch_seed],
+              steps=steps, launches_last_step=counts,
               lr=lr(0), loss_first=float(mc["loss"]), worst_leaf=worst_leaf,
               **{f"max_{k}_err": v for k, v in worst.items()}))
 
 
-def tiny_end_to_end(cfg):
+def tiny_end_to_end(cfg, patch: bool = True):
     """A tiny config's predict: kernels on the card vs plain versions on
     the CPU, same weights (same seed).  Forward outputs agree within
     rtol = atol = 1e-4 (float32 op order); decoded valid flags exactly and
     scores within 1e-5; labels exactly and boxes within 1e-4 at every valid
     detection whose score is more than 1e-4 from its neighbours' (closer
     scores may swap order).  Points: half of points_cap, x and y uniform
-    1 m inside the range, z in its middle half."""
+    1 m inside the range, z in its middle half.  With `patch` the head
+    takes the patch RoIAlign scaled down (8 cells, 2 fallback slots),
+    else the config's own (roi_patch 0: every RoI by its corners)."""
     import dataclasses
     from srfdet3d_torch.models.detector import SRFDet
     from srfdet3d_torch.models.head import decode_boxes
-    cfg = cfg.replace(head=dataclasses.replace(cfg.head, roi_patch=8,
-                                               roi_patch_fallback=2))
+    if patch:
+        cfg = cfg.replace(head=dataclasses.replace(cfg.head, roi_patch=8,
+                                                   roi_patch_fallback=2))
     rng = np.random.default_rng(0)
     p, dim = cfg.points_cap, cfg.points_dim
     lo, hi = np.array(cfg.pc_range[:3]), np.array(cfg.pc_range[3:])
@@ -1427,9 +1493,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from srfdet3d_torch import set_backend_flags
-    from srfdet3d_torch.configs import (srfdet_voxel_kitti_L,
+    from srfdet3d_torch.configs import (srfdet_dvoxel_nusc_L,
+                                        srfdet_dvoxel_waymo_L,
+                                        srfdet_pillar_nusc_L,
+                                        srfdet_voxel_kitti_L,
                                         srfdet_voxel_nusc_L,
                                         tiny_kitti_test_config,
+                                        tiny_pillar_test_config,
                                         tiny_test_config)
     from srfdet3d_torch.ops import cuda_build
     set_backend_flags()
@@ -1449,6 +1519,9 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     kcfg = srfdet_voxel_kitti_L()
     kbatch = synthetic_batch(kcfg, 1, seed=0)
+    wcfg = srfdet_dvoxel_waymo_L()
+    wbatch = synthetic_batch(wcfg, 1, seed=0)
+    pcfg = srfdet_pillar_nusc_L()
     with torch.no_grad():
         conv_cases, subm_cases = encoder_rulebooks(cfg, batch, dev)
         k1_err, k1 = check_gather_conv(cfg.name, conv_cases, dev, gen)
@@ -1462,13 +1535,23 @@ def main() -> int:
         k1_err = max(k1_err, kitti_err)
         check_eqmatch(kcfg.name, kitti_subm)
         del kitti_cases, kitti_subm
+        # srfdet_dvoxel_waymo_L: 131,072 voxel slots of a 41 x 1536 x 1536
+        # grid (K1's row count, K2's largest plan map)
+        waymo_cases, waymo_subm = encoder_rulebooks(wcfg, wbatch, dev)
+        waymo_err, _ = check_gather_conv(wcfg.name, waymo_cases, dev, gen)
+        k1_err = max(k1_err, waymo_err)
+        check_eqmatch(wcfg.name, waymo_subm)
+        del waymo_cases, waymo_subm
         train_cases, _ = encoder_rulebooks(
             cfg, synthetic_batch(cfg, 2, seed=0), dev)
         bwd = check_conv_bwd(train_cases, dev, gen)
         k5, roi_case = check_roi_bwd(cfg, dev, gen)
+        # K5 at the KITTI head (C 256) and the pillar head (strides 2-16)
+        for c in (kcfg, pcfg):
+            check_roi_bwd(c, dev, gen)
         lookups = table_lookups(table_backend(kcfg), kbatch, dev)
         k6 = check_rulebook_lookup(kcfg.name, lookups)
-        check_rulebook_lookup(
+        flagship_walk = check_rulebook_lookup(
             cfg.name, table_lookups(table_backend(cfg), batch, dev))
         sync_free(next(c for c in train_cases if c[0] == "down2"), roi_case,
                   eq_case, lookups[0], dev, gen)
@@ -1493,12 +1576,46 @@ def main() -> int:
         raise AssertionError(f"KITTI table predict built {builds} hash "
                              f"tables, its walk {k6['builds']}")
     torch.cuda.empty_cache()
-    per_step = flagship_train(cfg, smi)
+    # the flagship on the table backend: 21 K1 and 8 K6 launches, as many
+    # hash builds as its lookup walk made
+    counts, builds = predict_phase(
+        "flagship_table_predict", table_backend(cfg), batch, smi,
+        dict(none, gather_conv=21, rulebook_lookup=8))
+    if builds["key_hash"] != flagship_walk["builds"]:
+        raise AssertionError(f"flagship table predict built {builds} hash "
+                             f"tables, its walk {flagship_walk['builds']}")
+    torch.cuda.empty_cache()
+    dcfg = srfdet_dvoxel_nusc_L()
+    predict_phase("dvoxel_nusc_predict", dcfg, synthetic_batch(dcfg, 1, seed=0),
+                  smi, dict(none, gather_conv=21, eqmatch=4))
+    torch.cuda.empty_cache()
+    predict_phase("dvoxel_waymo_predict", wcfg, wbatch, smi,
+                  dict(none, gather_conv=21, eqmatch=4))
+    torch.cuda.empty_cache()
+    # the pillar path runs no sparse conv: no K1, K2 or K6 launch
+    predict_phase("pillar_predict", pcfg, synthetic_batch(pcfg, 1, seed=0),
+                  smi, none)
+    torch.cuda.empty_cache()
+    per_step = train_phase("flagship_train", cfg, smi)
+    torch.cuda.empty_cache()
+    train_phase("kitti_train", kcfg, smi, warmup=1, steps=5)
+    torch.cuda.empty_cache()
+    train_phase("pillar_train", pcfg, smi, warmup=1, steps=5)
     torch.cuda.empty_cache()
     tiny_end_to_end(tiny_test_config())
     tiny_end_to_end(table_backend(tiny_kitti_test_config()))
     tiny_end_to_end(table_backend(tiny_test_config()))
-    tiny_train()
+    tiny_end_to_end(tiny_pillar_test_config(), patch=False)
+    tiny_train(*tiny_train_setup())
+    tiny_train(*tiny_kitti_train_setup())
+    for phase, c, b in (("flagship", cfg, batch), ("kitti", kcfg, kbatch),
+                        ("kitti_table", table_backend(kcfg), kbatch),
+                        ("flagship_table", table_backend(cfg), batch),
+                        ("dvoxel_nusc", dcfg, synthetic_batch(dcfg, 1)),
+                        ("dvoxel_waymo", wcfg, wbatch),
+                        ("pillar", pcfg, synthetic_batch(pcfg, 1))):
+        predict_busy(f"{phase}_predict_busy", c, b, smi)
+        torch.cuda.empty_cache()
     device = kernel_device_times(cfg, kcfg, batch, kbatch, roi_args, dev,
                                  gen)
     k1.update(device["gather_conv"])

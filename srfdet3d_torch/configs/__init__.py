@@ -1,6 +1,10 @@
-"""The configs the port runs so far, built exactly as the JAX package builds
-them: the flagship LiDAR-only nuScenes model, the KITTI voxel model, and the
-miniature test configs of both families."""
+"""The configs the port runs, built exactly as the JAX package builds them:
+the five LiDAR-only models (the flagship voxel, the pillar and the
+dynamic-voxel nuScenes models, the KITTI voxel model, the Waymo
+dynamic-voxel model) and the miniature test configs of the voxel, KITTI and
+pillar families.  `get_config(name)` resolves them by the JAX package's
+names; the camera (LC) configs need the image branch, which the port does
+not have yet."""
 
 from __future__ import annotations
 
@@ -10,7 +14,11 @@ from ..config import (AugConfig, BackboneConfig, HeadConfig, LossConfig,
                       MiddleConfig, OptimConfig, OTAConfig, SRFDetConfig,
                       TestConfig, VFEConfig)
 
+NUS_CLASSES = ("car", "truck", "construction_vehicle", "bus", "trailer",
+               "barrier", "motorcycle", "bicycle", "pedestrian",
+               "traffic_cone")
 KITTI_CLASSES = ("Pedestrian", "Cyclist", "Car")
+WAYMO_CLASSES = ("Car", "Pedestrian", "Cyclist")
 
 # mmdet3d SparseEncoder defaults (used by the KITTI configs, which do not
 # override encoder_channels; sparse_encoder_custom.py:30-34)
@@ -25,6 +33,77 @@ def srfdet_voxel_nusc_L() -> SRFDetConfig:
     return base.replace(
         head=dataclasses.replace(base.head, roi_patch=32,
                                  roi_patch_fallback=64))
+
+
+def srfdet_pillar_nusc_L() -> SRFDetConfig:
+    """configs/nus/srfdet_pillar_nusc_L.py: PillarFeatureNet on a 512 x 512
+    pillar grid, the pillar scatter, a stride-2 SECOND, max-pool FPN extras
+    (the pillar neck never sets add_extra_convs) and head strides
+    (2, 4, 8, 16)."""
+    pc = (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0)
+    return SRFDetConfig(
+        name="srfdet_pillar_nusc_L",
+        pc_range=pc,
+        voxel_size=(0.2, 0.2, 8.0),
+        out_size_factor=2,
+        max_points_per_voxel=20,
+        voxels_cap=40000,
+        vfe=VFEConfig(kind="pillar", in_channels=5, feat_channels=(64,)),
+        middle=MiddleConfig(kind="pillar_scatter", in_channels=64),
+        backbone=BackboneConfig(out_channels=(64, 128, 256),
+                                layer_nums=(3, 5, 5),
+                                layer_strides=(2, 2, 2)),
+        neck_extra_convs=False,
+        head=HeadConfig(lidar_strides=(2, 4, 8, 16)),
+        test=TestConfig(post_center_range=(
+            -61.2, -61.2, -10.0, 61.2, 61.2, 10.0)),
+        ota=OTAConfig(pc_range=pc))
+
+
+def srfdet_dvoxel_waymo_L() -> SRFDetConfig:
+    """configs/waymo/srfdet_dvoxel_waymo_L.py: dynamic voxelization on a
+    41 x 1536 x 1536 grid, DynamicVFE (5, 5) without the centroid MLP, the
+    basicblock encoder, a 3-class code-8 head."""
+    pc = (-76.8, -76.8, -2.0, 76.8, 76.8, 4.0)
+    return SRFDetConfig(
+        name="srfdet_dvoxel_waymo_L",
+        dataset="waymo",
+        class_names=WAYMO_CLASSES,
+        pc_range=pc,
+        voxel_size=(0.1, 0.1, 0.15),
+        points_cap=262144,
+        points_dim=5,
+        gt_cap=256,
+        max_points_per_voxel=-1,
+        voxels_cap=131072,
+        vfe=VFEConfig(kind="dynamic", in_channels=5, feat_channels=(5, 5),
+                      with_centroid_aware=False),
+        middle=MiddleConfig(kind="sparse", in_channels=5),
+        head=HeadConfig(num_classes=3, code_size=8),
+        ota=OTAConfig(pc_range=pc),
+        loss=LossConfig(code_weights=(1.0,) * 8, num_classes=3),
+        test=TestConfig(post_center_range=(-80.0, -80.0, -10.0, 80.0, 80.0,
+                                           10.0)),
+        optim=OptimConfig(epochs=36, warmup_iters=3000),
+        aug=AugConfig(scale_range=(0.95, 1.05),
+                      trans_std=(0.0, 0.0, 0.0)))
+
+
+def srfdet_dvoxel_nusc_L() -> SRFDetConfig:
+    """configs/others/srfdet_dvoxel_nusc_L.py: the flagship's grid with
+    dynamic voxelization (160k voxel slots), DynamicVFE (5, 5), a 256-channel
+    FPN and head, 6 iterations, dim_feedforward 1024, dynamic_dim 64."""
+    return SRFDetConfig(
+        name="srfdet_dvoxel_nusc_L",
+        max_points_per_voxel=-1,
+        voxels_cap=160000,
+        vfe=VFEConfig(kind="dynamic", in_channels=5, feat_channels=(5, 5),
+                      with_centroid_aware=False),
+        middle=MiddleConfig(kind="sparse", in_channels=5),
+        neck_out_channels=256,
+        head=HeadConfig(feat_channels_lidar=256, num_heads=6,
+                        dim_feedforward=1024, dynamic_dim=64),
+        optim=OptimConfig(batch_size_per_device=4))
 
 
 def tiny_test_config(**overrides) -> SRFDetConfig:
@@ -131,3 +210,54 @@ def tiny_kitti_test_config(**overrides) -> SRFDetConfig:
                         post_center_range=(-2.0, -12.0, -10.0, 22.0, 12.0,
                                            10.0)))
     return cfg.replace(**overrides) if overrides else cfg
+
+
+def tiny_pillar_test_config(**overrides) -> SRFDetConfig:
+    """Miniature pillar config: PillarFeatureNet -> pillar scatter ->
+    stride-2 SECOND -> max-pool FPN extras, head strides (2, 4, 8, 16)."""
+    pc = (-10.0, -10.0, -5.0, 10.0, 10.0, 3.0)
+    cfg = tiny_test_config().replace(
+        name="tiny_pillar",
+        pc_range=pc,
+        voxel_size=(0.25, 0.25, 8.0),     # 80 x 80 x 1 grid
+        out_size_factor=2,
+        max_points_per_voxel=8,
+        voxels_cap=1024,
+        vfe=VFEConfig(kind="pillar", in_channels=5, feat_channels=(32,)),
+        middle=MiddleConfig(kind="pillar_scatter", in_channels=32),
+        backbone=BackboneConfig(out_channels=(32, 32, 64),
+                                layer_nums=(1, 1, 1),
+                                layer_strides=(2, 2, 2)),
+        neck_extra_convs=False,
+        neck_out_channels=32,
+        head=dataclasses.replace(tiny_test_config().head,
+                                 lidar_strides=(2, 4, 8, 16)),
+        ota=OTAConfig(pc_range=pc))
+    return cfg.replace(**overrides) if overrides else cfg
+
+
+CONFIGS = {
+    fn.__name__: fn for fn in (
+        srfdet_voxel_nusc_L, srfdet_pillar_nusc_L, srfdet_voxel_kitti_L,
+        srfdet_dvoxel_waymo_L, srfdet_dvoxel_nusc_L)
+}
+CONFIGS["tiny"] = lambda: tiny_test_config()
+CONFIGS["tiny_kitti"] = lambda: tiny_kitti_test_config()
+CONFIGS["tiny_pillar"] = lambda: tiny_pillar_test_config()
+
+# the shipped configs the port cannot build yet, and the branch each needs
+_NOT_PORTED = dict.fromkeys(
+    ("srfdet_voxel_nusc_LC", "srfdet_voxel_r50_LC", "srfdet_pillar_r50_LC",
+     "srfdet_pillar_v299_LC", "srfdet_voxel_kitti_LC",
+     "srfdet_dvoxel_waymo_LC"),
+    "the LiDAR-camera image branch (image backbone, image FPN and the "
+    "head's fusion path)")
+
+
+def get_config(name: str) -> SRFDetConfig:
+    if name in CONFIGS:
+        return CONFIGS[name]()
+    if name in _NOT_PORTED:
+        raise KeyError(f"config {name!r} is not ported yet: it needs "
+                       f"{_NOT_PORTED[name]}")
+    raise KeyError(f"no config {name!r}; the port has {sorted(CONFIGS)}")

@@ -1,7 +1,8 @@
 """SRFDet detector, LiDAR path (reference models/detectors/srfdet.py).
 
-Voxelization -> VFE (HardSimpleVFE or DynamicVFE) -> sparse encoder ->
-SECOND -> FPN -> SRFDet head.  Input contract, as in the JAX package:
+Voxelization -> VFE (HardSimpleVFE, DynamicVFE or PillarFeatureNet) ->
+middle encoder (the sparse encoder, or the pillar scatter) -> SECOND ->
+FPN -> SRFDet head.  Input contract, as in the JAX package:
 
     batch = {"points": (B, P_cap, D) padded float32 point clouds,
              "points_mask": (B, P_cap) bool}
@@ -30,13 +31,14 @@ from ..ops.voxelize import VoxelizedPoints, voxelize_points_batched
 from .fpn import FPN
 from .head import SRFDetHead, decode_boxes, focal_bias
 from .layers import MaskedBatchNorm
+from .middle import PointPillarsScatter
 from .second import SECOND
 from .sparse_encoder import GatheredConvBN, SparseEncoder, down_pads
-from .vfe import DynamicVFE, HardSimpleVFE
+from .vfe import DynamicVFE, HardSimpleVFE, PillarFeatureNet
 
 # the LiDAR branch that cfg.optim.freeze_lidar freezes
 LIDAR_MODULES = ("pts_voxel_encoder", "pts_middle_encoder", "pts_backbone",
-                 "pts_neck")
+                 "pts_neck")     # a pillar model has no pts_middle_encoder
 
 
 def _flatten_voxelization(vox: VoxelizedPoints, v_cap: int
@@ -60,18 +62,23 @@ def _conv_out_size(n: int, stride: int = 2, pad: int = 1) -> int:
 
 
 def bev_geometry(cfg: SRFDetConfig):
-    """(depth of the encoder's output, the FPN levels' (H, W)): the plan
-    size after the encoder's downsamples, then SECOND's strides and the
-    FPN's stride-2 extra levels (a 3x3 conv with pad 1 and a kernel-1 max
-    pool give the same size)."""
+    """(depth of the middle encoder's output, the FPN levels' (H, W)): the
+    BEV map's size (the pillar grid's (ny, nx), depth 1; or the sparse
+    plan's after the encoder's downsamples and conv_out), then SECOND's
+    strides and the FPN's stride-2 extra levels (a 3x3 conv with pad 1 and
+    a kernel-1 max pool give the same size)."""
     m = cfg.middle
-    d, h, w = cfg.voxelization.sparse_shape
-    for pad in down_pads(m.block_type, m.encoder_channels,
-                         m.encoder_paddings):
-        pz, py, px = (pad,) * 3 if isinstance(pad, int) else pad
-        d = _conv_out_size(d, 2, pz)
-        h, w = _conv_out_size(h, 2, py), _conv_out_size(w, 2, px)
-    d = _conv_out_size(d, 2, 0)
+    if m.kind == "pillar_scatter":
+        nx, ny, _ = cfg.grid_size
+        d, h, w = 1, ny, nx
+    else:
+        d, h, w = cfg.voxelization.sparse_shape
+        for pad in down_pads(m.block_type, m.encoder_channels,
+                             m.encoder_paddings):
+            pz, py, px = (pad,) * 3 if isinstance(pad, int) else pad
+            d = _conv_out_size(d, 2, pz)
+            h, w = _conv_out_size(h, 2, py), _conv_out_size(w, 2, px)
+        d = _conv_out_size(d, 2, 0)
     sizes = []
     for s in cfg.backbone.layer_strides:
         h, w = _conv_out_size(h, s), _conv_out_size(w, s)
@@ -88,15 +95,15 @@ def _check_supported(cfg: SRFDetConfig) -> None:
         unsupported.append("use_img")
     if cfg.compute_dtype != "float32":
         unsupported.append(f"compute_dtype={cfg.compute_dtype}")
-    if cfg.vfe.kind not in ("hard_simple", "dynamic"):
+    if cfg.vfe.kind not in ("hard_simple", "dynamic", "pillar"):
         unsupported.append(f"vfe.kind={cfg.vfe.kind}")
-    if cfg.middle.kind != "sparse":
+    if cfg.middle.kind not in ("sparse", "pillar_scatter"):
         unsupported.append(f"middle.kind={cfg.middle.kind}")
     if not cfg.head.with_dpg or cfg.head.with_lidar_encoder:
         unsupported.append("head: DPG on, no lidar encoder")
     if unsupported:
         raise NotImplementedError(
-            "srfdet3d_torch runs the LiDAR voxel path only; not yet ported: "
+            "srfdet3d_torch runs the LiDAR-only paths; not yet ported: "
             + ", ".join(unsupported))
 
 
@@ -120,16 +127,28 @@ class SRFDet(nn.Module):
                 with_cluster_center=v.with_cluster_center,
                 with_voxel_center=v.with_voxel_center,
                 with_centroid_aware=v.with_centroid_aware)
+        elif v.kind == "pillar":
+            self.pts_voxel_encoder = PillarFeatureNet(
+                spec, v.in_channels, v.feat_channels,
+                with_distance=v.with_distance,
+                with_cluster_center=v.with_cluster_center,
+                with_voxel_center=v.with_voxel_center)
         else:
             self.pts_voxel_encoder = HardSimpleVFE(v.in_channels)
-        self.pts_middle_encoder = SparseEncoder(
-            m.in_channels, spec.sparse_shape, m.base_channels,
-            m.output_channels, m.encoder_channels, m.encoder_paddings,
-            m.capacities, block_type=m.block_type, rulebook=m.rulebook)
-
         d, sizes = bev_geometry(cfg)
+        if m.kind == "pillar_scatter":
+            # parameter-free, and not a JAX module: no pts_middle_encoder
+            nx, ny, _ = cfg.grid_size
+            self.pillar_scatter = PointPillarsScatter((ny, nx))
+            bev_channels = v.feat_channels[-1]
+        else:
+            self.pts_middle_encoder = SparseEncoder(
+                m.in_channels, spec.sparse_shape, m.base_channels,
+                m.output_channels, m.encoder_channels, m.encoder_paddings,
+                m.capacities, block_type=m.block_type, rulebook=m.rulebook)
+            bev_channels = d * m.output_channels
         bb = cfg.backbone
-        self.pts_backbone = SECOND(d * m.output_channels, bb.out_channels,
+        self.pts_backbone = SECOND(bev_channels, bb.out_channels,
                                    bb.layer_nums, bb.layer_strides)
         self.pts_neck = FPN(bb.out_channels, cfg.neck_out_channels,
                             cfg.neck_num_outs,
@@ -156,7 +175,8 @@ class SRFDet(nn.Module):
         super().train(mode)
         if mode and self.cfg.optim.freeze_lidar:
             for name in LIDAR_MODULES:
-                getattr(self, name).eval()
+                if hasattr(self, name):
+                    getattr(self, name).eval()
         return self
 
     @property
@@ -172,6 +192,7 @@ class SRFDet(nn.Module):
         for name, mod in self.named_modules():
             if (isinstance(mod, nn.Linear) and
                     name.startswith("pts_voxel_encoder.")):
+                # DynamicVFE's and the PFN layers' Linears
                 mod.weight.copy_(torch.randn(mod.weight.shape, generator=g)
                                  / math.sqrt(mod.in_features))
             elif isinstance(mod, nn.Linear):
@@ -220,13 +241,23 @@ class SRFDet(nn.Module):
                                        b * v_cap)
         return feats.reshape(b, v_cap, -1), vox
 
+    def middle(self, feats: torch.Tensor, vox: VoxelizedPoints
+               ) -> torch.Tensor:
+        """(B, V_cap, F) voxel features -> the (B, H, W, C') BEV map: the
+        sparse encoder's (C' = D*C, z-major groups) or the pillar
+        scatter's (C' = F, cell y * nx + x)."""
+        if self.cfg.middle.kind == "pillar_scatter":
+            return self.pillar_scatter(feats, vox.voxel_coords,
+                                       vox.voxel_mask)
+        return self.pts_middle_encoder(feats, vox.voxel_coords,
+                                       vox.voxel_mask)
+
     def extract_point_features(self, points: torch.Tensor,
                                points_mask: torch.Tensor
                                ) -> Tuple[torch.Tensor, ...]:
         """(B, P, D) points -> the FPN's NCHW BEV maps."""
         feats, vox = self.voxel_features(points, points_mask)
-        bev = self.pts_middle_encoder(feats, vox.voxel_coords,
-                                      vox.voxel_mask)   # (B, H, W, D*C)
+        bev = self.middle(feats, vox)                   # (B, H, W, C')
         stages = self.pts_backbone(bev.permute(0, 3, 1, 2).contiguous())
         return self.pts_neck(stages)
 

@@ -2,6 +2,11 @@
 
 - HardSimpleVFE (the flagship's, cfg srfdet_voxel_nusc_L.py:70): the mean
   of each voxel's capped points.
+- PillarFeatureNet (the pillar family's, reference
+  pillar_encoder_custom.py:14): cluster-centre and voxel-centre offsets
+  decorate each point; PFN layers of Linear + masked BN + ReLU with a
+  max per pillar, the non-last ones half wide with the gathered-back max
+  concatenated.
 - DynamicVFE (the KITTI family's, reference voxel_encoder.py:11-240):
   cluster-centre offsets (optionally embedded by a Linear-BN-tanh MLP),
   voxel-centre offsets and distance decorate each point; stacked
@@ -52,6 +57,98 @@ class HardSimpleVFE(nn.Module):
         return segment_mean(feats, idx, v_cap)
 
 
+class PFNLayer(nn.Module):
+    """Linear (no bias) -> BN over the valid points -> ReLU -> zero the
+    invalid points -> max per pillar.  A non-last layer is out // 2 wide and
+    also returns its points with the pillar max concatenated."""
+
+    def __init__(self, cin: int, cout: int, last_layer: bool = False):
+        super().__init__()
+        self.last_layer = last_layer
+        units = cout if last_layer else cout // 2
+        self.linear = nn.Linear(cin, units, bias=False)
+        self.bn = MaskedBatchNorm(units)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, idx: torch.Tensor,
+                v_cap: int):
+        """x (N, cin), mask (N,), idx (N,) with v_cap at invalid points ->
+        (pooled (v_cap, units), the next layer's input or None)."""
+        x = F.relu(self.bn(self.linear(x), mask))
+        x = torch.where(mask[:, None], x, 0.0)
+        pooled = segment_max(x, idx, v_cap)
+        if self.last_layer:
+            return pooled, None
+        return pooled, torch.cat([x, _gather_voxel_to_point(pooled, idx)],
+                                 -1)
+
+
+class PillarFeatureNet(nn.Module):
+    """PointPillars pillar encoder; `in_channels` is the width of a point
+    row (the decorations add 3 + 3 + distance)."""
+
+    def __init__(self, spec: VoxelizationSpec, in_channels: int = 4,
+                 feat_channels: Sequence[int] = (64,),
+                 with_distance: bool = False,
+                 with_cluster_center: bool = True,
+                 with_voxel_center: bool = True):
+        super().__init__()
+        self.spec = spec
+        self.with_distance = with_distance
+        self.with_cluster_center = with_cluster_center
+        self.with_voxel_center = with_voxel_center
+        cin = (in_channels + 3 * with_cluster_center + 3 * with_voxel_center
+               + with_distance)
+        n = len(feat_channels)
+        layers = []
+        for i, ch in enumerate(feat_channels):
+            layers.append(PFNLayer(cin, ch, last_layer=i == n - 1))
+            cin = ch            # out // 2 points + out // 2 pillar max
+        self.layers = nn.ModuleList(layers)
+
+    def forward(self, points: torch.Tensor, vox: VoxelizedPoints,
+                v_cap: int) -> torch.Tensor:
+        """points (N, in_channels) flat, vox flat over the batch ->
+        (v_cap, feat_channels[-1])."""
+        mask = vox.point_mask
+        idx = torch.where(mask, vox.point_voxel_idx, v_cap)
+        x = torch.where(mask[:, None], _decorate(self, points, vox, idx,
+                                                 v_cap), 0.0)
+        for layer in self.layers:
+            pooled, x = layer(x, mask, idx, v_cap)
+        return pooled
+
+
+def _voxel_centers(spec: VoxelizationSpec, coords: torch.Tensor
+                   ) -> torch.Tensor:
+    """(V, 3) zyx voxel coords -> (V, 3) xyz centres."""
+    vs, pc = spec.voxel_size, spec.point_cloud_range
+    c = coords.float()
+    return torch.stack([c[:, 2] * vs[0] + vs[0] / 2 + pc[0],
+                        c[:, 1] * vs[1] + vs[1] / 2 + pc[1],
+                        c[:, 0] * vs[2] + vs[2] / 2 + pc[2]], -1)
+
+
+def _decorate(vfe, points, vox, idx, v_cap, cluster_mlp=None):
+    """Each point row with its decorations, in the JAX order: the row,
+    the offset from its voxel's point mean (through cluster_mlp where
+    given), the offset from its voxel's centre, its distance."""
+    mask = vox.point_mask
+    xyz = points[:, :3]
+    feats = [points]
+    if vfe.with_cluster_center:
+        mean_xyz = segment_mean(torch.where(mask[:, None], xyz, 0.0), idx,
+                                v_cap)
+        f_cluster = xyz - _gather_voxel_to_point(mean_xyz, idx)
+        feats.append(f_cluster if cluster_mlp is None
+                     else cluster_mlp(f_cluster, mask))
+    if vfe.with_voxel_center:
+        centers = _voxel_centers(vfe.spec, vox.voxel_coords)
+        feats.append(xyz - _gather_voxel_to_point(centers, idx))
+    if vfe.with_distance:
+        feats.append(torch.linalg.norm(xyz, dim=-1, keepdim=True))
+    return torch.cat(feats, -1)
+
+
 class DynamicVFELayer(nn.Module):
     """Linear (no bias) + BN over the valid points + ReLU."""
 
@@ -97,34 +194,20 @@ class DynamicVFE(nn.Module):
             cin = 2 * ch        # the next layer also reads the voxel max
         self.layers = nn.ModuleList(layers)
 
+    def _centroid_mlp(self, f_cluster: torch.Tensor, mask: torch.Tensor
+                      ) -> torch.Tensor:
+        y = torch.tanh(self.centroid_bn1(self.centroid_fc1(f_cluster), mask))
+        return torch.tanh(self.centroid_bn2(self.centroid_fc2(y), mask))
+
     def forward(self, points: torch.Tensor, vox: VoxelizedPoints,
                 v_cap: int) -> torch.Tensor:
         """points (N, in_channels) flat, vox flat over the batch ->
         (v_cap, feat_channels[-1])."""
         mask = vox.point_mask
         idx = torch.where(mask, vox.point_voxel_idx, v_cap)
-        xyz = points[:, :3]
-        feats = [points]
-        if self.with_cluster_center:
-            mean_xyz = segment_mean(torch.where(mask[:, None], xyz, 0.0), idx,
-                                    v_cap)
-            f_cluster = xyz - _gather_voxel_to_point(mean_xyz, idx)
-            if self.with_centroid_aware:
-                y = torch.tanh(self.centroid_bn1(self.centroid_fc1(f_cluster),
-                                                 mask))
-                f_cluster = torch.tanh(self.centroid_bn2(
-                    self.centroid_fc2(y), mask))
-            feats.append(f_cluster)
-        if self.with_voxel_center:
-            vs, pc = self.spec.voxel_size, self.spec.point_cloud_range
-            c = vox.voxel_coords.float()
-            centers = torch.stack([c[:, 2] * vs[0] + vs[0] / 2 + pc[0],
-                                   c[:, 1] * vs[1] + vs[1] / 2 + pc[1],
-                                   c[:, 0] * vs[2] + vs[2] / 2 + pc[2]], -1)
-            feats.append(xyz - _gather_voxel_to_point(centers, idx))
-        if self.with_distance:
-            feats.append(torch.linalg.norm(xyz, dim=-1, keepdim=True))
-        x = torch.where(mask[:, None], torch.cat(feats, -1), 0.0)
+        mlp = self._centroid_mlp if self.with_centroid_aware else None
+        x = torch.where(mask[:, None],
+                        _decorate(self, points, vox, idx, v_cap, mlp), 0.0)
         for i, layer in enumerate(self.layers):
             x = torch.where(mask[:, None], layer(x, mask), 0.0)
             voxel_feats = segment_max(x, idx, v_cap)

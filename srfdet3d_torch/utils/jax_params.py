@@ -99,9 +99,10 @@ def _map(path, a, n_heads, n_cls):
     """JAX leaf path (collection dropped) -> [(port key, array)]."""
     top = path[0]
     if top == "pts_voxel_encoder":
-        # DynamicVFE: DynamicVFELayer_{i}/{Dense_0, MaskedBatchNorm_0}, and
-        # the centroid-aware MLP's Dense_{0,1} / MaskedBatchNorm_{0,1}
-        m = re.fullmatch(r"DynamicVFELayer_(\d+)", path[1])
+        # DynamicVFE's DynamicVFELayer_{i} and PillarFeatureNet's
+        # PFNLayer_{i}, each {Dense_0, MaskedBatchNorm_0}; the centroid-aware
+        # MLP's Dense_{0,1} / MaskedBatchNorm_{0,1}
+        m = re.fullmatch(r"(?:DynamicVFE|PFN)Layer_(\d+)", path[1])
         if m:
             sub = {"Dense_0": "linear", "MaskedBatchNorm_0": "bn"}[path[2]]
             name, arr = _leaf(path[3], a, sub == "bn")

@@ -168,15 +168,15 @@ def test_srfdet_losses_match_jax():
     jcfg = jconfigs.srfdet_voxel_nusc_L()
     tcfg = tconfigs.srfdet_voxel_nusc_L()
     ref = jax.jit(j_losses, static_argnums=(5, 6, 7))(
-        jnp.asarray(pb), jnp.asarray(pl), jnp.asarray(gt),
+        jnp.asarray(pl), jnp.asarray(pb), jnp.asarray(gt),
         jnp.asarray(labels), jnp.asarray(mask), jcfg.loss, jcfg.ota, 5)
-    got = srfdet_losses(T(pb), T(pl), T(gt), T(labels), T(mask), tcfg.loss,
+    got = srfdet_losses(T(pl), T(pb), T(gt), T(labels), T(mask), tcfg.loss,
                         tcfg.ota, decoder_num_heads=5)
     assert sorted(got) == sorted(ref)
     for k in ref:
         _close(got[k], ref[k])
     with pytest.raises(NotImplementedError):
-        srfdet_losses(T(pb), T(pl), T(gt), T(labels), T(mask),
+        srfdet_losses(T(pl), T(pb), T(gt), T(labels), T(mask),
                       dataclasses.replace(tcfg.loss, assigner="hungarian"),
                       tcfg.ota)
 

@@ -103,7 +103,8 @@ def test_port_imports_no_jax():
         "('jax', 'jaxlib', 'flax', 'srfdet3d_tpu')]\n"
         "assert not bad, bad\n"
         "need = ['assign.ota', 'models.losses', 'ops.focal_loss', "
-        "'ops.gather_conv_bwd', 'ops.roi_scatter', 'train.trainer']\n"
+        "'ops.gather_conv_bwd', 'ops.roi_scatter', 'train.trainer', "
+        "'models.middle', 'configs']\n"
         "missed = [n for n in need if 'srfdet3d_torch.' + n not in "
         "sys.modules]\n"
         "assert not missed, missed\n"

@@ -1,0 +1,250 @@
+"""Shared helpers of the port's parity tests (JAX package vs PyTorch port):
+seeded numpy weight trees for a JAX model's variables, and one whole train
+step on both sides on the same weights and batch."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+import __graft_entry__ as graft
+from srfdet3d_tpu.models.detector import SRFDet as JSRFDet
+from srfdet3d_tpu.models.losses import srfdet_losses as j_losses
+from srfdet3d_tpu.train.trainer import make_optimizer as j_optimizer
+from srfdet3d_torch.models.detector import SRFDet
+from srfdet3d_torch.train.trainer import (make_lr_schedule, make_optimizer,
+                                          train_step)
+from srfdet3d_torch.utils.jax_params import jax_state_dict, load_jax_params
+
+T = torch.from_numpy
+
+
+def random_variables(shapes, seed):
+    """Seeded numpy weights for every leaf of a JAX variable tree."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, s):
+        keys = [k.key for k in path]
+        name = keys[-1]
+        if name == "var":
+            return rng.uniform(0.5, 1.5, s.shape)
+        if name in ("mean", "bias"):
+            return rng.normal(0, 0.1, s.shape)
+        if name == "scale":
+            return rng.uniform(0.8, 1.2, s.shape)
+        if name.startswith("init_proposal"):
+            return rng.normal(0, 1, s.shape)
+        lead = 1 if "head_series" in keys else 0
+        fan_in = np.prod(s.shape[lead:-1])
+        return rng.normal(0, 1 / np.sqrt(fan_in), s.shape)
+    return jax.tree_util.tree_map_with_path(
+        lambda p, s: np.asarray(leaf(p, s), np.float32), shapes)
+
+
+def model_shapes(jcfg, batch_size=1):
+    """The JAX SRFDet's variable shapes (jax.eval_shape, no init)."""
+    p = jcfg.points_cap
+    batch = {"points": jax.ShapeDtypeStruct((batch_size, p, jcfg.points_dim),
+                                            jnp.float32),
+             "points_mask": jax.ShapeDtypeStruct((batch_size, p), jnp.bool_)}
+    return jax.eval_shape(
+        lambda r, b: JSRFDet(jcfg).init(r, b, train=False),
+        jax.random.PRNGKey(0), batch)
+
+
+def param_count(tree) -> int:
+    return sum(int(np.prod(s.shape))
+               for s in jax.tree_util.tree_leaves(tree["params"]))
+
+
+def jax_train_step(jcfg, batch_size, batch_seed, weight_seed, total=100):
+    """JAX side of one train step (dropout as configured, rng key 0): the
+    batch (numpy), the weights, the losses, the grads, the parameters after
+    one AdamW update, the new BN statistics and the grads' global norm."""
+    batch = {k: np.array(v) for k, v in graft._synthetic_batch(
+        jcfg, batch_size, with_gt=True, seed=batch_seed).items()}
+    model = JSRFDet(jcfg)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    shapes = jax.eval_shape(lambda r, b: model.init(r, b, train=False),
+                            jax.random.PRNGKey(0), jb)
+    variables = random_variables(shapes, weight_seed)
+    tx = j_optimizer(jcfg, total)
+
+    def loss_fn(params, batch_stats):
+        (logits, boxes), upd = model.apply(
+            {"params": params, "batch_stats": batch_stats}, jb, train=True,
+            mutable=["batch_stats"],
+            rngs={"dropout": jax.random.PRNGKey(0)})
+        losses = j_losses(logits, boxes, jb["gt_boxes"], jb["gt_labels"],
+                          jb["gt_mask"], jcfg.loss, jcfg.ota,
+                          decoder_num_heads=jcfg.head.num_heads)
+        return sum(losses.values()), (losses, upd["batch_stats"])
+
+    @jax.jit
+    def step(params, batch_stats):
+        (total_loss, (losses, new_bs)), grads = jax.value_and_grad(
+            loss_fn, has_aux=True)(params, batch_stats)
+        upd, _ = tx.update(grads, tx.init(params), params)
+        return (total_loss, losses, grads, optax.apply_updates(params, upd),
+                new_bs, optax.global_norm(grads))
+
+    out = jax.device_get(step(variables["params"], variables["batch_stats"]))
+    return batch, variables, out
+
+
+def check_train_step(tcfg, batch, variables, out, total=100):
+    """The port's train step on the JAX step's weights and batch, held as
+    test_torch_port_train.py holds the tiny flagship's: losses within 1e-5
+    relative, every grad within 2e-4 of its leaf's largest (2e-10 of the
+    tree's largest where that is more; the attention key biases, whose
+    grad is zero up to rounding, each side within 1e-9 of it), the
+    parameters after AdamW within 1e-6 where the grad is resolved and
+    within 2 lr elsewhere, the BN statistics within rtol 1e-4 + atol
+    1e-5.  Returns the worst grad error over its leaf's largest."""
+    total_loss, losses, grads, new_params, new_bs, gnorm = out
+    hc = tcfg.head
+    port = SRFDet(tcfg, device="cpu")
+    load_jax_params(port, variables)
+    opt = make_optimizer(port, tcfg, total)
+    metrics = train_step(port, opt, {k: T(v) for k, v in batch.items()},
+                         torch.Generator().manual_seed(0))
+    assert sorted(k for k in metrics if k.startswith(("loss", "s."))) == \
+        sorted(list(losses) + ["loss"])
+    for k, v in losses.items():
+        np.testing.assert_allclose(float(metrics[k]), float(v), rtol=1e-5,
+                                   atol=1e-6, err_msg=k)
+    np.testing.assert_allclose(float(metrics["loss"]), float(total_loss),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(metrics["grad_norm"]), float(gnorm),
+                               rtol=1e-4)
+    jgrad = jax_state_dict({"params": grads}, hc.num_heads, hc.num_cls_convs)
+    params = dict(port.named_parameters())
+    assert set(jgrad) == set(params)
+    tols, worst = {}, 0.0
+    tree_max = max(float(np.abs(g).max()) for g in jgrad.values())
+    for name, ref in jgrad.items():
+        got = params[name].grad
+        assert got is not None, name
+        if name.endswith("k_proj.bias"):
+            # zero but for rounding on both sides: the softmax ignores a
+            # shift along the keys
+            for g in (got.numpy(), ref):
+                assert float(np.abs(g).max()) <= 1e-9 * tree_max, name
+            tols[name] = np.inf       # its update: noise, within 2 lr
+            continue
+        scale = max(float(np.abs(ref).max()), 1e-6 * tree_max)
+        tols[name] = 2e-4 * scale
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                                   atol=tols[name], err_msg=name)
+        worst = max(worst, float(np.abs(got.numpy() - ref).max()) / scale)
+    lr0 = make_lr_schedule(tcfg.optim, total)(0)
+    after = jax_state_dict({"params": new_params, "batch_stats": new_bs},
+                           hc.num_heads, hc.num_cls_convs)
+    state = {k: v for k, v in port.state_dict().items()
+             if not k.endswith("num_batches_tracked")}
+    assert set(after) == set(state)
+    for name, ref in after.items():
+        got = state[name].numpy()
+        if name in jgrad:
+            resolved = np.abs(jgrad[name]) > tols[name]
+            np.testing.assert_allclose(got[resolved], ref[resolved],
+                                       rtol=0, atol=1e-6, err_msg=name)
+            np.testing.assert_allclose(got, ref, rtol=0, atol=2 * lr0 + 1e-6,
+                                       err_msg=name)
+        else:                                          # BN statistics
+            np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-5,
+                                       err_msg=name)
+    return worst
+
+
+def uniform_points(cfg, batch_size, seed):
+    """Half of points_cap real points, uniform in the range."""
+    rng = np.random.default_rng(seed)
+    p = cfg.points_cap
+    n = p // 2
+    pts = np.zeros((batch_size, p, cfg.points_dim), np.float32)
+    lo, hi = np.array(cfg.pc_range[:3]), np.array(cfg.pc_range[3:])
+    pts[:, :n, :3] = rng.uniform(lo, hi, (batch_size, n, 3))
+    pts[:, :n, 3:] = rng.uniform(0, 1, (batch_size, n, cfg.points_dim - 3))
+    mask = np.zeros((batch_size, p), bool)
+    mask[:, :n] = True
+    return pts, mask
+
+
+def check_predict(jcfg, tcfg, batch_size=2, points_seed=0, weight_seed=12):
+    """JAX SRFDet.predict against the port's on the same points and the
+    same seeded weights (class biases zeroed, so scores spread over (0, 1)
+    and decoding has work): forward logits and boxes within 1e-4, decoded
+    scores within 1e-5 and boxes within 1e-4 (float32 op order); labels and
+    valid flags (the NMS keep sets) exactly.  Returns the port's decode."""
+    pts, mask = uniform_points(tcfg, batch_size, points_seed)
+    model = JSRFDet(jcfg)
+    jbatch = {"points": jnp.asarray(pts), "points_mask": jnp.asarray(mask)}
+    shapes = jax.eval_shape(lambda r, b: model.init(r, b, train=False),
+                            jax.random.PRNGKey(0), jbatch)
+    variables = random_variables(shapes, weight_seed)
+    head = variables["params"]["bbox_head"]["head_series"]["single_head"]
+    head["class_logits"]["bias"][:] = 0.0
+
+    @jax.jit
+    def run(v, b):
+        logits, boxes = model.apply(v, b, train=False)
+        return logits, boxes, model.apply(v, b, method=JSRFDet.predict)
+
+    j_logits, j_boxes, j_out = jax.device_get(run(variables, jbatch))
+    port = SRFDet(tcfg, device="cpu")
+    load_jax_params(port, variables)
+    batch = {"points": T(pts), "points_mask": T(mask)}
+    with torch.no_grad():
+        t_logits, t_boxes = port(batch)
+    t_out = port.predict(batch)
+    hc = tcfg.head
+    assert t_boxes.shape == (hc.num_heads, batch_size, hc.num_proposals,
+                             hc.code_size)
+    np.testing.assert_allclose(t_logits.numpy(), j_logits, rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(t_boxes.numpy(), j_boxes, rtol=1e-4,
+                               atol=1e-4)
+    for k in ("labels", "valid"):
+        np.testing.assert_array_equal(t_out[k].numpy(), np.asarray(j_out[k]))
+    np.testing.assert_allclose(t_out["scores"].numpy(), j_out["scores"],
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(t_out["boxes"].numpy(), j_out["boxes"],
+                               rtol=1e-4, atol=1e-4)
+    assert t_out["valid"].sum() > 0
+    return t_out
+
+
+def check_bridge(tcfg, shapes, n_params=None):
+    """Zero weights of every JAX leaf through load_jax_params: each JAX
+    leaf consumed once (the head's stacked leaves split per iteration),
+    every port tensor set, the parameter counts equal (and equal to
+    n_params where given); a stray JAX leaf and a missing one raise."""
+    variables = jax.tree_util.tree_map(
+        lambda s: np.zeros(s.shape, s.dtype), shapes)
+    n_leaves = len(jax.tree_util.tree_leaves(variables))
+    hc = tcfg.head
+    state = jax_state_dict(variables, hc.num_heads, hc.num_cls_convs)
+    stacked = len(jax.tree_util.tree_leaves(
+        variables["params"]["bbox_head"]["head_series"]))
+    assert len(state) == n_leaves + stacked * (hc.num_heads - 1)
+    port = SRFDet(tcfg, device="cpu")
+    load_jax_params(port, variables)         # raises on unset port tensors
+    for p in port.parameters():
+        assert float(p.detach().abs().max()) == 0.0
+    n_port = sum(p.numel() for p in port.parameters())
+    assert n_port == param_count(shapes)
+    if n_params is not None:
+        assert n_port == n_params
+    broken = jax.tree_util.tree_map(lambda a: a, variables)
+    broken["params"]["pts_voxel_encoder"]["Dense_7"] = {
+        "kernel": np.zeros((3, 4), np.float32)}
+    with pytest.raises(KeyError):
+        load_jax_params(port, broken)
+    short = jax.tree_util.tree_map(lambda a: a, variables)
+    del short["batch_stats"]["pts_voxel_encoder"]
+    with pytest.raises(KeyError):
+        load_jax_params(port, short)
+    return port
