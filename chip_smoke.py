@@ -60,6 +60,15 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    predict line also counts the preparations beside the launches
    (builds: K2's plan maps, 4 a bitmap predict; K6's hash tables, 4 a
    table predict, as many as its lookup walk in phase 7 built);
+   then the six LC configs (nusc_lc_predict, r50_lc_predict,
+   kitti_lc_predict, waymo_lc_predict, pillar_r50_lc_predict,
+   pillar_v299_lc_predict) at full width, batch 1, on the synthetic scene
+   with seeded N(0, 1) images of the config's cameras and size and a
+   seeded surround rig of pinholes as lidar2img (camera_rig); Waymo LC
+   with seeded non-zero DCNv2 offset convs; their parts add the image
+   backbone and the image neck, and the two configs with an image-RoI
+   cap print the pairs each camera keeps against it in every head
+   iteration (*_visible_pairs);
 10. train steps at full width, batch 2 with synthetic GT (7 columns at
    code size 8), dropout as configured: the flagship (flagship_train),
    srfdet_voxel_kitti_L (kitti_train: K1-K5 on the conv_module layout)
@@ -71,11 +80,13 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    kernels that took most of it);
 11. tiny predicts (tiny_test_config; tiny_kitti_test_config and
    tiny_test_config with middle.rulebook="table"; tiny_pillar_test_config
-   with its own corner RoIAlign), and 12. two tiny train steps each of
+   with its own corner RoIAlign; two tiny LC configs: VoVNet-19-slim on
+   2 cameras, and a caffe ResNet-50 with DCNv2 in stages 3-4 and a BN
+   neck), and 12. two tiny train steps each of
    tiny_test_config and of tiny_kitti_test_config (code size 8), with the
    kernels on the card against the same weights on the CPU with the plain
-   versions; then one profiled predict of each full-width predict config
-   (*_predict_busy: device busy time and share);
+   versions; then one profiled predict of each full-width predict config,
+   the LC ones included (*_predict_busy: device busy time and share);
 13. kernel device times, measured after every end-to-end phase: every K1
    conv (flagship and KITTI) and every K3 / K4 conv, one line each: the
    kernels' own device time from torch.profiler (kernel_device_ms; for K4
@@ -91,7 +102,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    the gather-GEMM kernels K1, K3 and K4 also carry tc_bound_ms (equal
    to their bound_ms), simt_bound_ms and device_ms (profiler), K5
    device_ms, K2 and K6 device_ms, host_ms (a wrapper call's, summed),
-   prep_ms and prep_device_ms (plan maps, hash builds) and builds.
+   prep_ms and prep_device_ms (plan maps, hash builds) and builds; every
+   kernel also carries lc_launches, its launches in each LC predict.
 
 The second-to-last line is nvidia-smi's name and power limit; the last line
 is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -197,6 +209,68 @@ def synthetic_batch(cfg, b: int = 1, seed: int = 0, with_gt: bool = False):
         gmask[:, :min(8, g)] = True
         batch["gt_boxes"], batch["gt_mask"] = gt, gmask
     return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def camera_rig(cfg, b: int = 1, seed: int = 0) -> np.ndarray:
+    """(b, n_cam, 4, 4) float32 lidar2img of a seeded surround rig: n_cam
+    pinholes evenly spaced in yaw (camera k looks along 2 pi k / n_cam, +-2
+    degrees), nuScenes' field of view (f = 1266 px at 1600 px wide, scaled
+    with the config's image width; the principal point at the image
+    centre), mounted 1.5 m above the ground with the LiDAR at 1.84 m (z =
+    -0.34 in the LiDAR frame), +-5 cm."""
+    rng = np.random.default_rng(seed)
+    h, w = cfg.img.img_shape
+    n = cfg.img.num_cams
+    f = 1266.0 * w / 1600.0
+    k = np.array([[f, 0, w / 2, 0], [0, f, h / 2, 0], [0, 0, 1, 0],
+                  [0, 0, 0, 1]])
+    out = np.zeros((b, n, 4, 4), np.float32)
+    for i in range(b):
+        for cam in range(n):
+            yaw = 2 * np.pi * cam / n + np.deg2rad(rng.uniform(-2, 2))
+            pos = np.array([0.0, 0.0, -0.34]) + rng.uniform(-0.05, 0.05, 3)
+            # camera axes in the LiDAR frame: x right, y down, z forward
+            rot = np.array([[np.sin(yaw), -np.cos(yaw), 0.0],
+                            [0.0, 0.0, -1.0],
+                            [np.cos(yaw), np.sin(yaw), 0.0]])
+            ext = np.eye(4)
+            ext[:3, :3], ext[:3, 3] = rot, -rot @ pos
+            out[i, cam] = k @ ext
+    return out
+
+
+def lc_batch(cfg, b: int = 1, seed: int = 0):
+    """synthetic_batch with the cameras of an LC config: seeded N(0, 1)
+    images (b, n_cam, H, W, 3), as the normalized images of a batch, and
+    camera_rig's lidar2img."""
+    batch = synthetic_batch(cfg, b, seed)
+    rng = np.random.default_rng(seed + 1)
+    h, w = cfg.img.img_shape
+    images = rng.standard_normal((b, cfg.img.num_cams, h, w, 3),
+                                 dtype=np.float32)
+    batch["images"] = torch.from_numpy(images)
+    batch["lidar2img"] = torch.from_numpy(camera_rig(cfg, b, seed))
+    return batch
+
+
+def seed_dcn_offsets(model, seed: int = 0) -> int:
+    """Seeded non-zero weights in every DCNv2 offset conv (the port starts
+    them at zero, a plain conv): offsets of about a pixel, so the taps are
+    fractional and some fall outside the image.  Returns the count."""
+    from srfdet3d_torch.models.deform_conv import ModulatedDeformConv
+    g = torch.Generator().manual_seed(seed)
+    n = 0
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, ModulatedDeformConv):
+                conv = mod.conv_offset
+                fan_in = conv.weight[0].numel()
+                conv.weight.copy_(torch.randn(conv.weight.shape, generator=g)
+                                  / math.sqrt(fan_in))
+                conv.bias.copy_(0.1 * torch.randn(conv.bias.shape,
+                                                  generator=g))
+                n += 1
+    return n
 
 
 def encoder_rulebooks(cfg, batch, dev):
@@ -870,15 +944,20 @@ def predict_builds(model):
                 key_hash=0 if bitmap else stages)
 
 
-def predict_phase(phase, cfg, batch, smi, expect):
+def predict_phase(phase, cfg, batch, smi, expect, prepare=None):
     """One config's predict at full width, batch 1: launch counts against
-    `expect`, finite outputs, p50 over 20 predicts, peak memory, decode
-    with score_thr=0, then the parts.  Returns the counts and the
-    preparations (read_builds), which must equal predict_builds."""
+    `expect` and the model's structure, finite outputs, p50 over 20
+    predicts, peak memory, decode with score_thr=0, then the parts (and on
+    an LC model with an image-RoI cap, the visible pairs a camera against
+    it).  `prepare(model)` edits the seeded model first.  Returns the
+    counts and the preparations (read_builds), which must equal
+    predict_builds."""
     from srfdet3d_torch.geometry import iou
     from srfdet3d_torch.models.detector import SRFDet
     from srfdet3d_torch.models.head import decode_boxes
     model = SRFDet(cfg, device="cuda", seed=0)
+    if prepare is not None:
+        prepare(model)
     dev_batch = {k: v.cuda() for k, v in batch.items()}
     torch.cuda.synchronize()
     reset_counts()
@@ -886,9 +965,10 @@ def predict_phase(phase, cfg, batch, smi, expect):
     torch.cuda.synchronize()
     counts, builds = read_counts(), read_builds()
     predict_sweeps = iou.last_nms_sweeps
-    if counts != expect:
+    if counts != expect or counts != predict_launches(model):
         raise AssertionError(f"{phase} launched {counts}, expected "
-                             f"{expect}")
+                             f"{expect}, its structure gives "
+                             f"{predict_launches(model)}")
     if builds != predict_builds(model):
         raise AssertionError(f"{phase} built {builds}, its structure gives "
                              f"{predict_builds(model)}")
@@ -943,7 +1023,42 @@ def predict_phase(phase, cfg, batch, smi, expect):
               full_nms_decode_p50_ms=statistics.median(decode_ms),
               peak_mem_bytes=peak, device=smi))
     predict_parts(phase.replace("predict", "parts"), model, dev_batch, smi)
+    if cfg.use_img and cfg.head.img_roi_cap:
+        visible_pairs(phase.replace("predict", "visible_pairs"), model,
+                      dev_batch, smi)
     return counts, builds
+
+
+@torch.no_grad()
+def visible_pairs(phase, model, batch, smi):
+    """The image RoIs each camera keeps against img_roi_cap, in every
+    head iteration of one predict: visible_pair_counts of the boxes each
+    iteration pools (the DPG's proposals, then each iteration's output),
+    their largest, and the pairs the cap dropped."""
+    from srfdet3d_torch.models.head import (denormalize_centers,
+                                            img_rois_from_boxes,
+                                            visible_pair_counts)
+    cfg, head = model.cfg, model.bbox_head
+    points, mask = model._inputs(batch)
+    maps = model.extract_point_features(points, mask)
+    img_maps = head.image_maps(model.extract_img_features(
+        model.image_tensor(batch)))
+    boxes0, _ = head.init_proposals(maps, img_maps)
+    _, boxes = model(batch)
+    l2i = batch["lidar2img"].float()
+    strides = cfg.head.img_strides
+    cap = cfg.head.img_roi_cap
+    counts = []
+    for b in [denormalize_centers(boxes0, cfg.pc_range)] + list(boxes[:-1]):
+        counts.append(visible_pair_counts(
+            img_rois_from_boxes(b, l2i), cfg.img.img_shape,
+            strides)[0].tolist())
+    dropped = sum(max(c - cap, 0) for it in counts for c in it)
+    emit(dict(phase=phase, config=cfg.name, img_roi_cap=cap,
+              proposals=cfg.head.num_proposals,
+              visible_per_camera=counts,
+              max_visible=max(max(it) for it in counts),
+              dropped_pairs=dropped, device=smi))
 
 
 def predict_parts(phase, model, batch, smi, runs: int = 5):
@@ -952,6 +1067,7 @@ def predict_parts(phase, model, batch, smi, runs: int = 5):
     from srfdet3d_torch.models.head import decode_boxes
     t = model.cfg.test
     points, mask = model._inputs(batch)
+    use_img = model.cfg.use_img
 
     def run():
         feats, vox = model.voxel_features(points, mask)
@@ -962,7 +1078,14 @@ def predict_parts(phase, model, batch, smi, runs: int = 5):
         maps = model.pts_neck(model.pts_backbone(
             bev.permute(0, 3, 1, 2).contiguous()))
         yield "second_fpn"
-        logits, boxes = model.bbox_head(maps)
+        img_feats = l2i = None
+        if use_img:
+            stages = model.img_backbone(model.image_tensor(batch))
+            yield "img_backbone"
+            img_feats = model.img_neck(stages)
+            l2i = batch["lidar2img"].float()
+            yield "img_neck"
+        logits, boxes = model.bbox_head(maps, None, img_feats, l2i)
         yield "head"
         decode_boxes(logits[-1], boxes[-1], nms_thr=t.nms_thr,
                      score_thr=t.score_thr, max_per_img=t.max_per_img,
@@ -988,13 +1111,15 @@ def predict_parts(phase, model, batch, smi, runs: int = 5):
               peak_mem_bytes=peak))
 
 
-def predict_busy(phase, cfg, batch, smi):
+def predict_busy(phase, cfg, batch, smi, prepare=None):
     """One predict of a fresh model (seed 0, after one warm-up predict)
     under torch.profiler: host ms, device busy ms and share, top kernels.
     Run after every end-to-end timing, so no profiler run precedes a
     p50."""
     from srfdet3d_torch.models.detector import SRFDet
     model = SRFDet(cfg, device="cuda", seed=0)
+    if prepare is not None:
+        prepare(model)
     dev_batch = {k: v.cuda() for k, v in batch.items()}
     model.predict(dev_batch)
     emit(dict(phase=phase, config=cfg.name, rulebook=cfg.middle.rulebook,
@@ -1265,7 +1390,8 @@ def tiny_train(cfg, model_seed: int, batch_seed: int, steps: int = 2):
               **{f"max_{k}_err": v for k, v in worst.items()}))
 
 
-def tiny_end_to_end(cfg, patch: bool = True):
+def tiny_end_to_end(cfg, patch: bool = True, prepare=None,
+                    seed: int = 3):
     """A tiny config's predict: kernels on the card vs plain versions on
     the CPU, same weights (same seed).  Forward outputs agree within
     rtol = atol = 1e-4 (float32 op order); decoded valid flags exactly and
@@ -1274,7 +1400,10 @@ def tiny_end_to_end(cfg, patch: bool = True):
     scores may swap order).  Points: half of points_cap, x and y uniform
     1 m inside the range, z in its middle half.  With `patch` the head
     takes the patch RoIAlign scaled down (8 cells, 2 fallback slots),
-    else the config's own (roi_patch 0: every RoI by its corners)."""
+    else the config's own (roi_patch 0: every RoI by its corners).  An LC
+    config also gets lc_batch's images and camera rig (seed 0);
+    `prepare(model)` edits the CPU model's seeded weights (model `seed`)
+    before the card's model copies them."""
     import dataclasses
     from srfdet3d_torch.models.detector import SRFDet
     from srfdet3d_torch.models.head import decode_boxes
@@ -1293,12 +1422,17 @@ def tiny_end_to_end(cfg, patch: bool = True):
     mask[:, :p // 2] = True
     batch = {"points": torch.from_numpy(pts),
              "points_mask": torch.from_numpy(mask)}
-    cpu = SRFDet(cfg, device="cpu", seed=3)
+    if cfg.use_img:
+        cams = lc_batch(cfg, 2, seed=0)
+        batch.update(images=cams["images"], lidar2img=cams["lidar2img"])
+    cpu = SRFDet(cfg, device="cpu", seed=seed)
+    if prepare is not None:
+        prepare(cpu)
     # zero class biases: scores spread over (0, 1) instead of bunching at
     # the 0.01 prior, so decoding and NMS have real work to compare
     for head in cpu.bbox_head.heads:
         head.class_logits.bias.data.zero_()
-    gpu = SRFDet(cfg, device="cuda", seed=3)
+    gpu = SRFDet(cfg, device="cuda", seed=seed)
     gpu.load_state_dict(cpu.state_dict())
     reset_counts()
     with torch.no_grad():
@@ -1339,8 +1473,9 @@ def tiny_end_to_end(cfg, patch: bool = True):
                                    dc["boxes"][stable], rtol=1e-4, atol=1e-4)
         worst[f"valid_at_thr_{thr}"] = int(dc["valid"].sum())
     emit(dict(phase="tiny_end_to_end", config=cfg.name,
-              rulebook=cfg.middle.rulebook, launches=counts,
-              forward_max_abs_err=ferr, **worst))
+              rulebook=cfg.middle.rulebook,
+              image_backbone=cfg.img.backbone if cfg.use_img else None,
+              launches=counts, forward_max_abs_err=ferr, **worst))
 
 
 def table_backend(cfg):
@@ -1470,6 +1605,56 @@ def kernel_device_times(cfg, kcfg, batch, kbatch, roi_args, dev, gen):
     return sums
 
 
+# the LC predict phases: (phase, config, the launches its LiDAR branch's
+# structure gives; the image branch launches none of the six kernels)
+LC_PHASES = (
+    ("nusc_lc_predict", "srfdet_voxel_nusc_LC",
+     dict(gather_conv=21, eqmatch=4)),
+    ("r50_lc_predict", "srfdet_voxel_r50_LC",
+     dict(gather_conv=21, eqmatch=4)),
+    ("kitti_lc_predict", "srfdet_voxel_kitti_LC",
+     dict(gather_conv=12, eqmatch=4)),
+    ("waymo_lc_predict", "srfdet_dvoxel_waymo_LC",
+     dict(gather_conv=21, eqmatch=4)),
+    ("pillar_r50_lc_predict", "srfdet_pillar_r50_LC", {}),
+    ("pillar_v299_lc_predict", "srfdet_pillar_v299_LC", {}),
+)
+
+
+# the tiny LC predicts' model seeds: with seed 3 the ResNet model's decode
+# has two score pairs within 1e-4 (2 of 16 detections a sample whose order
+# may swap, under the 90% the decode check compares by order); seed 4's
+# scores are apart
+TINY_LC_SEEDS = (3, 4)
+
+
+def tiny_lc_configs():
+    """The tiny LC configs held card against CPU: VoVNet-19-slim on 2
+    cameras (a 64-channel plain image neck reduced to the head's 32 by
+    img_conv, every camera-proposal pair pooled), and a caffe ResNet-50
+    with DCNv2 in stages 3-4 and a 32-channel BN + ReLU neck (no img_conv,
+    8 image-RoI slots a camera); 64 x 128 images."""
+    import dataclasses
+    from srfdet3d_torch.config import ImgBranchConfig
+    from srfdet3d_torch.configs import tiny_test_config
+    base = tiny_test_config()
+    vov = base.replace(
+        name="tiny_lc_vovnet", use_img=True,
+        img=ImgBranchConfig(backbone="vovnet-19-slim", num_cams=2,
+                            neck_out_channels=64, img_shape=(64, 128)),
+        head=dataclasses.replace(base.head, feat_channels_img=64))
+    r50 = base.replace(
+        name="tiny_lc_r50_dcn", use_img=True,
+        img=ImgBranchConfig(backbone="resnet-50", num_cams=2,
+                            neck_out_channels=32, neck_norm=True,
+                            resnet_style="caffe",
+                            stage_with_dcn=(False, False, True, True),
+                            img_shape=(64, 128)),
+        head=dataclasses.replace(base.head, feat_channels_img=32,
+                                 img_roi_cap=8))
+    return vov, r50
+
+
 def kernel_entry(name, source, replaces, launches, t, max_err):
     bound_by = t.get("bound_by") or (
         "operations" if t["ops_bound_ms"] >= t["bytes_bound_ms"]
@@ -1482,7 +1667,7 @@ def kernel_entry(name, source, replaces, launches, t, max_err):
     # bound_ms), the bound of the earlier SIMT kernels and their kernel-only
     # device time
     for key in ("tc_bound_ms", "simt_bound_ms", "device_ms", "host_ms",
-                "prep_ms", "prep_device_ms", "builds"):
+                "prep_ms", "prep_device_ms", "builds", "lc_launches"):
         if key in t:
             entry[key] = t[key]
     return entry
@@ -1501,6 +1686,7 @@ def main() -> int:
                                         tiny_kitti_test_config,
                                         tiny_pillar_test_config,
                                         tiny_test_config)
+    from srfdet3d_torch.configs import CONFIGS
     from srfdet3d_torch.ops import cuda_build
     set_backend_flags()
     smi = nvidia_smi()
@@ -1596,6 +1782,17 @@ def main() -> int:
     predict_phase("pillar_predict", pcfg, synthetic_batch(pcfg, 1, seed=0),
                   smi, none)
     torch.cuda.empty_cache()
+    # the six LC configs at full width: their LiDAR branches launch what
+    # their LiDAR-only twins do (the image branch runs no TPU kernel's
+    # port); Waymo LC with seeded non-zero DCNv2 offsets
+    lc_launches = {}
+    for phase, name, expect in LC_PHASES:
+        c = CONFIGS[name]()
+        counts, _ = predict_phase(phase, c, lc_batch(c, 1, seed=0), smi,
+                                  dict(none, **expect),
+                                  prepare=seed_dcn_offsets)
+        lc_launches[phase] = counts
+        torch.cuda.empty_cache()
     per_step = train_phase("flagship_train", cfg, smi)
     torch.cuda.empty_cache()
     train_phase("kitti_train", kcfg, smi, warmup=1, steps=5)
@@ -1606,6 +1803,8 @@ def main() -> int:
     tiny_end_to_end(table_backend(tiny_kitti_test_config()))
     tiny_end_to_end(table_backend(tiny_test_config()))
     tiny_end_to_end(tiny_pillar_test_config(), patch=False)
+    for c, seed in zip(tiny_lc_configs(), TINY_LC_SEEDS):
+        tiny_end_to_end(c, prepare=seed_dcn_offsets, seed=seed)
     tiny_train(*tiny_train_setup())
     tiny_train(*tiny_kitti_train_setup())
     for phase, c, b in (("flagship", cfg, batch), ("kitti", kcfg, kbatch),
@@ -1615,6 +1814,11 @@ def main() -> int:
                         ("dvoxel_waymo", wcfg, wbatch),
                         ("pillar", pcfg, synthetic_batch(pcfg, 1))):
         predict_busy(f"{phase}_predict_busy", c, b, smi)
+        torch.cuda.empty_cache()
+    for phase, name, _ in LC_PHASES:
+        c = CONFIGS[name]()
+        predict_busy(f"{phase}_busy", c, lc_batch(c, 1, seed=0), smi,
+                     seed_dcn_offsets)
         torch.cuda.empty_cache()
     device = kernel_device_times(cfg, kcfg, batch, kbatch, roi_args, dev,
                                  gen)
@@ -1630,6 +1834,11 @@ def main() -> int:
     k5_step["bound_by"] = "bytes"
     k5_dev = device["roi_scatter"]["device_ms"]
     k5_step["device_ms"] = None if k5_dev is None else k5_steps * k5_dev
+    for entry, key in ((k1, "gather_conv"), (k2, "eqmatch"),
+                       (bwd["subm"], "subm_bwd"),
+                       (bwd["strided"], "strided_bwd"),
+                       (k5_step, "roi_scatter"), (k6, "rulebook_lookup")):
+        entry["lc_launches"] = {ph: c[key] for ph, c in lc_launches.items()}
     emit({"kernels": [
         kernel_entry("gather_conv", "srfdet3d_torch/csrc/gather_conv.cu",
                      "srfdet3d_tpu/ops/pallas_onehot.py:67", k1_launches,

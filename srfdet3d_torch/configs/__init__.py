@@ -1,18 +1,17 @@
 """The configs the port runs, built exactly as the JAX package builds them:
-the five LiDAR-only models (the flagship voxel, the pillar and the
-dynamic-voxel nuScenes models, the KITTI voxel model, the Waymo
-dynamic-voxel model) and the miniature test configs of the voxel, KITTI and
-pillar families.  `get_config(name)` resolves them by the JAX package's
-names; the camera (LC) configs need the image branch, which the port does
-not have yet."""
+all 11 shipped models, the five LiDAR-only ones (the flagship voxel, the
+pillar and the dynamic-voxel nuScenes models, the KITTI voxel model, the
+Waymo dynamic-voxel model) and their six LiDAR-camera (LC) twins, and the
+miniature test configs of the voxel, KITTI and pillar families.
+`get_config(name)` resolves them by the JAX package's names."""
 
 from __future__ import annotations
 
 import dataclasses
 
-from ..config import (AugConfig, BackboneConfig, HeadConfig, LossConfig,
-                      MiddleConfig, OptimConfig, OTAConfig, SRFDetConfig,
-                      TestConfig, VFEConfig)
+from ..config import (AugConfig, BackboneConfig, HeadConfig,
+                      ImgBranchConfig, LossConfig, MiddleConfig, OptimConfig,
+                      OTAConfig, SRFDetConfig, TestConfig, VFEConfig)
 
 NUS_CLASSES = ("car", "truck", "construction_vehicle", "bus", "trailer",
                "barrier", "motorcycle", "bicycle", "pedestrian",
@@ -104,6 +103,91 @@ def srfdet_dvoxel_nusc_L() -> SRFDetConfig:
         head=HeadConfig(feat_channels_lidar=256, num_heads=6,
                         dim_feedforward=1024, dynamic_dim=64),
         optim=OptimConfig(batch_size_per_device=4))
+
+
+# the nuScenes LC fine-tune schedule: batch 1, 10 epochs, warmup 5000,
+# the LiDAR branch frozen
+_NUSC_LC_OPTIM = OptimConfig(freeze_lidar=True, batch_size_per_device=1,
+                             epochs=10, warmup_iters=5000)
+
+
+def srfdet_voxel_nusc_LC() -> SRFDetConfig:
+    """configs/nus/srfdet_voxel_nusc_LC.py: the flagship with VoVNet-99 on
+    six 928 x 1600 cameras and 320 image-RoI slots a camera."""
+    base = srfdet_voxel_nusc_L()
+    return base.replace(
+        name="srfdet_voxel_nusc_LC", use_img=True,
+        img=ImgBranchConfig(backbone="vovnet-99", num_cams=6,
+                            img_shape=(928, 1600), mode="pad"),
+        head=dataclasses.replace(base.head, img_roi_cap=320,
+                                 unroll_predict=True),
+        optim=_NUSC_LC_OPTIM, aug=AugConfig.none())
+
+
+def srfdet_voxel_r50_LC() -> SRFDetConfig:
+    """configs/nus/srfdet_voxel_r50_nusc_LC.py: ResNet-50 (pytorch style,
+    RGB input) in VoVNet-99's place."""
+    return srfdet_voxel_nusc_LC().replace(
+        name="srfdet_voxel_r50_LC",
+        img=ImgBranchConfig(backbone="resnet-50", num_cams=6,
+                            img_shape=(928, 1600), mode="pad",
+                            frozen_stages=1, bgr=False))
+
+
+def srfdet_pillar_r50_LC() -> SRFDetConfig:
+    """configs/nus/srfdet_pillar_r50_nusc_LC.py: the pillar model with
+    ResNet-50 (every camera-proposal pair pooled: no RoI cap)."""
+    return srfdet_pillar_nusc_L().replace(
+        name="srfdet_pillar_r50_LC", use_img=True,
+        img=ImgBranchConfig(backbone="resnet-50", num_cams=6,
+                            img_shape=(928, 1600), mode="pad",
+                            frozen_stages=1, bgr=False),
+        optim=_NUSC_LC_OPTIM, aug=AugConfig.none())
+
+
+def srfdet_pillar_v299_LC() -> SRFDetConfig:
+    """configs/nus/srfdet_pillar_v299_nusc_LC.py: the pillar model with
+    VoVNet-99."""
+    return srfdet_pillar_nusc_L().replace(
+        name="srfdet_pillar_v299_LC", use_img=True,
+        img=ImgBranchConfig(backbone="vovnet-99", num_cams=6,
+                            img_shape=(928, 1600), mode="pad"),
+        optim=_NUSC_LC_OPTIM, aug=AugConfig.none())
+
+
+def srfdet_voxel_kitti_LC() -> SRFDetConfig:
+    """configs/kitti/srfdet_voxel_kitti_LC.py: the KITTI voxel model with
+    VoVNet-99 on one 384 x 1248 front camera, hidden_dim 256."""
+    base = srfdet_voxel_kitti_L()
+    return base.replace(
+        name="srfdet_voxel_kitti_LC", use_img=True,
+        img=ImgBranchConfig(backbone="vovnet-99", num_cams=1,
+                            img_shape=(384, 1248), mode="pad"),
+        head=dataclasses.replace(base.head, hidden_dim=256),
+        optim=OptimConfig(freeze_lidar=True, batch_size_per_device=4,
+                          epochs=20, warmup_iters=200),
+        aug=dataclasses.replace(AugConfig.none(), flip_horizontal=0.5,
+                                sync_flip_2d=True))
+
+
+def srfdet_dvoxel_waymo_LC() -> SRFDetConfig:
+    """configs/others/srfdet_dvoxel_waymo_LC.py: the Waymo dynamic-voxel
+    model with a caffe-style ResNet-101, DCNv2 in stages 3-4, on five
+    640 x 960 cameras, and a 128-channel BN + ReLU image neck (equal to
+    hidden_dim: no img_conv)."""
+    base = srfdet_dvoxel_waymo_L()
+    return base.replace(
+        name="srfdet_dvoxel_waymo_LC", use_img=True,
+        img=ImgBranchConfig(backbone="resnet-101", num_cams=5,
+                            img_shape=(640, 960), mode="resize",
+                            frozen_stages=1, neck_out_channels=128,
+                            neck_norm=True, resnet_style="caffe",
+                            stage_with_dcn=(False, False, True, True),
+                            norm_frozen=True),
+        head=dataclasses.replace(base.head, feat_channels_img=128),
+        optim=OptimConfig(freeze_lidar=True, batch_size_per_device=2,
+                          epochs=15, warmup_iters=3000),
+        aug=AugConfig.none())
 
 
 def tiny_test_config(**overrides) -> SRFDetConfig:
@@ -238,26 +322,16 @@ def tiny_pillar_test_config(**overrides) -> SRFDetConfig:
 
 CONFIGS = {
     fn.__name__: fn for fn in (
-        srfdet_voxel_nusc_L, srfdet_pillar_nusc_L, srfdet_voxel_kitti_L,
-        srfdet_dvoxel_waymo_L, srfdet_dvoxel_nusc_L)
+        srfdet_voxel_nusc_L, srfdet_voxel_nusc_LC, srfdet_voxel_r50_LC,
+        srfdet_pillar_nusc_L, srfdet_pillar_r50_LC, srfdet_pillar_v299_LC,
+        srfdet_voxel_kitti_L, srfdet_voxel_kitti_LC,
+        srfdet_dvoxel_waymo_L, srfdet_dvoxel_waymo_LC, srfdet_dvoxel_nusc_L)
 }
 CONFIGS["tiny"] = lambda: tiny_test_config()
 CONFIGS["tiny_kitti"] = lambda: tiny_kitti_test_config()
 CONFIGS["tiny_pillar"] = lambda: tiny_pillar_test_config()
 
-# the shipped configs the port cannot build yet, and the branch each needs
-_NOT_PORTED = dict.fromkeys(
-    ("srfdet_voxel_nusc_LC", "srfdet_voxel_r50_LC", "srfdet_pillar_r50_LC",
-     "srfdet_pillar_v299_LC", "srfdet_voxel_kitti_LC",
-     "srfdet_dvoxel_waymo_LC"),
-    "the LiDAR-camera image branch (image backbone, image FPN and the "
-    "head's fusion path)")
-
-
 def get_config(name: str) -> SRFDetConfig:
     if name in CONFIGS:
         return CONFIGS[name]()
-    if name in _NOT_PORTED:
-        raise KeyError(f"config {name!r} is not ported yet: it needs "
-                       f"{_NOT_PORTED[name]}")
     raise KeyError(f"no config {name!r}; the port has {sorted(CONFIGS)}")

@@ -1,11 +1,21 @@
-"""SRFDet detector, LiDAR path (reference models/detectors/srfdet.py).
+"""SRFDet detector (reference models/detectors/srfdet.py).
 
-Voxelization -> VFE (HardSimpleVFE, DynamicVFE or PillarFeatureNet) ->
-middle encoder (the sparse encoder, or the pillar scatter) -> SECOND ->
-FPN -> SRFDet head.  Input contract, as in the JAX package:
+LiDAR branch: voxelization -> VFE (HardSimpleVFE, DynamicVFE or
+PillarFeatureNet) -> middle encoder (the sparse encoder, or the pillar
+scatter) -> SECOND -> FPN.  Image branch (LC configs, `cfg.use_img`): the
+camera images -> VoVNet or ResNet -> image FPN.  Both feed the SRFDet head.
+Input contract, as in the JAX package:
 
     batch = {"points": (B, P_cap, D) padded float32 point clouds,
-             "points_mask": (B, P_cap) bool}
+             "points_mask": (B, P_cap) bool,
+             "images": (B, n_cam, H, W, 3) normalized float32 images,
+                                                            [LC only]
+             "lidar2img": (B, n_cam, 4, 4) float32 projections   [LC only]}
+
+An LC model given no "images" runs its LiDAR branch alone, as the JAX
+package's does.  The image branch runs in predict only: its train-time
+parts (GridMask, the image freeze rules, its backward) are not ported, and
+an LC model in train mode raises.
 
 The model lives on `cuda` unless built with device="cpu"; weights are a
 seeded random init (`seed`) or come from the JAX package through
@@ -28,13 +38,16 @@ from torch import nn
 from .. import resolve_device, set_backend_flags
 from ..config import SRFDetConfig
 from ..ops.voxelize import VoxelizedPoints, voxelize_points_batched
+from .deform_conv import ModulatedDeformConv
 from .fpn import FPN
 from .head import SRFDetHead, decode_boxes, focal_bias
 from .layers import MaskedBatchNorm
 from .middle import PointPillarsScatter
+from .resnet import ResNet
 from .second import SECOND
 from .sparse_encoder import GatheredConvBN, SparseEncoder, down_pads
 from .vfe import DynamicVFE, HardSimpleVFE, PillarFeatureNet
+from .vovnet import VoVNet
 
 # the LiDAR branch that cfg.optim.freeze_lidar freezes
 LIDAR_MODULES = ("pts_voxel_encoder", "pts_middle_encoder", "pts_backbone",
@@ -91,8 +104,11 @@ def bev_geometry(cfg: SRFDetConfig):
 
 def _check_supported(cfg: SRFDetConfig) -> None:
     unsupported = []
-    if cfg.use_img:
-        unsupported.append("use_img")
+    if cfg.use_img and cfg.img.compute_dtype not in ("", "float32"):
+        unsupported.append(f"img.compute_dtype={cfg.img.compute_dtype}")
+    for patch in ("img_roi_patch", "img_roi_xpatch"):
+        if cfg.use_img and getattr(cfg.head, patch):
+            unsupported.append(f"head.{patch}")
     if cfg.compute_dtype != "float32":
         unsupported.append(f"compute_dtype={cfg.compute_dtype}")
     if cfg.vfe.kind not in ("hard_simple", "dynamic", "pillar"):
@@ -103,7 +119,8 @@ def _check_supported(cfg: SRFDetConfig) -> None:
         unsupported.append("head: DPG on, no lidar encoder")
     if unsupported:
         raise NotImplementedError(
-            "srfdet3d_torch runs the LiDAR-only paths; not yet ported: "
+            "srfdet3d_torch runs float32 models with a DPG head; not yet "
+            "ported: "
             + ", ".join(unsupported))
 
 
@@ -156,6 +173,28 @@ class SRFDet(nn.Module):
         hc = cfg.head
         if hc.feat_channels_lidar != cfg.neck_out_channels:
             raise ValueError("head.feat_channels_lidar must equal the neck's")
+        img = {}
+        if cfg.use_img:
+            ic = cfg.img
+            if ic.backbone.startswith("vovnet"):
+                self.img_backbone = VoVNet(ic.backbone)
+            else:
+                self.img_backbone = ResNet(
+                    int(ic.backbone.split("-")[1]), style=ic.resnet_style,
+                    stage_with_dcn=tuple(ic.stage_with_dcn))
+            self.img_neck = FPN(
+                self.img_backbone.out_channels, ic.neck_out_channels,
+                ic.neck_num_outs, use_norm=ic.neck_norm,
+                relu_before_extra_convs=ic.relu_before_extra_convs)
+            if hc.feat_channels_img != ic.neck_out_channels:
+                raise ValueError("head.feat_channels_img must equal the "
+                                 "image neck's")
+            img = dict(
+                img_channels=hc.feat_channels_img, hidden_dim=hc.hidden_dim,
+                img_levels=hc.img_feat_lvls,
+                img_dpg_hw=(30, 15) if cfg.dataset == "kitti" else (30, 30),
+                img_strides=tuple(hc.img_strides),
+                img_roi_cap=hc.img_roi_cap)
         self.bbox_head = SRFDetHead(
             cfg.num_classes, hc.feat_channels_lidar, cfg.neck_num_outs,
             sizes[-1][0] * sizes[-1][1], num_proposals=hc.num_proposals,
@@ -166,7 +205,8 @@ class SRFDet(nn.Module):
             num_cls_convs=hc.num_cls_convs, num_reg_convs=hc.num_reg_convs,
             num_attn_heads=hc.num_attn_heads, dynamic_dim=hc.dynamic_dim,
             lidar_strides=tuple(hc.lidar_strides), roi_patch=hc.roi_patch,
-            roi_patch_fallback=hc.roi_patch_fallback, dropout=hc.dropout)
+            roi_patch_fallback=hc.roi_patch_fallback, dropout=hc.dropout,
+            **img)
         self._init_weights(torch.Generator().manual_seed(seed))
         self.to(dev)
         self.eval()
@@ -187,8 +227,9 @@ class SRFDet(nn.Module):
     def _init_weights(self, g: torch.Generator) -> None:
         """Seeded init in the JAX package's families: xavier-uniform dense
         layers of the head, lecun-normal VFE dense layers and convs,
-        kaiming-normal sparse kernels, N(0, 1) proposal embeddings, unit
-        norms, the focal prior on class biases."""
+        kaiming-normal sparse kernels and DCNv2 kernels, zero DCNv2 offset
+        convs, N(0, 1) proposal embeddings, unit norms, the focal prior on
+        class biases."""
         for name, mod in self.named_modules():
             if (isinstance(mod, nn.Linear) and
                     name.startswith("pts_voxel_encoder.")):
@@ -212,10 +253,17 @@ class SRFDet(nn.Module):
                 k, cin, _ = mod.kernel.shape
                 mod.kernel.copy_(torch.randn(mod.kernel.shape, generator=g)
                                  * math.sqrt(2.0 / (k * cin)))
+            elif isinstance(mod, ModulatedDeformConv):
+                mod.kernel.copy_(torch.randn(mod.kernel.shape, generator=g)
+                                 * math.sqrt(2.0 / mod.kernel.shape[0]))
             elif isinstance(mod, (nn.LayerNorm, nn.BatchNorm2d,
                                   MaskedBatchNorm)):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
+        for mod in self.modules():
+            if isinstance(mod, ModulatedDeformConv):
+                mod.conv_offset.weight.zero_()
+                mod.conv_offset.bias.zero_()
         head = self.bbox_head
         for p in (head.init_proposal_boxes, head.init_proposal_feats):
             p.copy_(torch.randn(p.shape, generator=g))
@@ -261,15 +309,40 @@ class SRFDet(nn.Module):
         stages = self.pts_backbone(bev.permute(0, 3, 1, 2).contiguous())
         return self.pts_neck(stages)
 
+    def image_tensor(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The batch's (B, n_cam, H, W, 3) images as one NCHW
+        (B*n_cam, 3, H, W) tensor on the model's device."""
+        img = torch.as_tensor(batch["images"], device=self.device).float()
+        img = img.flatten(0, 1).permute(0, 3, 1, 2)
+        return img.contiguous()
+
+    def extract_img_features(self, images: torch.Tensor
+                             ) -> Tuple[torch.Tensor, ...]:
+        """(B*n_cam, 3, H, W) images -> the image neck's NCHW levels
+        (B*n_cam, C, H / s, W / s), strides 4-32 (reference
+        extract_img_feat, srfdet.py:175-204)."""
+        return self.img_neck(self.img_backbone(images))
+
     def forward(self, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None):
         """generator: the head's dropout masks in train mode (on the
         model's device)."""
+        if self.training and self.cfg.use_img:
+            raise NotImplementedError(
+                "training an LC model is not ported yet: GridMask, the "
+                "image freeze rules (frozen_stages, norm_frozen, norm_eval) "
+                "and the image branch's backward")
         points, mask = self._inputs(batch)
         maps = self.extract_point_features(points, mask)
         if self.training and self.cfg.optim.freeze_lidar:
             maps = tuple(f.detach() for f in maps)
-        return self.bbox_head(maps, generator)
+        if not self.cfg.use_img or "images" not in batch:
+            # an LC model given no images runs its LiDAR branch alone
+            return self.bbox_head(maps, generator)
+        img_feats = self.extract_img_features(self.image_tensor(batch))
+        lidar2img = torch.as_tensor(batch["lidar2img"],
+                                    device=self.device).float()
+        return self.bbox_head(maps, generator, img_feats, lidar2img)
 
     @torch.no_grad()
     def predict(self, batch: Dict[str, torch.Tensor]

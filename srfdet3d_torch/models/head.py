@@ -1,5 +1,6 @@
-"""SRFDet decoder head, LiDAR only: DPG init proposals, iterative
-refinement, and box decoding with rotated multiclass NMS.
+"""SRFDet decoder head: DPG init proposals, iterative refinement, and box
+decoding with rotated multiclass NMS; LiDAR only, or fused with the camera
+images (LC configs).
 
 Box code: [cx, cy, cz, log w, log l, log h, sin, cos (, vx, vy)], centers
 normalized to [0, 1] within pc_range between iterations and absolute in the
@@ -11,6 +12,15 @@ attention weights (one (n_q, n_k) mask shared by batch and heads, flax's
 broadcast_dropout), after self-attention, after the dynamic conv, inside
 the FFN and after it.  Its masks come from a `torch.Generator` the caller
 passes; there is no global seed.
+
+The fusion path (JAX `head.py:120-236`): each proposal's 3D box projects
+through every camera's lidar2img to an image RoI; the image levels are
+RoI-aligned per (camera, proposal) pair and summed over the cameras, either
+for every pair (`img_roi_cap` 0) or for at most `img_roi_cap` visible pairs
+a camera, compacted in proposal order (the pairs past the cap are
+dropped); a Dense layer projects [image RoI, LiDAR RoI] to the head's
+width.  The DPG mixes its LiDAR logits with ones from a staircase over the
+image levels.
 """
 
 from __future__ import annotations
@@ -18,6 +28,7 @@ from __future__ import annotations
 import math
 from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -66,6 +77,97 @@ def lidar_rois_from_boxes(boxes_abs: torch.Tensor, pc_range, voxel_size
     vs = boxes_abs.new_tensor(voxel_size[:2])
     xy = (corners[..., :2] - lo) / vs
     return torch.cat([xy.amin(-2), xy.amax(-2)], -1)
+
+
+def img_rois_from_boxes(boxes_abs: torch.Tensor,
+                        lidar2img: torch.Tensor) -> torch.Tensor:
+    """(B, n_p, code) boxes with absolute centers, lidar2img (B, n_cam, 4,
+    4) -> (B, n_cam, n_p, 4) image RoIs [x1, y1, x2, y2]: the min and max
+    of the 8 projected corners, depth clamped at 1e-5 (a corner behind the
+    camera lands far outside the image, as in the reference)."""
+    corners = boxes3d_to_corners3d(boxes_abs[..., :8], bottom_center=False,
+                                   yaw_as_sincos=True, log_size=True)
+    hom = torch.cat([corners, torch.ones_like(corners[..., :1])], -1)
+    cam = torch.einsum("bkij,bpcj->bkpci", lidar2img, hom)
+    xy = cam[..., 0:2] / cam[..., 2:3].clamp_min(1e-5)
+    return torch.cat([xy.amin(-2), xy.amax(-2)], -1)
+
+
+def visible_mask(cam_rois: torch.Tensor, img_shape, strides) -> torch.Tensor:
+    """Which RoIs reach the image within the coarsest level's sample reach
+    (2 * max stride); past it every bilinear sample reads zero."""
+    h_img, w_img = img_shape
+    margin = float(2 * max(strides))
+    x1, y1, x2, y2 = cam_rois.unbind(-1)
+    return ((x2 >= -margin) & (x1 <= w_img + margin) &
+            (y2 >= -margin) & (y1 <= h_img + margin))
+
+
+def visible_pair_counts(cam_rois: torch.Tensor, img_shape, strides
+                        ) -> torch.Tensor:
+    """(B, n_cam) RoIs each camera would keep; the compaction of
+    pooled_img_roi is exact while every count stays <= img_roi_cap.  A box
+    behind a camera projects to a huge RoI that straddles the image and
+    counts."""
+    return visible_mask(cam_rois, img_shape, strides).sum(-1)
+
+
+def compact_pairs(cam_rois: torch.Tensor, img_shape, strides, cap: int):
+    """The visible pairs of each camera in `cap` slots, in proposal order
+    (a cumulative sum); the pairs past the cap are dropped.  cam_rois
+    (B, n_cam, n_p, 4) -> (rois (B*n_cam, cap, 4), the off-image RoI -1e6
+    in unused slots; src (B*n_cam, cap) each slot's proposal, n_p where
+    unused)."""
+    b, n_cam, n_p, _ = cam_rois.shape
+    bc = b * n_cam
+    vis = visible_mask(cam_rois, img_shape, strides).reshape(bc, n_p)
+    slot = torch.cumsum(vis.long(), 1) - 1
+    slot = torch.where(vis & (slot < cap), slot, cap)
+    rois = cam_rois.new_full((bc, cap + 1, 4), -1e6).scatter_(
+        1, slot[..., None].expand(-1, -1, 4), cam_rois.reshape(bc, n_p, 4))
+    prop = torch.arange(n_p, device=slot.device).expand(bc, n_p)
+    src = torch.full((bc, cap + 1), n_p, device=slot.device).scatter_(
+        1, slot, prop)
+    return rois[:, :cap], src[:, :cap]
+
+
+def pooled_img_roi(img_feats: Sequence[torch.Tensor], cam_rois: torch.Tensor,
+                   strides: Sequence[int], res: int, cap: int = 0
+                   ) -> torch.Tensor:
+    """Camera-summed multi-level RoIAlign.  img_feats: L maps (B*n_cam,
+    H_l, W_l, C); cam_rois (B, n_cam, n_p, 4) -> (B, n_p, res, res, C).
+
+    cap 0: every (camera, proposal) pair.  cap > 0: the pairs of
+    compact_pairs, whose unused slots pool to zeros, added back to their
+    proposals."""
+    b, n_cam, n_p, _ = cam_rois.shape
+    bc = b * n_cam
+    c = img_feats[0].shape[-1]
+    if not cap:
+        pooled = multilevel_roi_align(img_feats, cam_rois.reshape(bc, n_p, 4),
+                                      strides, out_size=res)
+        return pooled.reshape(b, n_cam, n_p, res, res, c).sum(1)
+    img_shape = (img_feats[0].shape[1] * strides[0],
+                 img_feats[0].shape[2] * strides[0])
+    rois, src = compact_pairs(cam_rois, img_shape, strides, cap)
+    pooled = multilevel_roi_align(img_feats, rois, strides, out_size=res)
+    b_idx = torch.arange(b, device=src.device).repeat_interleave(n_cam)
+    flat_prop = torch.where(src < n_p, b_idx[:, None] * n_p + src, b * n_p)
+    out = pooled.new_zeros(b * n_p + 1, res * res * c).index_add_(
+        0, flat_prop.reshape(-1), pooled.reshape(bc * cap, -1))
+    return out[:b * n_p].reshape(b, n_p, res, res, c)
+
+
+def torch_nearest_resize(x: torch.Tensor, hw) -> torch.Tensor:
+    """torch's legacy 'nearest' on NCHW as the JAX package builds it: the
+    source index floor(i * in / out), computed in float64 with numpy (the
+    rounding of F.interpolate's own index differs at some sizes, e.g. 70
+    -> 30)."""
+    h, w = x.shape[-2:]
+    iy = (np.arange(hw[0]) * (h / hw[0])).astype(np.int32)
+    ix = (np.arange(hw[1]) * (w / hw[1])).astype(np.int32)
+    return x[:, :, torch.as_tensor(iy, device=x.device)][
+        ..., torch.as_tensor(ix, device=x.device)]
 
 
 class MultiHeadAttention(nn.Module):
@@ -121,8 +223,11 @@ class DynamicConv(nn.Module):
 
 
 class SingleSRFDetHead(nn.Module):
-    """One refinement iteration of the LiDAR head (reference
-    SingleSRFDetHeadLiDAR, srfdet_head.py:1348)."""
+    """One refinement iteration (reference SingleSRFDetHeadLiDAR,
+    srfdet_head.py:1348, and the fusion SingleSRFDetHead, :2104).
+    `img_channels` > 0 builds the fusion path: the image RoIs (of that
+    width) and the LiDAR RoIs, image first, projected to the head's
+    width by `output_fused_proj`."""
 
     def __init__(self, num_classes: int, feat_channels: int = 128,
                  pooler_resolution: int = 7, dim_feedforward: int = 512,
@@ -135,7 +240,9 @@ class SingleSRFDetHead(nn.Module):
                  lidar_strides: Sequence[int] = (8, 16, 32, 64),
                  roi_patch: int = 0, roi_patch_fallback: int = -1,
                  scale_clamp: float = _DEFAULT_SCALE_CLAMP,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, img_channels: int = 0,
+                 img_strides: Sequence[int] = (4, 8, 16, 32),
+                 img_roi_cap: int = 0):
         super().__init__()
         c = feat_channels
         self.res = pooler_resolution
@@ -144,6 +251,9 @@ class SingleSRFDetHead(nn.Module):
         self.lidar_strides = tuple(lidar_strides)
         self.roi_patch, self.roi_patch_fallback = roi_patch, roi_patch_fallback
         self.scale_clamp = scale_clamp
+        self.img_strides, self.img_roi_cap = tuple(img_strides), img_roi_cap
+        if img_channels:
+            self.output_fused_proj = nn.Linear(img_channels + c, c)
         self.self_attn = MultiHeadAttention(c, num_attn_heads)
         self.norm_attn = nn.LayerNorm(c, eps=1e-5)
         self.inst_interact = DynamicConv(c, dynamic_dim,
@@ -165,11 +275,15 @@ class SingleSRFDetHead(nn.Module):
 
     def forward(self, point_feats: Sequence[torch.Tensor],
                 bboxes: torch.Tensor, prop_feats: torch.Tensor,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                img_feats: Optional[Sequence[torch.Tensor]] = None,
+                lidar2img: Optional[torch.Tensor] = None):
         """point_feats: (B, H, W, C) maps; bboxes (B, n_p, code) with
         normalized centers; prop_feats (B, n_p, C); generator: dropout's
-        masks in train mode.  Returns (logits, refined boxes with
-        normalized centers, object features)."""
+        masks in train mode; img_feats: (B*n_cam, H, W, C_img) maps with
+        lidar2img (B, n_cam, 4, 4), or None (the LiDAR path alone).
+        Returns (logits, refined boxes with normalized centers, object
+        features)."""
         rate = self.dropout if self.training else 0.0
 
         def drop(x):
@@ -183,6 +297,11 @@ class SingleSRFDetHead(nn.Module):
         roi = multilevel_roi_align(point_feats, rois, self.lidar_strides,
                                    out_size=self.res, patch=self.roi_patch,
                                    patch_fallback=self.roi_patch_fallback)
+        if img_feats is not None:
+            img_roi = pooled_img_roi(
+                img_feats, img_rois_from_boxes(boxes_abs, lidar2img),
+                self.img_strides, self.res, cap=self.img_roi_cap)
+            roi = self.output_fused_proj(torch.cat([img_roi, roi], -1))
         roi = roi.reshape(bs * n_p, self.res * self.res, c)
 
         x = self.norm_attn(prop_feats + drop(
@@ -215,14 +334,20 @@ class SingleSRFDetHead(nn.Module):
 
 class SRFDetHead(nn.Module):
     """DPG init proposals + `num_heads` refinement iterations (reference
-    SRFDetHead, srfdet_head.py:48-1345), LiDAR only."""
+    SRFDetHead, srfdet_head.py:48-1345).  `img_channels` > 0 (the image
+    neck's width) adds the fusion path: `img_conv` 3x3 convs with bias to
+    `hidden_dim` (only where the widths differ), the image DPG staircase
+    resized to `img_dpg_hw` ((30, 30); (30, 15) on KITTI), and the fused
+    RoIs in every iteration."""
 
     def __init__(self, num_classes: int, feat_channels: int, num_levels: int,
                  dpg_cells: int, num_proposals: int = 900,
                  num_heads: int = 5, num_dpg_exp: int = 4,
                  code_size: int = 10, deep_supervision: bool = True,
                  pc_range: Sequence[float] = (-55.2, -55.2, -5.0, 55.2,
-                                              55.2, 3.0), **single_kwargs):
+                                              55.2, 3.0),
+                 img_channels: int = 0, hidden_dim: int = 128,
+                 img_levels: int = 4, img_dpg_hw=(30, 30), **single_kwargs):
         super().__init__()
         c = feat_channels
         self.num_proposals, self.num_dpg_exp = num_proposals, num_dpg_exp
@@ -237,36 +362,91 @@ class SRFDetHead(nn.Module):
             for l in range(num_levels - 1))
         self.dpg_fc1 = nn.Linear(dpg_cells, 1024)
         self.dpg_fc2 = nn.Linear(1024, n_emb)
+        self.use_img = bool(img_channels)
+        self.img_conv = None
+        if self.use_img:
+            if hidden_dim != img_channels:
+                self.img_conv = nn.ModuleList(
+                    nn.Conv2d(img_channels, hidden_dim, 3, 1, 1)
+                    for _ in range(img_levels))
+            h = hidden_dim
+            self.dpg_dw_img = nn.ModuleList(
+                ConvBNReLU((l + 1) * h, (l + 1) * h, 3, 2, 1,
+                           groups=(l + 1) * h)
+                for l in range(img_levels - 1))
+            self.img_dpg_hw = tuple(img_dpg_hw)
+            self.dpg_fc1_img = nn.Linear(img_dpg_hw[0] * img_dpg_hw[1], 1500)
+            self.dpg_fc2_img = nn.Linear(1500, n_emb)
         self.heads = nn.ModuleList(
             SingleSRFDetHead(num_classes, c, code_size=code_size,
-                             pc_range=pc_range, **single_kwargs)
+                             pc_range=pc_range,
+                             img_channels=hidden_dim if self.use_img else 0,
+                             **single_kwargs)
             for _ in range(num_heads))
 
-    def forward(self, point_feats: Sequence[torch.Tensor],
-                generator: Optional[torch.Generator] = None):
-        """point_feats: L NCHW maps, strides lidar_strides; generator:
-        dropout's masks in train mode.  Returns pred_logits (L, B, n_p,
-        #cls) and pred_boxes (L, B, n_p, code) with absolute centers; every
-        iteration's outputs keep their graph, and only the boxes carried
-        into the next iteration are detached (JAX: stop_gradient on the
-        scan carry)."""
+    def image_maps(self, img_feats: Sequence[torch.Tensor]
+                   ) -> Sequence[torch.Tensor]:
+        """The image neck's NCHW levels reduced to hidden_dim channels
+        (img_conv), where the widths differ."""
+        if self.img_conv is None:
+            return list(img_feats)
+        return [conv(f) for conv, f in zip(self.img_conv, img_feats)]
+
+    def init_proposals(self, point_feats: Sequence[torch.Tensor],
+                       img_maps: Optional[Sequence[torch.Tensor]] = None):
+        """The DPG: the proposals (B, n_p, code), centers normalized, and
+        their features (B, n_p, C), as softmax-weighted mixtures of the
+        num_dpg_exp learned sets.  With img_maps (image_maps' output,
+        B*n_cam maps a level) the mixture logits are the mean of the
+        LiDAR staircase's and the image staircase's, whose last level is
+        resized to img_dpg_hw and summed over cameras and channels."""
         bs = point_feats[0].shape[0]
         n_p, n_exp = self.num_proposals, self.num_dpg_exp
         x = point_feats[0]
         for lvl, dw in enumerate(self.dpg_dw):
             x = torch.cat([point_feats[lvl + 1], dw(x)], 1)
-        w = F.relu(self.dpg_fc1(x.sum(1).reshape(bs, -1)))
-        w = torch.softmax(self.dpg_fc2(w).view(bs, n_exp, n_p), dim=1)
+        w = self.dpg_fc2(F.relu(self.dpg_fc1(x.sum(1).reshape(bs, -1))))
+        w = w.view(bs, n_exp, n_p)
+        if img_maps is not None:
+            x = img_maps[0]
+            for lvl, dw in enumerate(self.dpg_dw_img):
+                x = torch.cat([img_maps[lvl + 1], dw(x)], 1)
+            x = torch_nearest_resize(x, self.img_dpg_hw)
+            x = x.reshape((bs, -1) + x.shape[1:]).sum(1)
+            wimg = self.dpg_fc2_img(F.relu(self.dpg_fc1_img(
+                x.sum(1).reshape(bs, -1))))
+            w = (w + wimg.view(bs, n_exp, n_p)) / 2.0
+        w = torch.softmax(w, dim=1)
         boxes0 = torch.einsum("ben,end->bnd", w, self.init_proposal_boxes
                               .view(n_exp, n_p, self.code_size))
         prop = torch.einsum("ben,enc->bnc", w, self.init_proposal_feats
                             .view(n_exp, n_p, -1))
         boxes = torch.cat([torch.sigmoid(boxes0[..., :3]), boxes0[..., 3:]],
                           -1)
+        return boxes, prop
+
+    def forward(self, point_feats: Sequence[torch.Tensor],
+                generator: Optional[torch.Generator] = None,
+                img_feats: Optional[Sequence[torch.Tensor]] = None,
+                lidar2img: Optional[torch.Tensor] = None):
+        """point_feats: L NCHW maps, strides lidar_strides; generator:
+        dropout's masks in train mode; img_feats (with the image branch):
+        the image neck's NCHW levels (B*n_cam, C_img, H, W), strides
+        img_strides, with lidar2img (B, n_cam, 4, 4).  Returns pred_logits
+        (L, B, n_p, #cls) and pred_boxes (L, B, n_p, code) with absolute
+        centers; every iteration's outputs keep their graph, and only the
+        boxes carried into the next iteration are detached (JAX:
+        stop_gradient on the scan carry)."""
+        img_maps = img_nhwc = None
+        if self.use_img and img_feats is not None:
+            img_maps = self.image_maps(img_feats)
+            img_nhwc = [f.permute(0, 2, 3, 1).contiguous() for f in img_maps]
+        boxes, prop = self.init_proposals(point_feats, img_maps)
         nhwc = [f.permute(0, 2, 3, 1).contiguous() for f in point_feats]
         logits_all, boxes_all = [], []
         for head in self.heads:
-            logits, pred, prop = head(nhwc, boxes, prop, generator)
+            logits, pred, prop = head(nhwc, boxes, prop, generator, img_nhwc,
+                                      lidar2img)
             boxes = pred.detach()
             logits_all.append(logits)
             boxes_all.append(pred)

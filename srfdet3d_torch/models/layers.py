@@ -74,14 +74,30 @@ class BatchNorm2d(nn.BatchNorm2d):
 
 
 class ConvBNReLU(nn.Module):
-    """Conv2d (no bias) + BatchNorm2d + ReLU on NCHW tensors."""
+    """Conv2d + BatchNorm2d + ReLU on NCHW tensors (flax's ConvBNReLU of the
+    JAX package).  `bn=False` leaves the conv alone (with `bias`, the image
+    FPN's plain convs); `eps` and `momentum` are the BN's (1e-5 and 0.1 in
+    the image backbones)."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
-                 padding: int = 1, groups: int = 1):
+                 padding: int = 1, groups: int = 1, *, bias: bool = False,
+                 bn: bool = True, relu: bool = True, eps: float = 1e-3,
+                 momentum: float = 0.01):
         super().__init__()
+        self.relu = relu
         self.conv = nn.Conv2d(cin, cout, kernel, stride, padding,
-                              groups=groups, bias=False)
-        self.bn = BatchNorm2d(cout, eps=1e-3, momentum=0.01)
+                              groups=groups, bias=bias)
+        self.bn = (BatchNorm2d(cout, eps=eps, momentum=momentum) if bn
+                   else nn.Identity())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.bn(self.conv(x)))
+        x = self.bn(self.conv(x))
+        return F.relu(x) if self.relu else x
+
+
+def conv_bn(cin: int, cout: int, kernel: int = 3, stride: int = 1,
+            relu: bool = True) -> ConvBNReLU:
+    """The image backbones' conv (no bias, padding kernel // 2) + BN (eps
+    1e-5, flax momentum 0.9) + optional ReLU."""
+    return ConvBNReLU(cin, cout, kernel, stride, kernel // 2, relu=relu,
+                      eps=1e-5, momentum=0.1)

@@ -11,7 +11,12 @@ module never imports JAX.  Every JAX leaf is mapped to one port tensor:
   head_dim, C) -> (C, C) Linear weights;
 - the head's scan-stacked head_series/single_head leaves (leading axis
   num_heads) -> one module per iteration;
-- auto-named flax modules (Dense_0, LayerNorm_3, ...) -> the port's names.
+- auto-named flax modules (Dense_0, LayerNorm_3, ...) -> the port's names;
+- the image backbones: VoVNet's stem{k} and stage{s}_block{b} (conv{i},
+  the concat 1x1 conv, whose input channels keep the join's order, and
+  ese), ResNet's stem Conv_0 / BatchNorm_0 and layer{s}_{i} blocks
+  (_ConvBN_{k} in call order, dcn2 with its conv_offset and its
+  (kk*Cin, Cout) kernel as it is, the BN after it, down).
 
 It raises on a JAX leaf that maps to nothing and on a port parameter or
 buffer left unset (torch's BatchNorm step counters, `num_batches_tracked`,
@@ -32,7 +37,8 @@ import torch
 _HEAD_NAMES = {"Dense_0": "ffn1", "Dense_1": "ffn2",
                "LayerNorm_0": "norm_attn", "LayerNorm_1": "norm_inst",
                "LayerNorm_2": "norm_ffn",
-               "class_logits": "class_logits", "bboxes_delta": "bboxes_delta"}
+               "class_logits": "class_logits", "bboxes_delta": "bboxes_delta",
+               "output_fused_proj": "output_fused_proj"}
 _DYNCONV_NAMES = {"Dense_0": "dynamic_layer", "Dense_1": "out_layer",
                   "LayerNorm_0": "norm1", "LayerNorm_1": "norm2",
                   "LayerNorm_2": "norm3"}
@@ -95,9 +101,52 @@ def _convbn(prefix: str, path, a):
     return f"{prefix}.{sub}.{name}", arr
 
 
-def _map(path, a, n_heads, n_cls):
+def _img_backbone(path, a, dcn_blocks):
+    """One leaf under img_backbone (VoVNet or ResNet)."""
+    sub = path[0]
+    if sub in ("stem1", "stem2", "stem3"):
+        return _convbn(f"img_backbone.{sub}", path[1:], a)
+    m = re.fullmatch(r"stage(\d)_block(\d+)", sub)
+    if m:
+        pre = (f"img_backbone.stages.{int(m.group(1)) - 2}."
+               f"{m.group(2)}")
+        part = path[1]
+        if part == "ese":
+            name, arr = _leaf(path[3], a, False)
+            return f"{pre}.ese.fc.{name}", arr
+        if part == "concat":
+            return _convbn(f"{pre}.concat", path[2:], a)
+        i = re.fullmatch(r"conv(\d+)", part).group(1)
+        return _convbn(f"{pre}.convs.{i}", path[2:], a)
+    if sub == "Conv_0":
+        name, arr = _leaf(path[1], a, False)
+        return f"img_backbone.conv1.{name}", arr
+    if sub == "BatchNorm_0":
+        return f"img_backbone.bn1.{_NORM_LEAF[path[1]]}", a
+    s, i = re.fullmatch(r"layer(\d)_(\d+)", sub).groups()
+    pre = f"img_backbone.layers.{int(s) - 1}.{i}"
+    part = path[1]
+    if part == "down":
+        return _convbn(f"{pre}.down", path[2:], a)
+    if part == "dcn2":
+        if path[2] == "kernel":
+            return f"{pre}.dcn2.kernel", a
+        name, arr = _leaf(path[3], a, False)
+        return f"{pre}.dcn2.conv_offset.{name}", arr
+    if part == "BatchNorm_0":                       # the BN after dcn2
+        return f"{pre}.bn2.{_NORM_LEAF[path[2]]}", a
+    # _ConvBN_{k} in call order: conv1, conv2, conv3, with dcn2 in the
+    # 3x3's place
+    k = int(re.fullmatch(r"_ConvBN_(\d)", part).group(1))
+    conv = 3 if k == 1 and sub in dcn_blocks else k + 1
+    return _convbn(f"{pre}.conv{conv}", path[2:], a)
+
+
+def _map(path, a, n_heads, n_cls, dcn_blocks=frozenset()):
     """JAX leaf path (collection dropped) -> [(port key, array)]."""
     top = path[0]
+    if top == "img_backbone":
+        return [_img_backbone(path[1:], a, dcn_blocks)]
     if top == "pts_voxel_encoder":
         # DynamicVFE's DynamicVFELayer_{i} and PillarFeatureNet's
         # PFNLayer_{i}, each {Dense_0, MaskedBatchNorm_0}; the centroid-aware
@@ -123,21 +172,28 @@ def _map(path, a, n_heads, n_cls):
     elif top == "pts_backbone":
         i = int(re.fullmatch(r"ConvBNReLU_(\d+)", path[1]).group(1))
         return [_convbn(f"pts_backbone.blocks.{i}", path[2:], a)]
-    elif top == "pts_neck":
+    elif top in ("pts_neck", "img_neck"):
         kind, i = re.fullmatch(r"(lateral|fpn|extra)_(\d+)",
                                path[1]).groups()
-        return [_convbn(f"pts_neck.{kind}.{i}", path[2:], a)]
+        return [_convbn(f"{top}.{kind}.{i}", path[2:], a)]
     elif top == "bbox_head":
         sub = path[1]
         if sub in ("init_proposal_boxes", "init_proposal_feats"):
             return [(f"bbox_head.{sub}", a)]
-        m = re.fullmatch(r"dpg_dw_lidar_(\d+)", sub)
+        m = re.fullmatch(r"dpg_dw_(lidar|img)_(\d+)", sub)
         if m:
-            return [_convbn(f"bbox_head.dpg_dw.{m.group(1)}", path[2:], a)]
-        m = re.fullmatch(r"dpg_(fc1|fc2)_lidar", sub)
+            mod = "dpg_dw" if m.group(1) == "lidar" else "dpg_dw_img"
+            return [_convbn(f"bbox_head.{mod}.{m.group(2)}", path[2:], a)]
+        m = re.fullmatch(r"dpg_(fc1|fc2)_(lidar|img)", sub)
+        if m:
+            mod = f"dpg_{m.group(1)}" + ("_img" if m.group(2) == "img"
+                                         else "")
+            name, arr = _leaf(path[2], a, False)
+            return [(f"bbox_head.{mod}.{name}", arr)]
+        m = re.fullmatch(r"img_conv_(\d+)", sub)
         if m:
             name, arr = _leaf(path[2], a, False)
-            return [(f"bbox_head.dpg_{m.group(1)}.{name}", arr)]
+            return [(f"bbox_head.img_conv.{m.group(1)}.{name}", arr)]
         if sub == "head_series" and path[2] == "single_head":
             if a.shape[0] != n_heads:
                 raise ValueError(f"{'/'.join(path)}: leading axis "
@@ -155,10 +211,13 @@ def jax_state_dict(variables: Dict, n_heads: int, n_cls_convs: int
     """The port's state dict (numpy) from a JAX variable tree; each JAX
     leaf is consumed once (a leaf that maps to nothing raises KeyError)."""
     state: Dict[str, np.ndarray] = {}
+    img = variables.get("params", {}).get("img_backbone", {})
+    dcn_blocks = frozenset(k for k, v in img.items()
+                           if isinstance(v, Mapping) and "dcn2" in v)
     for coll in ("params", "batch_stats"):
         for path, a in _leaves(variables.get(coll, {})):
             try:
-                pairs = _map(path, a, n_heads, n_cls_convs)
+                pairs = _map(path, a, n_heads, n_cls_convs, dcn_blocks)
             except (KeyError, AttributeError, IndexError) as e:
                 raise KeyError(f"JAX leaf {coll}/{'/'.join(path)} maps to "
                                f"no port tensor") from e

@@ -166,19 +166,17 @@ def test_weight_bridge_tiny_kitti(centroid):
 
 @pytest.mark.parametrize("name", sorted(tconfigs.CONFIGS))
 def test_configs_match_jax(name):
-    """Every config of the port's CONFIGS (the five LiDAR-only configs and
-    the three tiny ones, srfdet_voxel_kitti_L and tiny_kitti among them)
-    equals the JAX package's config of that name field for field; the
-    class tuples equal JAX's; a shipped config the port cannot build yet
-    raises KeyError naming the branch it needs."""
+    """Every config of the port's CONFIGS (all 11 shipped configs, the six
+    LC ones among them, and the three tiny ones) equals the JAX package's
+    config of that name field for field; the class tuples equal JAX's;
+    the port builds every shipped config."""
     assert (dataclasses.asdict(tconfigs.get_config(name)) ==
             dataclasses.asdict(jconfigs.get_config(name))), name
     for classes in ("NUS_CLASSES", "KITTI_CLASSES", "WAYMO_CLASSES"):
         assert getattr(tconfigs, classes) == getattr(jconfigs, classes)
-    assert set(tconfigs.CONFIGS) < set(jconfigs.CONFIGS)
-    for missing in set(jconfigs.CONFIGS) - set(tconfigs.CONFIGS):
-        with pytest.raises(KeyError, match="image branch"):
-            tconfigs.get_config(missing)
+    assert set(tconfigs.CONFIGS) == set(jconfigs.CONFIGS)
+    with pytest.raises(KeyError, match="no config"):
+        tconfigs.get_config("srfdet_voxel_nusc_X")
 
 
 def test_weight_bridge_kitti_full_width():

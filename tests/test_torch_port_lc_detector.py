@@ -1,0 +1,125 @@
+"""Tiny LiDAR-camera (LC) predicts, JAX package against the port, on the
+CPU: the fusion head with VoVNet-19-slim on two cameras, the wiring where
+the image neck's width equals hidden_dim (no img_conv) with a BN + ReLU
+neck and a caffe-style ResNet-50 with DCNv2 in stages 3-4 (seeded non-zero
+offset convs), and KITTI's one camera with the (30, 15) image DPG.  Same
+points, images, camera matrices and seeded weights on both sides, through
+check_predict (forward logits and boxes within 1e-4, NMS keep sets and
+labels exactly)."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from srfdet3d_tpu import config as jconfig
+from srfdet3d_tpu import configs as jconfigs
+from srfdet3d_torch import config as tconfig
+from srfdet3d_torch import configs as tconfigs
+from srfdet3d_torch.models.detector import SRFDet
+from torch_port_common import check_predict, lidar2img_rig
+
+IMG_H, IMG_W = 64, 128
+
+
+def _camera_inputs(n_cam, batch_size=2, seed=7):
+    rng = np.random.default_rng(seed)
+    images = rng.normal(0, 1, (batch_size, n_cam, IMG_H, IMG_W, 3))
+    l2i = np.broadcast_to(lidar2img_rig(n_cam, IMG_H, IMG_W),
+                          (batch_size, n_cam, 4, 4))
+    return {"images": images.astype(np.float32),
+            "lidar2img": np.ascontiguousarray(l2i)}
+
+
+def _lc(config, configs, base, img, **head):
+    """One package's config `base` with the image branch `img` (an
+    ImgBranchConfig's fields) and the head fields `head`."""
+    cfg = getattr(configs, base)()
+    return cfg.replace(
+        use_img=True,
+        img=config.ImgBranchConfig(img_shape=(IMG_H, IMG_W), **img),
+        head=dataclasses.replace(cfg.head, **head))
+
+
+JAX, PORT = (jconfig, jconfigs), (tconfig, tconfigs)
+
+CASES = {
+    # VoVNet-19-slim, 2 cameras, a 64-channel plain neck reduced to the
+    # head's 32 by img_conv; every camera-proposal pair pooled
+    "vovnet_2cam": ("tiny_test_config",
+                    dict(backbone="vovnet-19-slim", num_cams=2,
+                         neck_out_channels=64),
+                    dict(feat_channels_img=64)),
+    # the image neck's width equals hidden_dim (no img_conv), BN + ReLU
+    # neck, caffe ResNet-50 with DCNv2 in stages 3-4; 8 RoI slots a camera
+    "r50_caffe_dcn_bn_neck": ("tiny_test_config",
+                              dict(backbone="resnet-50", num_cams=2,
+                                   neck_out_channels=32, neck_norm=True,
+                                   resnet_style="caffe",
+                                   stage_with_dcn=(False, False, True,
+                                                   True)),
+                              dict(feat_channels_img=32, img_roi_cap=8)),
+    # KITTI: one camera, the image DPG resized to (30, 15)
+    "kitti_1cam": ("tiny_kitti_test_config",
+                   dict(backbone="vovnet-19-slim", num_cams=1,
+                        neck_out_channels=64),
+                   dict(feat_channels_img=64)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_tiny_lc_predict_matches_jax(case):
+    base, img, head = CASES[case]
+    jcfg = _lc(*JAX, base, img, **head)
+    tcfg = _lc(*PORT, base, img, **head)
+    offsets = []
+
+    def dcn_offsets(variables):
+        # the seeded offset convs are non-zero: the DCN taps move
+        blocks = variables["params"]["img_backbone"].values()
+        offsets.extend(
+            float(np.abs(v["dcn2"]["conv_offset"]["kernel"]).max())
+            for v in blocks if "dcn2" in v)
+
+    out = check_predict(jcfg, tcfg, extra=_camera_inputs(img["num_cams"]),
+                        variables_hook=dcn_offsets)
+    assert out["valid"].sum() > 0
+    # ResNet-50: 6 blocks in stage 3, 3 in stage 4
+    assert len(offsets) == (9 if tcfg.img.stage_with_dcn[2] else 0)
+    assert all(o > 0 for o in offsets)
+    port = SRFDet(tcfg, device="cpu")
+    assert (port.bbox_head.img_conv is None) == (
+        tcfg.head.feat_channels_img == tcfg.head.hidden_dim)
+
+
+def test_lc_train_mode_raises():
+    """The image branch's train-time parts are not ported: an LC model in
+    train mode raises and names them."""
+    base, img, head = CASES["vovnet_2cam"]
+    port = SRFDet(_lc(*PORT, base, img, **head), device="cpu").train()
+    batch = {"points": torch.zeros(1, 2048, 5),
+             "points_mask": torch.zeros(1, 2048, dtype=torch.bool),
+             **{k: torch.from_numpy(v[:1])
+                for k, v in _camera_inputs(2).items()}}
+    with pytest.raises(NotImplementedError, match="GridMask"):
+        port(batch, torch.Generator().manual_seed(0))
+
+
+def test_lc_predict_without_images_matches_jax():
+    """An LC model given a batch with no images runs its LiDAR branch
+    alone on both sides (the image weights loaded but unused):
+    check_predict's tolerances."""
+    base, img, head = CASES["vovnet_2cam"]
+    check_predict(_lc(*JAX, base, img, **head), _lc(*PORT, base, img, **head),
+                  init_extra=_camera_inputs(img["num_cams"]))
+
+
+@pytest.mark.parametrize("patch", ["img_roi_patch", "img_roi_xpatch"])
+def test_lc_image_roi_patch_refused(patch):
+    """The image RoIAlign's patch routes are not ported: a config that
+    asks for one is refused when the model is built."""
+    base, img, head = CASES["vovnet_2cam"]
+    cfg = _lc(*PORT, base, img, **head, **{patch: 2})
+    with pytest.raises(NotImplementedError, match=patch):
+        SRFDet(cfg, device="cpu")

@@ -173,20 +173,51 @@ def uniform_points(cfg, batch_size, seed):
     return pts, mask
 
 
-def check_predict(jcfg, tcfg, batch_size=2, points_seed=0, weight_seed=12):
+def lidar2img_rig(n_cam: int, h: int, w: int) -> np.ndarray:
+    """(n_cam, 4, 4) float32 pinhole projections for (h, w) images:
+    cameras at x = -3 (even cameras, looking along +x) and x = +3 (odd
+    ones, looking along -x), so a box beyond a camera is behind it."""
+    f, cx, cy = 40.0, w / 2.0, h / 2.0
+    k = np.array([[f, 0, cx, 0], [0, f, cy, 0],
+                  [0, 0, 1, 0], [0, 0, 0, 1]], np.float64)
+    mats = []
+    for cam in range(n_cam):
+        sign = 1.0 if cam % 2 == 0 else -1.0
+        # cam axes: x_cam = -sign*y, y_cam = -z, z_cam = sign*x + 3
+        e = np.array([[0, -sign, 0, 0],
+                      [0, 0, -1, 0],
+                      [sign, 0, 0, 3.0],
+                      [0, 0, 0, 1]], np.float64)
+        mats.append(k @ e)
+    return np.stack(mats).astype(np.float32)
+
+
+def check_predict(jcfg, tcfg, batch_size=2, points_seed=0, weight_seed=12,
+                  extra=None, variables_hook=None, init_extra=None):
     """JAX SRFDet.predict against the port's on the same points and the
     same seeded weights (class biases zeroed, so scores spread over (0, 1)
     and decoding has work): forward logits and boxes within 1e-4, decoded
     scores within 1e-5 and boxes within 1e-4 (float32 op order); labels and
-    valid flags (the NMS keep sets) exactly.  Returns the port's decode."""
+    valid flags (the NMS keep sets) exactly.  `extra`: more numpy inputs
+    for both batches (an LC model's images and lidar2img);
+    `variables_hook(variables)` edits the seeded weights before both sides
+    load them; `init_extra`: inputs that only size the weights (an LC
+    model's images, for a predict run without them).  Returns the port's
+    decode."""
     pts, mask = uniform_points(tcfg, batch_size, points_seed)
+    extra = extra or {}
     model = JSRFDet(jcfg)
-    jbatch = {"points": jnp.asarray(pts), "points_mask": jnp.asarray(mask)}
+    jbatch = {"points": jnp.asarray(pts), "points_mask": jnp.asarray(mask),
+              **{k: jnp.asarray(v) for k, v in extra.items()}}
+    init_batch = {**jbatch, **{k: jnp.asarray(v)
+                               for k, v in (init_extra or {}).items()}}
     shapes = jax.eval_shape(lambda r, b: model.init(r, b, train=False),
-                            jax.random.PRNGKey(0), jbatch)
+                            jax.random.PRNGKey(0), init_batch)
     variables = random_variables(shapes, weight_seed)
     head = variables["params"]["bbox_head"]["head_series"]["single_head"]
     head["class_logits"]["bias"][:] = 0.0
+    if variables_hook is not None:
+        variables_hook(variables)
 
     @jax.jit
     def run(v, b):
@@ -196,7 +227,8 @@ def check_predict(jcfg, tcfg, batch_size=2, points_seed=0, weight_seed=12):
     j_logits, j_boxes, j_out = jax.device_get(run(variables, jbatch))
     port = SRFDet(tcfg, device="cpu")
     load_jax_params(port, variables)
-    batch = {"points": T(pts), "points_mask": T(mask)}
+    batch = {"points": T(pts), "points_mask": T(mask),
+             **{k: T(v) for k, v in extra.items()}}
     with torch.no_grad():
         t_logits, t_boxes = port(batch)
     t_out = port.predict(batch)
@@ -217,11 +249,12 @@ def check_predict(jcfg, tcfg, batch_size=2, points_seed=0, weight_seed=12):
     return t_out
 
 
-def check_bridge(tcfg, shapes, n_params=None):
+def check_bridge(tcfg, shapes, n_params=None, branch="pts_voxel_encoder"):
     """Zero weights of every JAX leaf through load_jax_params: each JAX
     leaf consumed once (the head's stacked leaves split per iteration),
     every port tensor set, the parameter counts equal (and equal to
-    n_params where given); a stray JAX leaf and a missing one raise."""
+    n_params where given); a stray JAX leaf and a missing one (both in
+    the module `branch`) raise."""
     variables = jax.tree_util.tree_map(
         lambda s: np.zeros(s.shape, s.dtype), shapes)
     n_leaves = len(jax.tree_util.tree_leaves(variables))
@@ -239,12 +272,12 @@ def check_bridge(tcfg, shapes, n_params=None):
     if n_params is not None:
         assert n_port == n_params
     broken = jax.tree_util.tree_map(lambda a: a, variables)
-    broken["params"]["pts_voxel_encoder"]["Dense_7"] = {
+    broken["params"][branch]["Dense_7"] = {
         "kernel": np.zeros((3, 4), np.float32)}
     with pytest.raises(KeyError):
         load_jax_params(port, broken)
     short = jax.tree_util.tree_map(lambda a: a, variables)
-    del short["batch_stats"]["pts_voxel_encoder"]
+    del short["batch_stats"][branch]
     with pytest.raises(KeyError):
         load_jax_params(port, short)
     return port
