@@ -16,7 +16,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    kernel does (bound_ms, also printed as tc_bound_ms: flops at 165
    TFLOP/s against HBM's bytes), with simt_bound_ms (flops at the f32
    CUDA-core rate, the bound of the earlier SIMT kernels) beside it; the
-   kernel-only device time comes in phase 13;
+   kernel-only device time comes at the end of phase 7;
 4. eqmatch (K2) against subm_rulebook_bitmap at the 4 flagship stages
    and (after K1's KITTI and Waymo shapes) the 4 stages of
    srfdet_voxel_kitti_L and of srfdet_dvoxel_waymo_L, exact,
@@ -46,7 +46,22 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    then sync_free: one K4 and one K5 backward, one K2 call with its plan
    map and one K6 hash build and lookup under
    torch.cuda.set_sync_debug_mode("error") (a host sync raises), their
-   results equal to the checked ones;
+   results equal to the checked ones; then roi_bwd_img: K5 at the image
+   geometry of the LC train steps, one sample's boxes projected through
+   camera_rig (off-image and behind-camera RoIs included) onto the four
+   image levels of every camera at the pooled table's width, for
+   srfdet_voxel_nusc_LC (320 slots a camera: 1,920 RoIs) and
+   srfdet_pillar_r50_LC (every pair: 5,400 RoIs), as in phase 6;
+   then the kernel device times, before every end-to-end phase (a
+   profiler session late in the process records only part of the
+   launches; a phase whose sessions all miss one fails): every K1 conv
+   (flagship and KITTI) and every K3 / K4 conv, one line each: the
+   kernels' own device time from torch.profiler (kernel_device_ms; for K4
+   with its preparation kernels, and their share as prep_device_ms), K5's
+   (roi_bwd_device), K2's query kernel at each flagship subm stage with
+   its plan map apart (eqmatch_device: device_ms, prep_device_ms) and
+   K6's lookup kernel at every lookup of both table walks with each
+   table's hash build apart (rulebook_lookup_device);
 8. flagship srfdet_voxel_nusc_L predict at full width, batch 1, on a
    synthetic scene and seeded random weights: launch counts, finite
    outputs, p50 latency, valid boxes, peak memory; plus decode_boxes with
@@ -77,33 +92,39 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    for every parameter and every parameter moved, step p50, peak memory,
    the step split into forward, loss + OTA, backward and optimizer, and
    one step under torch.profiler (device busy time and share, the
-   kernels that took most of it);
+   kernels that took most of it); then the six LC train steps
+   (nusc_lc_train, r50_lc_train, kitti_lc_train, waymo_lc_train,
+   pillar_r50_lc_train, pillar_v299_lc_train) at each config's own batch
+   size, with lc_batch's images and rig, GridMask and dropout as
+   configured, seeded non-zero DCNv2 offsets on Waymo LC, the LiDAR branch
+   frozen: K1 and K2 in its forward, K5 once a head iteration for the
+   image RoIAlign and none for the BEV table, no K3 or K4; a finite grad
+   for every trainable parameter, and the frozen parameters (freeze_mask)
+   and the buffers of every module in eval mode unchanged bit for bit
+   after every step;
 11. tiny predicts (tiny_test_config; tiny_kitti_test_config and
    tiny_test_config with middle.rulebook="table"; tiny_pillar_test_config
    with its own corner RoIAlign; two tiny LC configs: VoVNet-19-slim on
    2 cameras, and a caffe ResNet-50 with DCNv2 in stages 3-4 and a BN
-   neck), and 12. two tiny train steps each of
-   tiny_test_config and of tiny_kitti_test_config (code size 8), with the
-   kernels on the card against the same weights on the CPU with the plain
-   versions; then one profiled predict of each full-width predict config,
-   the LC ones included (*_predict_busy: device busy time and share);
-13. kernel device times, measured after every end-to-end phase: every K1
-   conv (flagship and KITTI) and every K3 / K4 conv, one line each: the
-   kernels' own device time from torch.profiler (kernel_device_ms; for K4
-   with its preparation kernels, and their share as prep_device_ms), K5's
-   (roi_bwd_device), K2's query kernel at each flagship subm stage with
-   its plan map apart (eqmatch_device: device_ms, prep_device_ms) and
-   K6's lookup kernel at every lookup of both table walks with each
-   table's hash build apart (rulebook_lookup_device);
-14. the `kernels` line: per kernel, launches (per flagship predict for K1
+   neck), and 12. two tiny train steps each of tiny_test_config, of
+   tiny_kitti_test_config (code size 8) and of the tiny VoVNet LC config,
+   and one of the tiny ResNet-50 LC config (TINY_LC_TRAIN: the LiDAR
+   branch and the backbone's stem and stage 1 frozen, GridMask off), with
+   the kernels on the card against the same
+   weights on the CPU with the plain versions; then one profiled predict
+   of each full-width predict config, the LC ones included
+   (*_predict_busy: device busy time and share);
+13. the `kernels` line: per kernel, launches (per flagship predict for K1
    and K2, per flagship train step for K3-K5, per KITTI table predict for
    K6), max error against the plain version, and times per predict or per
    train step (kernel, plain version, bound, one PyTorch library call);
    the gather-GEMM kernels K1, K3 and K4 also carry tc_bound_ms (equal
    to their bound_ms), simt_bound_ms and device_ms (profiler), K5
-   device_ms, K2 and K6 device_ms, host_ms (a wrapper call's, summed),
-   prep_ms and prep_device_ms (plan maps, hash builds) and builds; every
-   kernel also carries lc_launches, its launches in each LC predict.
+   device_ms and img_geometry (roi_bwd_img's numbers), K2 and K6
+   device_ms, host_ms (a wrapper call's, summed), prep_ms and
+   prep_device_ms (plan maps, hash builds) and builds; every kernel also
+   carries lc_launches, its launches in each LC predict, and
+   lc_train_launches, its launches in each LC train step.
 
 The second-to-last line is nvidia-smi's name and power limit; the last line
 is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -365,7 +386,9 @@ def kernel_device_ms(fn, per_call: int, iters: int = 10, tries: int = 3,
             seen += e.count
         if seen == per_call * iters:
             return own / 1e3 / iters
-    return None
+    raise AssertionError(f"kernel_device_ms: no profiler session of {tries} "
+                         f"saw {per_call * iters} launches of {names} "
+                         f"(last: {seen})")
 
 
 def bounds(flops: float, nbytes: float):
@@ -632,36 +655,25 @@ def check_conv_bwd(cases, dev, gen):
     return totals
 
 
-def check_roi_bwd(cfg, dev, gen):
-    """K5 at one config's head geometry (the flagship's: batch 2 x 900 RoIs,
-    the four FPN levels at C 128, strides 8-64, patch 32 with 64 fallback
-    slots; KITTI's at C 256, patch 0; the pillar head's at strides 2-16, a
-    256 x 256 finest level, patch 0), RoIs from boxes of 0.5-12 m anywhere
-    in range; against index_add_ (the plain version).  The global atomics a launch, counted from the corners on the
-    card: before the window sums one a live corner sample and channel,
-    after one a distinct live table row of a RoI and channel.  Returns one
-    launch's numbers and the launch's inputs."""
-    from srfdet3d_torch.models.detector import bev_geometry
-    from srfdet3d_torch.models.head import lidar_rois_from_boxes
+def roi_bwd_case(phase, sizes, rois, strides, c, dev, gen, patch=0,
+                 fallback=-1, **extra):
+    """K5 on the corners of `rois` (B', R, 4) over the levels `sizes`
+    (each (H, W), B' tables of them), C channels: against index_add_ (the
+    plain version) within RTOL + ATOL * sqrt(adds to the busiest row); the
+    global atomics a launch, counted from the corners on the card (before
+    the window sums one a live corner sample and channel, after one a
+    distinct live table row of a RoI and channel); the max difference of
+    two launches; ms, the plain version's, index_add_'s and the byte
+    bound.  Emits one line (with `extra`) and returns (it, the launch's
+    inputs)."""
     from srfdet3d_torch.ops.roi_align import corner_samples
     from srfdet3d_torch.ops.roi_scatter import (roi_scatter,
                                                 roi_scatter_plain,
                                                 sample_grads)
-    hc = cfg.head
-    b, r, c, out, sr = 2, hc.num_proposals, hc.feat_channels_lidar, 7, 2
-    _, sizes = bev_geometry(cfg)
-    rng = np.random.default_rng(1)
-    lo, hi = np.array(cfg.pc_range[:3]), np.array(cfg.pc_range[3:6])
-    boxes = np.zeros((b, r, hc.code_size), np.float32)
-    boxes[..., :3] = rng.uniform(lo, hi, (b, r, 3))
-    boxes[..., 3:6] = np.log(rng.uniform(0.5, 12.0, (b, r, 3)))
-    yaw = rng.uniform(-np.pi, np.pi, (b, r))
-    boxes[..., 6], boxes[..., 7] = np.sin(yaw), np.cos(yaw)
-    rois = lidar_rois_from_boxes(torch.from_numpy(boxes).to(dev),
-                                 cfg.pc_range, cfg.voxel_size)
-    cs = corner_samples(sizes, rois, hc.lidar_strides, out, sr,
-                        patch=hc.roi_patch,
-                        patch_fallback=hc.roi_patch_fallback)
+    b, r = rois.shape[:2]
+    out, sr = 7, 2
+    cs = corner_samples(sizes, rois, strides, out, sr, patch=patch,
+                        patch_fallback=fallback)
     idx, wgt, drop = cs.idx, cs.wgt, cs.drop
     rows = b * sum(h * w for h, w in sizes)
     gp = torch.randn(b * r, out, out, c, generator=gen).to(dev)
@@ -677,12 +689,14 @@ def check_roi_bwd(cfg, dev, gen):
     torch.cuda.synchronize()
     live = (wgt != 0) & ~drop[:, None, None, None]
     per_row = int(torch.bincount(idx[live].reshape(-1),
-                                 minlength=rows).max())
+                                 minlength=rows).max()) if live.any() else 0
     err = (got - ref).abs()
     tol = RTOL * ref.abs() + ATOL * math.sqrt(max(per_row, 1))
     if not bool((err <= tol).all()):
-        raise AssertionError(f"roi_scatter: max err {float(err.max())} "
-                             f"over tolerance")
+        raise AssertionError(f"{phase}: max err {float(err.max())} over "
+                             f"tolerance")
+    if not (bool(torch.isfinite(got).all()) and bool(ref.abs().max() > 0)):
+        raise AssertionError(f"{phase}: non-finite or all-zero cotangent")
     rid = torch.arange(b * r, device=dev)[:, None, None, None]
     touched = torch.unique(rid.expand_as(idx)[live] * rows + idx[live])
     atomics_before = int(live.sum()) * c
@@ -701,17 +715,87 @@ def check_roi_bwd(cfg, dev, gen):
     nbytes = (4.0 * (gp.numel() + cs.cells.numel() + cs.cw.numel() +
                      cs.level.numel() + rows * c) + drop.numel())
     bound = nbytes / PEAK_BYTES * 1e3
-    row = dict(phase="roi_bwd", config=cfg.name, rois=b * r, levels=sizes,
-               strides=list(hc.lidar_strides), c=c,
-               patch=hc.roi_patch, fallback=hc.roi_patch_fallback,
-               dropped=int(drop.sum()), max_adds_per_row=per_row,
-               max_abs_err=float(err.max()),
+    row = dict(phase=phase, rois=b * r, levels=sizes, strides=list(strides),
+               c=c, table_rows=rows, **extra, patch=patch,
+               fallback=fallback, dropped=int(drop.sum()),
+               live_rois=int(live.flatten(1).any(1).sum()),
+               max_adds_per_row=per_row, max_abs_err=float(err.max()),
                run_to_run_max_diff=float((got - again).abs().max()),
                atomics_before=atomics_before, atomics_after=atomics_after,
                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
                bound_by="bytes")
     emit(row)
     return row, (args, got, per_row)
+
+
+def check_roi_bwd(cfg, dev, gen):
+    """K5 at one config's BEV head geometry (the flagship's: batch 2 x 900
+    RoIs, the four FPN levels at C 128, strides 8-64, patch 32 with 64
+    fallback slots; KITTI's at C 256, patch 0; the pillar head's at
+    strides 2-16, a 256 x 256 finest level, patch 0), RoIs from boxes of
+    0.5-12 m anywhere in range: roi_bwd_case."""
+    from srfdet3d_torch.models.detector import bev_geometry
+    from srfdet3d_torch.models.head import lidar_rois_from_boxes
+    hc = cfg.head
+    b, r = 2, hc.num_proposals
+    _, sizes = bev_geometry(cfg)
+    boxes = random_boxes(cfg, b, r, seed=1)
+    rois = lidar_rois_from_boxes(boxes.to(dev), cfg.pc_range,
+                                 cfg.voxel_size)
+    return roi_bwd_case("roi_bwd", sizes, rois, hc.lidar_strides,
+                        hc.feat_channels_lidar, dev, gen, hc.roi_patch,
+                        hc.roi_patch_fallback, config=cfg.name)
+
+
+def random_boxes(cfg, b, r, seed):
+    """(b, r, code) boxes with absolute centers anywhere in pc_range,
+    sizes 0.5-12 m, any yaw."""
+    hc = cfg.head
+    rng = np.random.default_rng(seed)
+    lo, hi = np.array(cfg.pc_range[:3]), np.array(cfg.pc_range[3:6])
+    boxes = np.zeros((b, r, hc.code_size), np.float32)
+    boxes[..., :3] = rng.uniform(lo, hi, (b, r, 3))
+    boxes[..., 3:6] = np.log(rng.uniform(0.5, 12.0, (b, r, 3)))
+    yaw = rng.uniform(-np.pi, np.pi, (b, r))
+    boxes[..., 6], boxes[..., 7] = np.sin(yaw), np.cos(yaw)
+    return torch.from_numpy(boxes)
+
+
+def check_img_roi_bwd(cfg, dev, gen):
+    """K5 at an LC config's image geometry, as its train step runs it: one
+    sample's boxes (0.5-12 m anywhere in range, as many as proposals)
+    projected through camera_rig's cameras (img_rois_from_boxes: RoIs off
+    the image and ~1e6 px RoIs of boxes behind a camera included), every
+    camera-proposal pair (img_roi_cap 0) or each camera's first cap
+    visible pairs (compact_pairs); the image levels at strides 4-32 of
+    every camera, at the pooled table's width (hidden_dim).
+    roi_bwd_case."""
+    from srfdet3d_torch.geometry.boxes import boxes3d_to_corners3d
+    from srfdet3d_torch.models.head import compact_pairs, img_rois_from_boxes
+    hc, ic = cfg.head, cfg.img
+    n_p, cap = hc.num_proposals, hc.img_roi_cap
+    h, w = ic.img_shape
+    sizes = [(h // s, w // s) for s in hc.img_strides]
+    boxes = random_boxes(cfg, 1, n_p, seed=2).to(dev)
+    l2i = torch.from_numpy(camera_rig(cfg, 1, seed=0)).to(dev)
+    cam_rois = img_rois_from_boxes(boxes, l2i)        # (1, n_cam, n_p, 4)
+    corners = boxes3d_to_corners3d(boxes[..., :8], bottom_center=False,
+                                   yaw_as_sincos=True, log_size=True)
+    hom = torch.cat([corners, torch.ones_like(corners[..., :1])], -1)
+    depth = torch.einsum("bkij,bpcj->bkpci", l2i, hom)[..., 2]
+    behind = int((depth < 1e-5).any(-1).sum())
+    if cap:
+        rois, _ = compact_pairs(cam_rois, (h, w), hc.img_strides, cap)
+    else:
+        rois = cam_rois.reshape(ic.num_cams, n_p, 4)
+    width = (rois[..., 2] - rois[..., 0]).abs()
+    return roi_bwd_case(
+        "roi_bwd_img", sizes, rois, hc.img_strides, hc.hidden_dim, dev, gen,
+        config=cfg.name, cameras=ic.num_cams, img_roi_cap=cap,
+        pairs_behind_camera=behind,
+        widest_roi_px=float(width[width < 1e5].max()) if bool(
+            (width < 1e5).any()) else None,
+        rois_over_1e5_px=int((width >= 1e5).sum()))
 
 
 def sync_free(strided_case, roi_case, eq_case, lookup_case, dev, gen):
@@ -1130,19 +1214,50 @@ def predict_busy(phase, cfg, batch, smi, prepare=None):
 
 def train_launches(model):
     """Launches per train step the model's structure gives: the forward's
-    (predict_launches), every subm conv's backward (K3), every strided and
-    conv_out backward (K4), one RoIAlign backward per head iteration
-    (K5); on the pillar path K5's alone."""
+    (predict_launches); unless freeze_lidar cuts the LiDAR branch's
+    backward, every subm conv's backward (K3), every strided and conv_out
+    backward (K4) and one BEV RoIAlign backward per head iteration (K5);
+    with the image branch one image RoIAlign backward per head iteration
+    (K5: the pooled image table always needs its grad).  The pillar path
+    has no sparse conv: K5's alone."""
     from srfdet3d_torch.models.sparse_encoder import GatheredConvBN
+    cfg = model.cfg
+    lidar_bwd = not cfg.optim.freeze_lidar
     convs = []
-    if model.cfg.middle.kind != "pillar_scatter":
+    if cfg.middle.kind != "pillar_scatter" and lidar_bwd:
         convs = [mod for mod in model.pts_middle_encoder.modules()
                  if isinstance(mod, GatheredConvBN)]
     n_subm = sum(c.subm for c in convs)
+    iters = len(model.bbox_head.heads)
     want = predict_launches(model)
     want.update(subm_bwd=n_subm, strided_bwd=len(convs) - n_subm,
-                roi_scatter=len(model.bbox_head.heads))
+                roi_scatter=iters * (int(lidar_bwd) + int(cfg.use_img)))
     return want
+
+
+def train_batch(cfg, b: int, seed: int = 0):
+    """synthetic_batch with GT, and an LC config's cameras (lc_batch)."""
+    batch = synthetic_batch(cfg, b, seed=seed, with_gt=True)
+    if cfg.use_img:
+        cams = lc_batch(cfg, b, seed=seed)
+        batch.update(images=cams["images"], lidar2img=cams["lidar2img"])
+    return batch
+
+
+def frozen_state(model, opt):
+    """What a train step must leave bit for bit, by name: the parameters
+    outside the optimizer (freeze_mask), and the buffers of every module
+    in eval mode during training (the frozen LiDAR branch, the image
+    backbone under norm_eval)."""
+    model.train()
+    trainable = {id(p) for p in opt.params}
+    state = {f"param {n}": p for n, p in model.named_parameters()
+             if id(p) not in trainable}
+    for name, mod in model.named_modules():
+        if not mod.training:
+            for b, buf in mod.named_buffers(recurse=False):
+                state[f"buffer {name}.{b}"] = buf
+    return state
 
 
 def device_busy(fn, top: int = 10):
@@ -1174,23 +1289,31 @@ def device_busy(fn, top: int = 10):
                              for ms, n, name in kernels[:top]])
 
 
-def train_phase(phase, cfg, smi, warmup: int = 2, steps: int = 10):
-    """One config's train step at full width, batch 2, synthetic scene and
-    GT (7 columns at code size 8, else 9), dropout as configured, seeded
-    random weights: launch counts against train_launches every step,
-    finite losses, a finite grad and a move for every parameter, step p50
-    over `steps`, peak memory, the step's parts and one profiled step.
-    Returns the launches a step."""
+def train_phase(phase, cfg, smi, warmup: int = 2, steps: int = 10,
+                batch_size: int = 2, prepare=None):
+    """One config's train step at full width, `batch_size` samples of the
+    synthetic scene and GT (7 columns at code size 8, else 9; an LC
+    config's seeded images and camera_rig; GridMask and dropout as
+    configured, from one generator on the card), seeded random weights
+    (`prepare(model)` edits them first): launch counts against
+    train_launches every step, finite losses, a finite grad and a move for
+    every trainable parameter, the frozen parameters and the eval-mode
+    modules' buffers (frozen_state) unchanged bit for bit after every
+    step, step p50 over `steps`, peak memory, the step's parts and one
+    profiled step.  Returns the launches a step."""
     from srfdet3d_torch.models.detector import SRFDet
     from srfdet3d_torch.models.losses import srfdet_losses
     from srfdet3d_torch.train.trainer import make_optimizer, train_step
     model = SRFDet(cfg, device="cuda", seed=0)
-    batch = {k: v.cuda() for k, v in
-             synthetic_batch(cfg, 2, seed=0, with_gt=True).items()}
+    if prepare is not None:
+        prepare(model)
+    batch = {k: v.cuda() for k, v in train_batch(cfg, batch_size).items()}
     opt = make_optimizer(model, cfg, total_steps=1000)
     gen = torch.Generator(device="cuda").manual_seed(0)
     want = train_launches(model)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    frozen = frozen_state(model, opt)
+    frozen_before = {k: v.detach().clone() for k, v in frozen.items()}
 
     def step():
         reset_counts()
@@ -1198,25 +1321,34 @@ def train_phase(phase, cfg, smi, warmup: int = 2, steps: int = 10):
         torch.cuda.synchronize()
         counts = read_counts()
         if counts != want:
-            raise AssertionError(f"train step launched {counts}, the "
-                                 f"model's structure gives {want}")
+            raise AssertionError(f"{phase}: train step launched {counts}, "
+                                 f"the model's structure gives {want}")
         bad = [k for k, v in metrics.items()
                if not bool(torch.isfinite(v).all())]
         if bad:
-            raise AssertionError(f"train step: non-finite {bad}")
+            raise AssertionError(f"{phase}: non-finite {bad}")
+        moved = [k for k, v in frozen.items()
+                 if not torch.equal(v, frozen_before[k])]
+        if moved:
+            raise AssertionError(f"{phase}: frozen state changed: "
+                                 f"{moved[:4]}")
         return metrics
 
     first = step()
-    # every parameter got a finite grad and moved; a parameter can only
+    # every trainable parameter got a finite grad and moved; one can only
     # stay put under AdamW if its grad and its value are exactly zero
     stuck = []
     for name, p in model.named_parameters():
+        if f"param {name}" in frozen:
+            if p.grad is not None:
+                raise AssertionError(f"{phase}: frozen {name} has a grad")
+            continue
         if p.grad is None or not bool(torch.isfinite(p.grad).all()):
-            raise AssertionError(f"train step: {name} has no finite grad")
+            raise AssertionError(f"{phase}: {name} has no finite grad")
         if torch.equal(p.detach(), before[name]):
             stuck.append(name)
             if bool(p.grad.any()) or bool(p.detach().any()):
-                raise AssertionError(f"train step: {name} did not move")
+                raise AssertionError(f"{phase}: {name} did not move")
     del before
     for _ in range(warmup - 1):
         step()
@@ -1255,13 +1387,19 @@ def train_phase(phase, cfg, smi, warmup: int = 2, steps: int = 10):
         for part, a, b_ in (("forward", t0, t1), ("loss_ota", t1, t2),
                             ("backward", t2, t3), ("optimizer", t3, t4)):
             parts.setdefault(part, []).append((b_ - a) * 1e3)
-    emit(dict(phase=phase, config=cfg.name, batch=2,
+    n_frozen = sum(k.startswith("param ") for k in frozen)
+    emit(dict(phase=phase, config=cfg.name, batch=batch_size,
               points=cfg.points_cap, gt_valid=8,
               gt_columns=batch["gt_boxes"].shape[-1],
               dropout=cfg.head.dropout,
+              grid_mask=bool(cfg.use_img and cfg.img.use_grid_mask),
               launches_per_step=want, finite=True,
               params=sum(p.numel() for p in opt.params),
-              leaves=len(opt.params), zero_grad_unmoved=stuck,
+              leaves=len(opt.params), frozen_leaves=n_frozen,
+              frozen_params=sum(p.numel() for k, p in frozen.items()
+                                if k.startswith("param ")),
+              frozen_buffers=len(frozen) - n_frozen,
+              zero_grad_unmoved=stuck,
               first_loss=float(first["loss"]),
               last_loss=float(last["loss"]),
               first_grad_norm=float(first["grad_norm"]),
@@ -1297,7 +1435,8 @@ def tiny_kitti_train_setup():
                                   gt_cap=4), 23, 5
 
 
-def tiny_train(cfg, model_seed: int, batch_seed: int, steps: int = 2):
+def tiny_train(cfg, model_seed: int, batch_seed: int, steps: int = 2,
+               prepare=None):
     """Tiny train steps: kernels on the card vs plain versions on the CPU.
     Each step starts both from the same state (the CPU's weights, BN
     statistics and AdamW moments), so each compares one step, not two
@@ -1319,13 +1458,21 @@ def tiny_train(cfg, model_seed: int, batch_seed: int, steps: int = 2):
     tests/test_torch_port_train.py::test_tiny_train_seeds_are_well_conditioned
     and tests/test_torch_port_dvoxel.py::
     test_tiny_kitti_train_seeds_are_well_conditioned hold every leaf's grad
-    within 1e-3 under 1e-6 noise on the weights, for both steps."""
+    within 1e-3 under 1e-6 noise on the weights, for both steps; for the
+    tiny LC configs (TINY_LC_TRAIN, GridMask off: the card's generator
+    draws other masks than the CPU's)
+    tests/test_torch_port_lc_train.py::test_tiny_lc_seeds_are_well_conditioned.
+    An LC config also gets train_batch's images and camera rig, and
+    `prepare(model)` edits the CPU model's seeded weights; its frozen
+    parameters (freeze_mask) get no grad on either side and stay put."""
     from srfdet3d_torch.models.detector import SRFDet
     from srfdet3d_torch.train.trainer import (make_lr_schedule,
                                               make_optimizer, train_step)
-    batch = synthetic_batch(cfg, 2, seed=batch_seed, with_gt=True)
+    batch = train_batch(cfg, 2, seed=batch_seed)
     gbatch = {k: v.cuda() for k, v in batch.items()}
     cpu = SRFDet(cfg, device="cpu", seed=model_seed)
+    if prepare is not None:
+        prepare(cpu)
     gpu = SRFDet(cfg, device="cuda", seed=model_seed)
     want = train_launches(gpu)
     opt_c, opt_g = make_optimizer(cpu, cfg, 100), make_optimizer(gpu, cfg,
@@ -1355,8 +1502,16 @@ def tiny_train(cfg, model_seed: int, batch_seed: int, steps: int = 2):
                                 float((mg[k].cpu() - v).abs()))
         pc = dict(cpu.named_parameters())
         pg = dict(gpu.named_parameters())
-        tree_max = max(float(p.grad.abs().max()) for p in pc.values())
+        trained = {id(p) for p in opt_c.params}
+        tree_max = max(float(p.grad.abs().max()) for p in pc.values()
+                       if id(p) in trained)
         for n, p in pc.items():
+            if id(p) not in trained:
+                if p.grad is not None or pg[n].grad is not None or \
+                        not torch.equal(pg[n].detach().cpu(), p.detach()):
+                    raise AssertionError(f"tiny train step {i}: frozen {n} "
+                                         f"got a grad or moved")
+                continue
             ref, got = p.grad, pg[n].grad.cpu()
             scale = max(float(ref.abs().max()), 1e-5 * tree_max)
             err = float((got - ref).abs().max())
@@ -1385,6 +1540,7 @@ def tiny_train(cfg, model_seed: int, batch_seed: int, steps: int = 2):
                                            atol=1e-5)
     emit(dict(phase="tiny_train", config=cfg.name,
               code_size=cfg.head.code_size, seeds=[model_seed, batch_seed],
+              frozen_leaves=len(pc) - len(opt_c.params),
               steps=steps, launches_last_step=counts,
               lr=lr(0), loss_first=float(mc["loss"]), worst_leaf=worst_leaf,
               **{f"max_{k}_err": v for k, v in worst.items()}))
@@ -1488,14 +1644,13 @@ def table_backend(cfg):
 def kernel_device_times(cfg, kcfg, batch, kbatch, roi_args, dev, gen):
     """Kernel-only device ms (kernel_device_ms) of every K1 conv (flagship
     and KITTI, batch 1) and every K3 / K4 conv (flagship, batch 2), one
-    line per conv beside the gather_conv and conv_bwd lines, after every
-    end-to-end timing, so that no profiler session runs before them.
-    Then K5's at roi_bwd's inputs (roi_args), K2's at every flagship subm
-    stage (eqmatch_device) and K6's at every lookup of the KITTI and
-    flagship table walks (rulebook_lookup_device).  Returns the sums per
-    flagship predict (K1, K2), train step (K3, K4) and KITTI table predict
-    (K6) as {device_ms}, None where a case's is missing, and K5's a
-    launch."""
+    line per conv beside the gather_conv and conv_bwd lines, before the
+    end-to-end phases: a profiler session late in the process misses
+    launches.  Then K5's at roi_bwd's inputs (roi_args), K2's at every
+    flagship subm stage (eqmatch_device) and K6's at every lookup of the
+    KITTI and flagship table walks (rulebook_lookup_device).  Returns the
+    sums per flagship predict (K1, K2), train step (K3, K4) and KITTI table
+    predict (K6) as {device_ms}, and K5's a launch."""
     from srfdet3d_torch.ops import gather_conv_bwd as gcb
     from srfdet3d_torch.ops.gather_conv import gather_conv
     from srfdet3d_torch.ops.roi_scatter import roi_scatter
@@ -1506,9 +1661,7 @@ def kernel_device_times(cfg, kcfg, batch, kbatch, roi_args, dev, gen):
                         "rulebook_lookup_prep")}
 
     def add(key, own, times):
-        t = sums[key]
-        t["device_ms"] = None if own is None or t["device_ms"] is None \
-            else t["device_ms"] + times * own
+        sums[key]["device_ms"] += times * own
     with torch.no_grad():
         for c, b in ((cfg, batch), (kcfg, kbatch)):
             cases, subm_cases = encoder_rulebooks(c, b, dev)
@@ -1627,32 +1780,44 @@ LC_PHASES = (
 # scores are apart
 TINY_LC_SEEDS = (3, 4)
 
+# the LC train phases: (phase, config), each at its config's own
+# optim.batch_size_per_device (1; KITTI LC 4; Waymo LC 2)
+LC_TRAIN_PHASES = (
+    ("nusc_lc_train", "srfdet_voxel_nusc_LC"),
+    ("r50_lc_train", "srfdet_voxel_r50_LC"),
+    ("kitti_lc_train", "srfdet_voxel_kitti_LC"),
+    ("waymo_lc_train", "srfdet_dvoxel_waymo_LC"),
+    ("pillar_r50_lc_train", "srfdet_pillar_r50_LC"),
+    ("pillar_v299_lc_train", "srfdet_pillar_v299_LC"),
+)
+
+# the tiny LC train steps held card against CPU: (tiny_lc_test_config's
+# backbone, its options, model seed, batch seed, steps).  As the shipped
+# LC fine-tunes set them (the LiDAR branch frozen, the stem and stage 1
+# frozen; norm_frozen as on Waymo LC), GridMask off (the card's generator
+# draws other masks than the CPU's).  The seeds keep every trainable
+# leaf's grad within 1e-3 under a 1e-6 change of the weights, each step
+# (tests/test_torch_port_lc_seeds.py).  ResNet-50 takes one step: at 64 x
+# 128 its deep stages run on 8-32 pixels a channel, where one ReLU input
+# crossing zero moves a weight's grad by percents, and of over 70 seeds,
+# frozen stages and image sizes tried none kept a second step's grads
+# within 1e-3 (the first step's at seeds 2, 0: 5e-4).
+TINY_LC_TRAIN = (
+    ("vovnet", dict(frozen_stages=1, use_grid_mask=False), 8, 1, 2),
+    ("r50_dcn", dict(frozen_stages=1, norm_frozen=True,
+                     use_grid_mask=False), 2, 0, 1),
+)
+
 
 def tiny_lc_configs():
-    """The tiny LC configs held card against CPU: VoVNet-19-slim on 2
-    cameras (a 64-channel plain image neck reduced to the head's 32 by
-    img_conv, every camera-proposal pair pooled), and a caffe ResNet-50
-    with DCNv2 in stages 3-4 and a 32-channel BN + ReLU neck (no img_conv,
-    8 image-RoI slots a camera); 64 x 128 images."""
-    import dataclasses
-    from srfdet3d_torch.config import ImgBranchConfig
-    from srfdet3d_torch.configs import tiny_test_config
-    base = tiny_test_config()
-    vov = base.replace(
-        name="tiny_lc_vovnet", use_img=True,
-        img=ImgBranchConfig(backbone="vovnet-19-slim", num_cams=2,
-                            neck_out_channels=64, img_shape=(64, 128)),
-        head=dataclasses.replace(base.head, feat_channels_img=64))
-    r50 = base.replace(
-        name="tiny_lc_r50_dcn", use_img=True,
-        img=ImgBranchConfig(backbone="resnet-50", num_cams=2,
-                            neck_out_channels=32, neck_norm=True,
-                            resnet_style="caffe",
-                            stage_with_dcn=(False, False, True, True),
-                            img_shape=(64, 128)),
-        head=dataclasses.replace(base.head, feat_channels_img=32,
-                                 img_roi_cap=8))
-    return vov, r50
+    """The tiny LC configs held card against CPU in predict
+    (tiny_lc_test_config): VoVNet-19-slim on 2 cameras (a 64-channel plain
+    image neck reduced to the head's 32 by img_conv, every camera-proposal
+    pair pooled), and a caffe ResNet-50 with DCNv2 in stages 3-4 and a
+    32-channel BN + ReLU neck (no img_conv, 8 image-RoI slots a camera);
+    64 x 128 images."""
+    from srfdet3d_torch.configs import tiny_lc_test_config
+    return tuple(tiny_lc_test_config(b) for b in ("vovnet", "r50_dcn"))
 
 
 def kernel_entry(name, source, replaces, launches, t, max_err):
@@ -1667,7 +1832,8 @@ def kernel_entry(name, source, replaces, launches, t, max_err):
     # bound_ms), the bound of the earlier SIMT kernels and their kernel-only
     # device time
     for key in ("tc_bound_ms", "simt_bound_ms", "device_ms", "host_ms",
-                "prep_ms", "prep_device_ms", "builds", "lc_launches"):
+                "prep_ms", "prep_device_ms", "builds", "lc_launches",
+                "lc_train_launches", "img_geometry"):
         if key in t:
             entry[key] = t[key]
     return entry
@@ -1684,6 +1850,7 @@ def main() -> int:
                                         srfdet_voxel_kitti_L,
                                         srfdet_voxel_nusc_L,
                                         tiny_kitti_test_config,
+                                        tiny_lc_test_config,
                                         tiny_pillar_test_config,
                                         tiny_test_config)
     from srfdet3d_torch.configs import CONFIGS
@@ -1743,6 +1910,18 @@ def main() -> int:
                   eq_case, lookups[0], dev, gen)
         roi_args = roi_case[0]
         del train_cases, roi_case, eq_case, lookups
+        # K5 at the image geometry of the LC train steps: the cap-320
+        # flagship LC (1,920 RoIs) and the pillar ResNet-50 LC (no cap:
+        # 5,400)
+        k5_img = [check_img_roi_bwd(CONFIGS[name](), dev, gen)[0]
+                  for name in ("srfdet_voxel_nusc_LC",
+                               "srfdet_pillar_r50_LC")]
+    torch.cuda.empty_cache()
+    # kernel-only device times first: late in the process a profiler
+    # session misses launches
+    device = kernel_device_times(cfg, kcfg, batch, kbatch, roi_args, dev,
+                                 gen)
+    del roi_args
     torch.cuda.empty_cache()
 
     none = dict.fromkeys(COUNTED, 0)
@@ -1799,6 +1978,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_phase("pillar_train", pcfg, smi, warmup=1, steps=5)
     torch.cuda.empty_cache()
+    # the six LC train steps at full width, each at its own batch size,
+    # the LiDAR branch frozen: K1 and K2 in the frozen voxel encoders'
+    # forward, K5 once a head iteration for the image RoIAlign, no K3 or
+    # K4 and no BEV K5 (the BEV table needs no grad)
+    lc_train = {}
+    for phase, name in LC_TRAIN_PHASES:
+        c = CONFIGS[name]()
+        lc_train[phase] = train_phase(
+            phase, c, smi, warmup=1, steps=3,
+            batch_size=c.optim.batch_size_per_device,
+            prepare=seed_dcn_offsets)
+        torch.cuda.empty_cache()
     tiny_end_to_end(tiny_test_config())
     tiny_end_to_end(table_backend(tiny_kitti_test_config()))
     tiny_end_to_end(table_backend(tiny_test_config()))
@@ -1807,6 +1998,9 @@ def main() -> int:
         tiny_end_to_end(c, prepare=seed_dcn_offsets, seed=seed)
     tiny_train(*tiny_train_setup())
     tiny_train(*tiny_kitti_train_setup())
+    for backbone, opts, model_seed, batch_seed, steps in TINY_LC_TRAIN:
+        tiny_train(tiny_lc_test_config(backbone, **opts), model_seed,
+                   batch_seed, steps, prepare=seed_dcn_offsets)
     for phase, c, b in (("flagship", cfg, batch), ("kitti", kcfg, kbatch),
                         ("kitti_table", table_backend(kcfg), kbatch),
                         ("flagship_table", table_backend(cfg), batch),
@@ -1820,8 +2014,6 @@ def main() -> int:
         predict_busy(f"{phase}_busy", c, lc_batch(c, 1, seed=0), smi,
                      seed_dcn_offsets)
         torch.cuda.empty_cache()
-    device = kernel_device_times(cfg, kcfg, batch, kbatch, roi_args, dev,
-                                 gen)
     k1.update(device["gather_conv"])
     k2.update(device["eqmatch"])
     k6.update(device["rulebook_lookup"])
@@ -1832,13 +2024,18 @@ def main() -> int:
     k5_step = {key: k5_steps * k5[key]
                for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
     k5_step["bound_by"] = "bytes"
-    k5_dev = device["roi_scatter"]["device_ms"]
-    k5_step["device_ms"] = None if k5_dev is None else k5_steps * k5_dev
+    k5_step["device_ms"] = k5_steps * device["roi_scatter"]["device_ms"]
+    k5_step["img_geometry"] = [
+        {key: row[key] for key in ("config", "rois", "c", "table_rows", "ms",
+                                   "plain_ms", "library_ms", "bound_ms",
+                                   "max_abs_err")} for row in k5_img]
     for entry, key in ((k1, "gather_conv"), (k2, "eqmatch"),
                        (bwd["subm"], "subm_bwd"),
                        (bwd["strided"], "strided_bwd"),
                        (k5_step, "roi_scatter"), (k6, "rulebook_lookup")):
         entry["lc_launches"] = {ph: c[key] for ph, c in lc_launches.items()}
+        entry["lc_train_launches"] = {ph: c[key]
+                                      for ph, c in lc_train.items()}
     emit({"kernels": [
         kernel_entry("gather_conv", "srfdet3d_torch/csrc/gather_conv.cu",
                      "srfdet3d_tpu/ops/pallas_onehot.py:67", k1_launches,

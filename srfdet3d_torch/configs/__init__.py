@@ -3,7 +3,9 @@ all 11 shipped models, the five LiDAR-only ones (the flagship voxel, the
 pillar and the dynamic-voxel nuScenes models, the KITTI voxel model, the
 Waymo dynamic-voxel model) and their six LiDAR-camera (LC) twins, and the
 miniature test configs of the voxel, KITTI and pillar families.
-`get_config(name)` resolves them by the JAX package's names."""
+`get_config(name)` resolves them by the JAX package's names.  The tiny LC
+configs (`tiny_lc_test_config`) are the port's own: the JAX package ships
+none, and its tests build the same ones from its own config classes."""
 
 from __future__ import annotations
 
@@ -318,6 +320,37 @@ def tiny_pillar_test_config(**overrides) -> SRFDetConfig:
                                  lidar_strides=(2, 4, 8, 16)),
         ota=OTAConfig(pc_range=pc))
     return cfg.replace(**overrides) if overrides else cfg
+
+
+def tiny_lc_test_config(backbone: str = "vovnet", freeze_img: bool = False,
+                        freeze_lidar: bool = True, **img) -> SRFDetConfig:
+    """A miniature LC config on tiny_test_config: two 64 x 128 cameras and
+    the LiDAR branch frozen, as in the shipped LC fine-tunes.  "vovnet":
+    VoVNet-19-slim, a 64-channel plain image neck reduced to the head's 32
+    by img_conv, every camera-proposal pair pooled; "r50_dcn": a caffe
+    ResNet-50 with DCNv2 in stages 3-4, a 32-channel BN + ReLU neck (no
+    img_conv) and 8 image-RoI slots a camera.  `img` overrides
+    ImgBranchConfig fields (frozen_stages, norm_frozen, norm_eval,
+    use_grid_mask, ...)."""
+    base = tiny_test_config()
+    if backbone == "vovnet":
+        branch = dict(backbone="vovnet-19-slim", neck_out_channels=64)
+        head = dict(feat_channels_img=64)
+    elif backbone == "r50_dcn":
+        branch = dict(backbone="resnet-50", neck_out_channels=32,
+                      neck_norm=True, resnet_style="caffe",
+                      stage_with_dcn=(False, False, True, True))
+        head = dict(feat_channels_img=32, img_roi_cap=8)
+    else:
+        raise KeyError(f"no tiny LC backbone {backbone!r}: 'vovnet' or "
+                       f"'r50_dcn'")
+    branch = {"num_cams": 2, "img_shape": (64, 128), **branch, **img}
+    return base.replace(
+        name=f"tiny_lc_{backbone}", use_img=True,
+        img=ImgBranchConfig(**branch),
+        head=dataclasses.replace(base.head, **head),
+        optim=dataclasses.replace(base.optim, freeze_img=freeze_img,
+                                  freeze_lidar=freeze_lidar))
 
 
 CONFIGS = {

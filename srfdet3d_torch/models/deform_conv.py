@@ -9,7 +9,8 @@ sigmoid of its logit, and the taps contract with the kernel as one
 offsets interleaved per tap, (dy_0, dx_0, dy_1, dx_1, ...), then the kk
 logits; it starts at zero, so the layer starts as a plain conv scaled by
 sigmoid(0) = 0.5.  The kernel is tap-major with Cin minor.  Each bilinear
-corner outside the input reads zero on its own.
+corner outside the input reads zero on its own.  The backward is autograd
+over the gathers and the product (held against JAX's autodiff).
 """
 
 from __future__ import annotations
@@ -47,7 +48,10 @@ def modulated_deform_conv(x: torch.Tensor, weight: torch.Tensor,
     def tap(yy, xx):
         ok = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
         idx = torch.where(ok, boff + yy.long() * w + xx.long(), pad_row)
-        return flat[idx]                                # (B, Ho, Wo, kk, C)
+        # index_select, not flat[idx]: the same rows, and its backward is
+        # an index_add_ where advanced indexing's sorts the indices first
+        return flat.index_select(0, idx.reshape(-1)).reshape(
+            idx.shape + (c,))                           # (B, Ho, Wo, kk, C)
 
     s = (tap(y0, x0) * ((1 - ly) * (1 - lx))[..., None] +
          tap(y0, x0 + 1) * ((1 - ly) * lx)[..., None] +

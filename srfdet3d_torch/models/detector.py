@@ -13,18 +13,22 @@ Input contract, as in the JAX package:
              "lidar2img": (B, n_cam, 4, 4) float32 projections   [LC only]}
 
 An LC model given no "images" runs its LiDAR branch alone, as the JAX
-package's does.  The image branch runs in predict only: its train-time
-parts (GridMask, the image freeze rules, its backward) are not ported, and
-an LC model in train mode raises.
+package's does.  In train mode the image branch applies GridMask
+(`cfg.img.use_grid_mask`) to the flattened (B*n_cam) images before the
+backbone, keeps the whole backbone's BN on its running statistics under
+`cfg.img.norm_eval`, and under `cfg.optim.freeze_img` cuts the gradient
+between the backbone and the neck (JAX `detector.py:148-186`); which
+parameters train is `train.trainer.freeze_mask`'s.
 
 The model lives on `cuda` unless built with device="cpu"; weights are a
 seeded random init (`seed`) or come from the JAX package through
 `utils.jax_params.load_jax_params`.  It is built in eval mode; `.train()`
-puts it in train mode (batch-statistics BN, the head's dropout, whose masks
-come from the generator passed to `forward`), except that with
-`cfg.optim.freeze_lidar` the `pts_*` modules stay in eval mode and keep
-their BN statistics, and their features are detached (JAX
-`detector.py:191-203`).
+puts it in train mode (batch-statistics BN, GridMask and the head's
+dropout, whose draws come from the generator passed to `forward`: GridMask's
+first, then the head's), except that with `cfg.optim.freeze_lidar` the
+`pts_*` modules stay in eval mode and keep their BN statistics, and their
+features are detached (JAX `detector.py:191-203`), and that with
+`cfg.img.norm_eval` the image backbone stays in eval mode.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from ..config import SRFDetConfig
 from ..ops.voxelize import VoxelizedPoints, voxelize_points_batched
 from .deform_conv import ModulatedDeformConv
 from .fpn import FPN
+from .grid_mask import grid_mask
 from .head import SRFDetHead, decode_boxes, focal_bias
 from .layers import MaskedBatchNorm
 from .middle import PointPillarsScatter
@@ -217,6 +222,8 @@ class SRFDet(nn.Module):
             for name in LIDAR_MODULES:
                 if hasattr(self, name):
                     getattr(self, name).eval()
+        if mode and self.cfg.use_img and self.cfg.img.norm_eval:
+            self.img_backbone.eval()
         return self
 
     @property
@@ -316,22 +323,29 @@ class SRFDet(nn.Module):
         img = img.flatten(0, 1).permute(0, 3, 1, 2)
         return img.contiguous()
 
-    def extract_img_features(self, images: torch.Tensor
+    def extract_img_features(self, images: torch.Tensor,
+                             generator: Optional[torch.Generator] = None
                              ) -> Tuple[torch.Tensor, ...]:
         """(B*n_cam, 3, H, W) images -> the image neck's NCHW levels
         (B*n_cam, C, H / s, W / s), strides 4-32 (reference
-        extract_img_feat, srfdet.py:175-204)."""
-        return self.img_neck(self.img_backbone(images))
+        extract_img_feat, srfdet.py:175-204).  In train mode: GridMask
+        first, drawn from `generator`; under freeze_img the backbone's
+        stages are detached before the neck, which still trains."""
+        train = self.training
+        if train and self.cfg.img.use_grid_mask:
+            if generator is None:
+                raise ValueError("GridMask in train mode needs a "
+                                 "torch.Generator")
+            images = grid_mask(images, generator)
+        stages = self.img_backbone(images)
+        if train and self.cfg.optim.freeze_img:
+            stages = tuple(s.detach() for s in stages)
+        return self.img_neck(stages)
 
     def forward(self, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None):
-        """generator: the head's dropout masks in train mode (on the
-        model's device)."""
-        if self.training and self.cfg.use_img:
-            raise NotImplementedError(
-                "training an LC model is not ported yet: GridMask, the "
-                "image freeze rules (frozen_stages, norm_frozen, norm_eval) "
-                "and the image branch's backward")
+        """generator: in train mode GridMask's draws, then the head's
+        dropout masks, in that order (on the model's device)."""
         points, mask = self._inputs(batch)
         maps = self.extract_point_features(points, mask)
         if self.training and self.cfg.optim.freeze_lidar:
@@ -339,7 +353,8 @@ class SRFDet(nn.Module):
         if not self.cfg.use_img or "images" not in batch:
             # an LC model given no images runs its LiDAR branch alone
             return self.bbox_head(maps, generator)
-        img_feats = self.extract_img_features(self.image_tensor(batch))
+        img_feats = self.extract_img_features(self.image_tensor(batch),
+                                              generator)
         lidar2img = torch.as_tensor(batch["lidar2img"],
                                     device=self.device).float()
         return self.bbox_head(maps, generator, img_feats, lidar2img)

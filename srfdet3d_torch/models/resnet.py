@@ -94,6 +94,15 @@ class ResNet(nn.Module):
         self.out_channels = tuple(64 * block.expansion * 2 ** s
                                   for s in range(4))
 
+    def frozen_stage_modules(self, n: int) -> Tuple[str, ...]:
+        """The submodules that frozen_stages = n freezes: the root conv1 /
+        bn1 and the first n stages (JAX `Conv_0`, `BatchNorm_0` and
+        `layer{s}_*` for s in 1..n; mmdet ResNet._freeze_stages)."""
+        if n < 1:
+            return ()
+        return ("conv1", "bn1") + tuple(
+            f"layers.{s}" for s in range(min(n, len(self.layers))))
+
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, 2, 1)

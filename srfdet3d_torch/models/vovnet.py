@@ -106,6 +106,15 @@ class VoVNet(nn.Module):
                 cin = spec["out_ch"][stage]
             self.stages.append(blocks)
 
+    def frozen_stage_modules(self, n: int) -> Tuple[str, ...]:
+        """The submodules that frozen_stages = n freezes: the stem and the
+        first n stages (JAX `stem*` and `stage{s + 1}_*` for s in 1..n;
+        reference vovnet.py:353-364)."""
+        if n < 1:
+            return ()
+        return ("stem1", "stem2", "stem3") + tuple(
+            f"stages.{s}" for s in range(min(n, len(self.stages))))
+
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         x = self.stem3(self.stem2(self.stem1(x)))
         outs = []

@@ -8,7 +8,10 @@ srfdet_voxel_nusc_L.py:337-353).
     metrics = train_step(model, opt, batch, gen)
 
 `batch` holds points, points_mask, gt_boxes (B, G, 7|9), gt_labels (B, G)
-and gt_mask (B, G).  The JAX package splits the step into a grad program
+and gt_mask (B, G), and for an LC model images and lidar2img.  The
+freeze rules (`freeze_mask`: freeze_lidar, freeze_img, the image
+backbone's frozen_stages and norm_frozen) take effect when the optimizer
+is made.  The JAX package splits the step into a grad program
 and an apply program to work around XLA; eager PyTorch needs no split.
 Gradient accumulation (`optim.accum_steps > 1`) is not ported yet.
 """
@@ -16,7 +19,7 @@ Gradient accumulation (`optim.accum_steps > 1`) is not ported yet.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -46,15 +49,40 @@ def make_lr_schedule(optim: OptimConfig, total_steps: int
     return schedule
 
 
+def frozen_branches(model: torch.nn.Module, cfg: SRFDetConfig
+                    ) -> Tuple[str, ...]:
+    """The top modules frozen whole: the LiDAR branch under freeze_lidar
+    (reference freeze_lidar_components, tools/train.py:221-276), the image
+    backbone under freeze_img (srfdet.py:83-89; its neck still trains)."""
+    names = []
+    if cfg.optim.freeze_lidar:
+        names += [m for m in LIDAR_MODULES if hasattr(model, m)]
+    if cfg.optim.freeze_img and hasattr(model, "img_backbone"):
+        names.append("img_backbone")
+    return tuple(names)
+
+
 def freeze_mask(model: torch.nn.Module, cfg: SRFDetConfig
                 ) -> Dict[str, bool]:
-    """Parameter name -> trainable.  freeze_lidar freezes every `pts_*`
-    module (reference freeze_lidar_components, tools/train.py:221-276).
-    The image branch's rules (freeze_img, frozen_stages, norm_frozen) come
-    with the image branch."""
-    frozen = tuple(f"{m}." for m in LIDAR_MODULES) \
-        if cfg.optim.freeze_lidar else ()
-    return {name: not name.startswith(frozen)
+    """Parameter name -> trainable (JAX `train/trainer.py::freeze_mask`):
+    frozen_branches; then, unless freeze_img, `cfg.img.frozen_stages` = N
+    freezes the image backbone's stem and its first N stages (the
+    backbone's `frozen_stage_modules`); `cfg.img.norm_frozen` freezes
+    every BN scale and bias of the image backbone."""
+    frozen = [f"{m}." for m in frozen_branches(model, cfg)]
+    bn = set()
+    backbone = getattr(model, "img_backbone", None)
+    if backbone is not None:
+        if not cfg.optim.freeze_img:
+            frozen += [f"img_backbone.{m}." for m in
+                       backbone.frozen_stage_modules(cfg.img.frozen_stages)]
+        if cfg.img.norm_frozen:
+            bn = {f"img_backbone.{n}.{leaf}"
+                  for n, mod in backbone.named_modules()
+                  if isinstance(mod, torch.nn.BatchNorm2d)
+                  for leaf in ("weight", "bias")}
+    frozen = tuple(frozen)
+    return {name: not (name.startswith(frozen) or name in bn)
             for name, _ in model.named_parameters()}
 
 
@@ -66,8 +94,13 @@ class FlatAdamW:
     As in the JAX update: the clip is optax's select with no epsilon
     (g * clip / |g| when |g| >= clip), the schedule is read at the count
     BEFORE the increment, and decoupled weight decay applies to every
-    trainable leaf.  Frozen parameters are not in the vector: their grads
-    enter neither the norm nor an update."""
+    trainable leaf.  Frozen parameters (freeze_mask) are not in the vector:
+    their grads enter neither the norm nor an update.  The constructor
+    sets requires_grad=False on them, so autograd computes no grad for
+    them and none for the graph below a frozen stem and frozen stages;
+    JAX computes those grads, reports their norm in its `grad_norm`, then
+    zeroes them.  The port's `grad_norm` is the clip's norm, over the
+    trainable grads (ROADMAP Queue 3, fault 7)."""
 
     def __init__(self, model: torch.nn.Module, cfg: SRFDetConfig,
                  total_steps: int):
@@ -75,6 +108,8 @@ class FlatAdamW:
             raise NotImplementedError("optim.accum_steps > 1 is not ported "
                                       "yet")
         mask = freeze_mask(model, cfg)
+        for name, p in model.named_parameters():
+            p.requires_grad_(mask[name])
         self.params: List[torch.nn.Parameter] = [
             p for name, p in model.named_parameters() if mask[name]]
         self.schedule = make_lr_schedule(cfg.optim, total_steps)
@@ -129,15 +164,32 @@ def losses_of(model, batch: Dict[str, torch.Tensor],
         cfg.ota, decoder_num_heads=cfg.head.num_heads)
 
 
+def _frozen_stats(model) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """(buffer, copy) of the BN statistics of every frozen branch that
+    runs in train mode: the image backbone under freeze_img without
+    norm_eval.  JAX restores them after the step (trainer.py:311-329);
+    the LiDAR branch under freeze_lidar, and the backbone under norm_eval,
+    run in eval mode and leave theirs untouched."""
+    return [(b, b.clone()) for name in frozen_branches(model, model.cfg)
+            if getattr(model, name).training
+            for b in getattr(model, name).buffers()]
+
+
 def train_step(model, opt: FlatAdamW, batch: Dict[str, torch.Tensor],
                generator: Optional[torch.Generator] = None
                ) -> Dict[str, torch.Tensor]:
     """One step: forward in train mode, losses, backward, AdamW update.
-    Returns the losses, `loss` (their sum) and `grad_norm`."""
+    Returns the losses, `loss` (their sum) and `grad_norm` (the clip's,
+    over the trainable grads).  `generator` draws GridMask's and the
+    head's dropout masks."""
     model.train()
     for p in opt.params:
         p.grad = None
+    keep = _frozen_stats(model)
     losses = losses_of(model, batch, generator)
+    with torch.no_grad():
+        for buf, saved in keep:
+            buf.copy_(saved)
     total = sum(losses.values())
     total.backward()
     grad_norm = opt.step()

@@ -18,6 +18,10 @@ module never imports JAX.  Every JAX leaf is mapped to one port tensor:
   (_ConvBN_{k} in call order, dcn2 with its conv_offset and its
   (kk*Cin, Cout) kernel as it is, the BN after it, down).
 
+`jax_param_names` gives the same map by name alone (JAX parameter path ->
+the port parameters it fills), for a tree of shapes; the tests hold the
+port's freeze rules against JAX's through it.
+
 It raises on a JAX leaf that maps to nothing and on a port parameter or
 buffer left unset (torch's BatchNorm step counters, `num_batches_tracked`,
 are not weights and stay as they are).
@@ -206,14 +210,39 @@ def _map(path, a, n_heads, n_cls, dcn_blocks=frozenset()):
     raise KeyError("/".join(path))
 
 
+def _dcn_blocks(variables: Dict) -> frozenset:
+    img = variables.get("params", {}).get("img_backbone", {})
+    return frozenset(k for k, v in img.items()
+                     if isinstance(v, Mapping) and "dcn2" in v)
+
+
+def jax_param_names(variables: Dict, n_heads: int, n_cls_convs: int
+                    ) -> Dict[Tuple[str, ...], Tuple[str, ...]]:
+    """JAX parameter path (under "params") -> the port parameters it fills
+    (one, or one per iteration for the head's stacked leaves).  Leaves
+    need only a `.shape`: the tree of `jax.eval_shape` will do."""
+    names = {}
+    dcn = _dcn_blocks(variables)
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            if isinstance(v, Mapping):
+                walk(v, prefix + (k,))
+                continue
+            a = np.broadcast_to(np.zeros((), np.float32), tuple(v.shape))
+            path = prefix + (k,)
+            names[path] = tuple(key for key, _ in
+                                _map(path, a, n_heads, n_cls_convs, dcn))
+    walk(variables.get("params", {}), ())
+    return names
+
+
 def jax_state_dict(variables: Dict, n_heads: int, n_cls_convs: int
                    ) -> Dict[str, np.ndarray]:
     """The port's state dict (numpy) from a JAX variable tree; each JAX
     leaf is consumed once (a leaf that maps to nothing raises KeyError)."""
     state: Dict[str, np.ndarray] = {}
-    img = variables.get("params", {}).get("img_backbone", {})
-    dcn_blocks = frozenset(k for k, v in img.items()
-                           if isinstance(v, Mapping) and "dcn2" in v)
+    dcn_blocks = _dcn_blocks(variables)
     for coll in ("params", "batch_stats"):
         for path, a in _leaves(variables.get(coll, {})):
             try:

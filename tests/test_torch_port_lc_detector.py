@@ -93,17 +93,30 @@ def test_tiny_lc_predict_matches_jax(case):
         tcfg.head.feat_channels_img == tcfg.head.hidden_dim)
 
 
-def test_lc_train_mode_raises():
-    """The image branch's train-time parts are not ported: an LC model in
-    train mode raises and names them."""
-    base, img, head = CASES["vovnet_2cam"]
-    port = SRFDet(_lc(*PORT, base, img, **head), device="cpu").train()
-    batch = {"points": torch.zeros(1, 2048, 5),
-             "points_mask": torch.zeros(1, 2048, dtype=torch.bool),
-             **{k: torch.from_numpy(v[:1])
-                for k, v in _camera_inputs(2).items()}}
-    with pytest.raises(NotImplementedError, match="GridMask"):
-        port(batch, torch.Generator().manual_seed(0))
+def test_lc_train_mode_runs():
+    """An LC model trains: GridMask on (drawn from the step's generator),
+    the LiDAR branch and the image backbone's stem and first stages
+    frozen as configured; one train step gives finite losses and a finite
+    grad norm, and only trainable parameters move."""
+    import chip_smoke
+    from srfdet3d_torch.configs import tiny_lc_test_config
+    from srfdet3d_torch.train.trainer import make_optimizer, train_step
+    cfg = tiny_lc_test_config("vovnet")
+    assert cfg.img.use_grid_mask and cfg.optim.freeze_lidar
+    port = SRFDet(cfg, device="cpu", seed=0)
+    opt = make_optimizer(port, cfg, 100)
+    before = {n: p.detach().clone() for n, p in port.named_parameters()}
+    metrics = train_step(port, opt, chip_smoke.train_batch(cfg, 2, seed=0),
+                         torch.Generator().manual_seed(0))
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    assert float(metrics["loss"]) > 0
+    trainable = {id(p) for p in opt.params}
+    moved = {n for n, p in port.named_parameters()
+             if not torch.equal(p.detach(), before[n])}
+    assert moved and all(id(dict(port.named_parameters())[n]) in trainable
+                         for n in moved)
+    assert "img_backbone.stem1.conv.weight" not in moved
+    assert "img_neck.lateral.0.conv.weight" in moved
 
 
 def test_lc_predict_without_images_matches_jax():

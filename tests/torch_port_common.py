@@ -1,6 +1,9 @@
 """Shared helpers of the port's parity tests (JAX package vs PyTorch port):
-seeded numpy weight trees for a JAX model's variables, and one whole train
-step on both sides on the same weights and batch."""
+seeded numpy weight trees for a JAX model's variables, one whole train
+step on both sides on the same weights and batch, and the tiny LC configs'
+train step through JAX make_train_step."""
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -10,13 +13,20 @@ import pytest
 import torch
 
 import __graft_entry__ as graft
+from srfdet3d_tpu import config as jconfig
+from srfdet3d_tpu import configs as jconfigs
 from srfdet3d_tpu.models.detector import SRFDet as JSRFDet
 from srfdet3d_tpu.models.losses import srfdet_losses as j_losses
+from srfdet3d_tpu.train.trainer import TrainState
+from srfdet3d_tpu.train.trainer import freeze_mask as j_freeze_mask
 from srfdet3d_tpu.train.trainer import make_optimizer as j_optimizer
+from srfdet3d_tpu.train.trainer import make_train_step as j_train_step
+from srfdet3d_torch import configs as tconfigs
 from srfdet3d_torch.models.detector import SRFDet
-from srfdet3d_torch.train.trainer import (make_lr_schedule, make_optimizer,
-                                          train_step)
-from srfdet3d_torch.utils.jax_params import jax_state_dict, load_jax_params
+from srfdet3d_torch.train.trainer import (freeze_mask, make_lr_schedule,
+                                          make_optimizer, train_step)
+from srfdet3d_torch.utils.jax_params import (jax_param_names, jax_state_dict,
+                                             load_jax_params)
 
 T = torch.from_numpy
 
@@ -94,7 +104,8 @@ def jax_train_step(jcfg, batch_size, batch_seed, weight_seed, total=100):
     return batch, variables, out
 
 
-def check_train_step(tcfg, batch, variables, out, total=100):
+def check_train_step(tcfg, batch, variables, out, total=100,
+                     frozen=frozenset()):
     """The port's train step on the JAX step's weights and batch, held as
     test_torch_port_train.py holds the tiny flagship's: losses within 1e-5
     relative, every grad within 2e-4 of its leaf's largest (2e-10 of the
@@ -102,7 +113,10 @@ def check_train_step(tcfg, batch, variables, out, total=100):
     grad is zero up to rounding, each side within 1e-9 of it), the
     parameters after AdamW within 1e-6 where the grad is resolved and
     within 2 lr elsewhere, the BN statistics within rtol 1e-4 + atol
-    1e-5.  Returns the worst grad error over its leaf's largest."""
+    1e-5.  `frozen`: the port parameters the freeze rules hold, which get
+    no grad and stay bit for bit (JAX's update of them is exactly zero).
+    The port's grad norm is held against `out`'s.  Returns the worst grad
+    error over its leaf's largest."""
     total_loss, losses, grads, new_params, new_bs, gnorm = out
     hc = tcfg.head
     port = SRFDet(tcfg, device="cpu")
@@ -122,10 +136,15 @@ def check_train_step(tcfg, batch, variables, out, total=100):
     jgrad = jax_state_dict({"params": grads}, hc.num_heads, hc.num_cls_convs)
     params = dict(port.named_parameters())
     assert set(jgrad) == set(params)
+    assert {n for n, p in params.items() if not p.requires_grad} == \
+        set(frozen)
     tols, worst = {}, 0.0
     tree_max = max(float(np.abs(g).max()) for g in jgrad.values())
     for name, ref in jgrad.items():
         got = params[name].grad
+        if name in frozen:
+            assert got is None, name
+            continue
         assert got is not None, name
         if name.endswith("k_proj.bias"):
             # zero but for rounding on both sides: the softmax ignores a
@@ -142,12 +161,16 @@ def check_train_step(tcfg, batch, variables, out, total=100):
     lr0 = make_lr_schedule(tcfg.optim, total)(0)
     after = jax_state_dict({"params": new_params, "batch_stats": new_bs},
                            hc.num_heads, hc.num_cls_convs)
+    before = jax_state_dict(variables, hc.num_heads, hc.num_cls_convs)
     state = {k: v for k, v in port.state_dict().items()
              if not k.endswith("num_batches_tracked")}
     assert set(after) == set(state)
     for name, ref in after.items():
         got = state[name].numpy()
-        if name in jgrad:
+        if name in frozen:
+            np.testing.assert_array_equal(ref, before[name], err_msg=name)
+            np.testing.assert_array_equal(got, before[name], err_msg=name)
+        elif name in jgrad:
             resolved = np.abs(jgrad[name]) > tols[name]
             np.testing.assert_allclose(got[resolved], ref[resolved],
                                        rtol=0, atol=1e-6, err_msg=name)
@@ -281,3 +304,164 @@ def check_bridge(tcfg, shapes, n_params=None, branch="pts_voxel_encoder"):
     with pytest.raises(KeyError):
         load_jax_params(port, short)
     return port
+
+
+# ---------------------------------------------------------------------------
+# the LiDAR-camera (LC) train step
+
+
+def jax_tiny_lc(backbone="vovnet", freeze_img=False, freeze_lidar=True,
+                **img):
+    """The JAX package's twin of the port's tiny_lc_test_config, from its
+    own config classes."""
+    base = jconfigs.tiny_test_config()
+    if backbone == "vovnet":
+        branch = dict(backbone="vovnet-19-slim", neck_out_channels=64)
+        head = dict(feat_channels_img=64)
+    else:
+        branch = dict(backbone="resnet-50", neck_out_channels=32,
+                      neck_norm=True, resnet_style="caffe",
+                      stage_with_dcn=(False, False, True, True))
+        head = dict(feat_channels_img=32, img_roi_cap=8)
+    branch = {"num_cams": 2, "img_shape": (64, 128), **branch, **img}
+    return base.replace(
+        name=f"tiny_lc_{backbone}", use_img=True,
+        img=jconfig.ImgBranchConfig(**branch),
+        head=dataclasses.replace(base.head, **head),
+        optim=dataclasses.replace(base.optim, freeze_img=freeze_img,
+                                  freeze_lidar=freeze_lidar))
+
+
+def lc_batch_np(jcfg, batch_size, batch_seed):
+    """The synthetic scene and GT of __graft_entry__ with chip_smoke's
+    seeded images and surround rig (camera_rig), numpy."""
+    import chip_smoke
+    batch = {k: np.array(v) for k, v in graft._synthetic_batch(
+        jcfg, batch_size, with_gt=True, seed=batch_seed).items()}
+    cams = chip_smoke.lc_batch(jcfg, batch_size, seed=batch_seed)
+    batch["images"] = cams["images"].numpy()
+    batch["lidar2img"] = cams["lidar2img"].numpy()
+    return batch
+
+
+def lc_frozen_names(jcfg, variables):
+    """The port parameters that JAX freeze_mask freezes, through the
+    weight bridge's name map."""
+    hc = jcfg.head
+    names = jax_param_names(variables, hc.num_heads, hc.num_cls_convs)
+    mask = dict(jax.tree_util.tree_flatten_with_path(
+        j_freeze_mask(variables["params"], jcfg))[0])
+    return {n for path, t in mask.items() if not t
+            for n in names[tuple(k.key for k in path)]}
+
+
+def jax_lc_train_step(backbone, opts, batch_seed, weight_seed, batch_size=2,
+                      total=100):
+    """One step of JAX make_train_step (rng key 0) on seeded weights, for
+    the tiny LC config (backbone, opts).  Returns (JAX config, port config,
+    batch, weights, (loss, losses, grads, new params, new BN statistics,
+    the reported grad norm))."""
+    jcfg = jax_tiny_lc(backbone, **opts)
+    batch = lc_batch_np(jcfg, batch_size, batch_seed)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    model = JSRFDet(jcfg)
+    shapes = jax.eval_shape(lambda r, b: model.init(r, b, train=False),
+                            jax.random.PRNGKey(0), jb)
+    variables = random_variables(shapes, weight_seed)
+    tx = j_optimizer(jcfg, total)
+    params = jax.tree_util.tree_map(jnp.asarray, variables["params"])
+    state = TrainState(step=jnp.zeros((), jnp.int32), params=params,
+                       batch_stats=jax.tree_util.tree_map(
+                           jnp.asarray, variables["batch_stats"]),
+                       opt_state=tx.init(params))
+    step = j_train_step(model, tx, jcfg)
+    total_loss, losses, new_bs, grads = step.grad_prog(
+        state, jb, jax.random.PRNGKey(0))
+    # copies: the apply program donates its inputs
+    host = jax.tree_util.tree_map(lambda a: np.array(a, copy=True),
+                                  (total_loss, losses, grads, new_bs))
+    new_state, gnorm = step.apply_prog(state, new_bs, grads)
+    new_params = jax.tree_util.tree_map(lambda a: np.array(a, copy=True),
+                                        new_state.params)
+    total_loss, losses, grads, new_bs = host
+    tcfg = tconfigs.tiny_lc_test_config(backbone, **opts)
+    return jcfg, tcfg, batch, variables, (total_loss, losses, grads,
+                                          new_params, new_bs, float(gnorm))
+
+
+def _trainable_sq(grads, jcfg):
+    """(sum of squares over the trainable leaves, over the frozen ones)."""
+    mask = j_freeze_mask(grads, jcfg)
+    pairs = zip(jax.tree_util.tree_leaves(grads),
+                jax.tree_util.tree_leaves(mask))
+    sq = [(float(np.sum(np.square(g))), t) for g, t in pairs]
+    return (sum(v for v, t in sq if t), sum(v for v, t in sq if not t))
+
+
+def check_lc_train_step(step_out):
+    """check_train_step on jax_lc_train_step's output: every trainable
+    leaf at its tolerances, the frozen ones (JAX freeze_mask's, through
+    the name map) without a grad and bit for bit, the port's grad norm
+    against the norm of JAX's grads over the trainable leaves; the image
+    backbone has frozen and trainable leaves."""
+    jcfg, tcfg, batch, variables, out = step_out
+    frozen = lc_frozen_names(jcfg, variables)
+    train_sq, _ = _trainable_sq(out[2], jcfg)
+    check_train_step(tcfg, batch, variables, out[:5] + (np.sqrt(train_sq),),
+                     frozen=frozen)
+    hc = jcfg.head
+    backbone = {n for ns in jax_param_names(variables, hc.num_heads,
+                                            hc.num_cls_convs).values()
+                for n in ns if n.startswith("img_backbone.")}
+    assert backbone & frozen and backbone - frozen
+
+
+def check_reported_grad_norm(step_out):
+    """JAX's reported grad_norm (optax.global_norm of the unmasked grads,
+    trainer.py:331) spans every grad it computes, the frozen stem's and
+    stage's among them (its LiDAR grads are zero: stop_gradient), so it
+    exceeds the norm over the trainable leaves that the clip uses and the
+    port reports.  A difference of the reference's logged metric, not of
+    the update (ROADMAP Queue 3, fault 7)."""
+    jcfg, _, _, _, out = step_out
+    train_sq, frozen_sq = _trainable_sq(out[2], jcfg)
+    assert frozen_sq > 1e-6 * train_sq
+    np.testing.assert_allclose(out[5], np.sqrt(frozen_sq + train_sq),
+                               rtol=1e-5)
+    assert out[5] > np.sqrt(train_sq) * (1 + 1e-7)
+
+
+def lc_input_shapes(cfg, batch_size):
+    """ShapeDtypeStructs of an LC batch, to size the JAX variables."""
+    ic, p = cfg.img, cfg.points_cap
+    return {
+        "points": jax.ShapeDtypeStruct((batch_size, p, cfg.points_dim),
+                                       jnp.float32),
+        "points_mask": jax.ShapeDtypeStruct((batch_size, p), jnp.bool_),
+        "images": jax.ShapeDtypeStruct(
+            (batch_size, ic.num_cams) + tuple(ic.img_shape) + (3,),
+            jnp.float32),
+        "lidar2img": jax.ShapeDtypeStruct((batch_size, ic.num_cams, 4, 4),
+                                          jnp.float32)}
+
+
+def check_freeze_mask(jcfg, port, shapes):
+    """The port's freeze_mask against JAX's, leaf for leaf through the
+    name map: every port parameter named once; returns the frozen JAX
+    paths' top two keys."""
+    hc = jcfg.head
+    names = jax_param_names(shapes, hc.num_heads, hc.num_cls_convs)
+    want = dict(jax.tree_util.tree_flatten_with_path(
+        j_freeze_mask(shapes["params"], jcfg))[0])
+    got = freeze_mask(port, port.cfg)
+    seen = []
+    frozen = set()
+    for path, trainable in want.items():
+        keys = tuple(k.key for k in path)
+        for name in names[keys]:
+            assert got[name] == trainable, (keys, name)
+            seen.append(name)
+        if not trainable:
+            frozen.add(keys[:2])
+    assert sorted(seen) == sorted(got)
+    return frozen
