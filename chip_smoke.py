@@ -101,7 +101,26 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    image RoIAlign and none for the BEV table, no K3 or K4; a finite grad
    for every trainable parameter, and the frozen parameters (freeze_mask)
    and the buffers of every module in eval mode unchanged bit for bit
-   after every step;
+   after every step; then the runtime around the model from files on disk
+   (data_phases: seeded data roots in the mmdet3d formats at real sizes
+   under a temporary directory, driven through the train and test CLIs'
+   main(argv)): nusc_data_train (srfdet_voxel_nusc_L, one epoch at batch
+   2 with CBGS and the GT-database paste; launches a step against the
+   structure, finite losses, the checkpoint restored bit for bit into a
+   fresh model and optimizer, a resume that continues at the saved step,
+   and an epoch at batch 4 as two microbatches with its peak beside the
+   batch-2 one), nusc_data_test (the test CLI on the val infos:
+   launches a frame, the dumped frames equal to model.predict on the same
+   collated batches, nuscenes_eval, --eval-from-pkl), nusc_lc_data_train
+   and its test (srfdet_voxel_nusc_LC loading the LiDAR checkpoint: every
+   LiDAR tensor restored, the image tensors at their seeded init; six
+   900 x 1600 .npy frames a keyframe padded to 928 x 1600; the frozen
+   LiDAR branch bit for bit the checkpoint's after the steps) and
+   kitti_data (srfdet_voxel_kitti_L, two steps at batch 2, then the test
+   CLI with kitti_eval, iou_3d on the card); each line carries the
+   loader's ms a batch measured alone on the same root, step p50, the
+   share of the loop spent waiting on the loader, peak GB, the
+   checkpoint's save and load ms and size, or the eval's ms;
 11. tiny predicts (tiny_test_config; tiny_kitti_test_config and
    tiny_test_config with middle.rulebook="table"; tiny_pillar_test_config
    with its own corner RoIAlign; two tiny LC configs: VoVNet-19-slim on
@@ -123,8 +142,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    device_ms and img_geometry (roi_bwd_img's numbers), K2 and K6
    device_ms, host_ms (a wrapper call's, summed), prep_ms and
    prep_device_ms (plan maps, hash builds) and builds; every kernel also
-   carries lc_launches, its launches in each LC predict, and
-   lc_train_launches, its launches in each LC train step.
+   carries lc_launches, its launches in each LC predict,
+   lc_train_launches, its launches in each LC train step, and
+   data_launches, its launches a step in each data phase's train run.
 
 The second-to-last line is nvidia-smi's name and power limit; the last line
 is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -134,9 +154,12 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import pickle
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1820,6 +1843,361 @@ def tiny_lc_configs():
     return tuple(tiny_lc_test_config(b) for b in ("vovnet", "r50_dcn"))
 
 
+# ---------------------------------------------------------------------------
+# the runtime around the model: train and test from files on disk
+
+# seeded dataset roots at real sizes (srfdet3d_torch/data/synthetic_root.py):
+# a nuScenes keyframe and each of its 10 sweeps of 34,688 points (~380k
+# before the range filter, against points_cap 262,144), ~35 GT boxes over
+# the ten classes; the LC root adds six 900 x 1600 frames a keyframe; KITTI
+# frames of 120,000 points with the front camera's calib and annos
+DATA_ROOTS = {
+    "nus": dict(n_train=4, n_val=2, points=34688, sweeps=10, boxes=35,
+                db_per_class=3),
+    "nus_lc": dict(n_train=4, n_val=2, points=34688, sweeps=10, boxes=35,
+                   db_per_class=3, cams=True, img_hw=(900, 1600)),
+    "kitti": dict(n_train=4, n_val=2, points=120_000, boxes=12,
+                  img_hw=(375, 1242), db_per_class=3),
+}
+# the configs of the four phases (keys of DATA_ROOTS)
+DATA_CONFIGS = {"nus": "srfdet_voxel_nusc_L", "nus_lc": "srfdet_voxel_nusc_LC",
+                "kitti": "srfdet_voxel_kitti_L"}
+
+
+def free_cache() -> None:
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def loader_ms(dataset, batch_size: int, batches: int = 6,
+              workers: int = 4) -> float:
+    """Host ms a batch of data_loader alone (its thread pool of `workers`,
+    prefetch 2) over the first `batches` batches of an epoch."""
+    from srfdet3d_torch.data import data_loader
+    it = data_loader(dataset, batch_size, seed=0, num_workers=workers)
+    t0 = time.perf_counter()
+    n = 0
+    for _ in it:
+        n += 1
+        if n == batches:
+            break
+    it.close()
+    return (time.perf_counter() - t0) * 1e3 / max(n, 1)
+
+
+def check_launches(phase, counts, want, times: int) -> None:
+    need = {k: want[k] * times for k in COUNTED}
+    if counts != need:
+        raise AssertionError(f"{phase}: launched {counts} in {times} steps "
+                             f"or frames; the model's structure gives {need}")
+
+
+def run_train_cli(argv):
+    """tools.train.main(argv) with the launch counts from 0 and the peak
+    memory from its start: (record, launches, peak GB)."""
+    from srfdet3d_torch.tools import train as train_cli
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    rec = train_cli.main(argv + ["--device", "cuda"])
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    bad = [k for k, v in rec["metrics"].items() if not math.isfinite(v)]
+    if bad or not rec["metrics"]:
+        raise AssertionError(f"{argv[0]}: non-finite {bad or 'no'} metrics")
+    return rec, counts, peak
+
+
+def step_stats(rec):
+    """The loop's numbers: step p50 (forward to synced update), the host's
+    wait for the loader a step, and the wait's share of the loop, with and
+    without the first batch (the pool's start and the first samples)."""
+    step, wait = rec["step_ms"], rec["wait_ms"]
+    later = sum(wait[1:]) + sum(step[1:])
+    return dict(steps=len(step), step_p50_ms=statistics.median(step),
+                step_ms=step, wait_p50_ms=statistics.median(wait),
+                wait_ms=wait,
+                wait_share=sum(wait) / (sum(wait) + sum(step)),
+                wait_share_after_first=(sum(wait[1:]) / later
+                                        if later else None))
+
+
+def check_restore(phase, rec):
+    """The last checkpoint restored into a fresh model and optimizer
+    equals the trainer's, bit for bit: every state_dict tensor, mu, nu,
+    count and the step.  Returns (load ms, size MB)."""
+    from srfdet3d_torch.models.detector import SRFDet
+    from srfdet3d_torch.train.trainer import make_optimizer
+    from srfdet3d_torch.utils.checkpoint import restore_checkpoint
+    model, opt = rec["model"], rec["opt"]
+    fresh = SRFDet(model.cfg, device="cuda", seed=123)
+    fopt = make_optimizer(fresh, model.cfg, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = restore_checkpoint(rec["checkpoint"], fresh, fopt)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    want = model.state_dict()
+    got = fresh.state_dict()
+    bad = [k for k in want if not torch.equal(want[k], got[k])]
+    if bad or step != rec["last_step"] or fopt.count != opt.count or \
+            not torch.equal(fopt.mu, opt.mu) or \
+            not torch.equal(fopt.nu, opt.nu):
+        raise AssertionError(f"{phase}: checkpoint restore differs: "
+                             f"{bad[:4]} step {step} / {rec['last_step']} "
+                             f"count {fopt.count} / {opt.count}")
+    return load_ms, os.path.getsize(rec["checkpoint"]) / 1e6
+
+
+# decode every frame's max_per_img boxes (score_thr 0): with a short run's
+# weights the scores sit near the focal prior, under the shipped 0.1
+TEST_OPTIONS = ("test.score_thr=0.0",)
+
+
+def test_cli_phase(phase, name, root, ckpt, work, smi):
+    """tools.test.main on the val infos from `ckpt` with TEST_OPTIONS:
+    launches a frame
+    against the predict structure, the dumped per-frame results equal to
+    model.predict on the same collated batches (boxes and scores within
+    1e-4: the card's float atomics in the point scatters may reorder
+    sums; labels exactly), finite metrics, and --eval-from-pkl on the
+    dump giving the same metrics."""
+    from srfdet3d_torch.configs import get_config
+    from srfdet3d_torch.data import data_loader
+    from srfdet3d_torch.models.detector import SRFDet
+    from srfdet3d_torch.tools import test as test_cli
+    from srfdet3d_torch.tools.train import apply_cfg_options, dataset_class
+    from srfdet3d_torch.utils.checkpoint import load_for_eval
+    cfg = apply_cfg_options(get_config(name), TEST_OPTIONS)
+    out = os.path.join(work, f"{phase}.pkl")
+    options = ["--cfg-options", *TEST_OPTIONS]
+    argv = [name, ckpt, "--data-root", root, "--batch-size", "1", "--out",
+            out, "--device", "cuda", *options]
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = test_cli.main(argv)
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    with open(out, "rb") as f:
+        dump = pickle.load(f)
+    frames = len(dump["preds"])
+    model = SRFDet(cfg, device="cuda")
+    load_for_eval(ckpt, model)
+    check_launches(phase, counts, predict_launches(model), frames)
+    val = dataset_class(cfg)(
+        cfg, info_path=os.path.join(root, f"{cfg.dataset}_infos_val.pkl"),
+        data_root=root, test_mode=False, augment=False)
+    worst = 0.0
+    for i, batch in enumerate(data_loader(val, 1, shuffle=False,
+                                          num_workers=0, drop_last=False)):
+        pred = model.predict({k: torch.from_numpy(v)
+                              for k, v in batch.items()
+                              if k not in test_cli.GT_KEYS})
+        gts, preds = test_cli.frames_from_outputs(
+            cfg, {k: v.cpu().numpy() for k, v in pred.items()}, batch, 1)
+        p, d = preds[0], dump["preds"][i]
+        if list(p["labels_name"]) != list(d["labels_name"]) or \
+                not np.array_equal(gts[0]["boxes"], dump["gts"][i]["boxes"]):
+            raise AssertionError(f"{phase}: frame {i} differs from "
+                                 f"model.predict")
+        if len(p["boxes"]):
+            worst = max(worst, float(np.abs(p["boxes"] - d["boxes"]).max()),
+                        float(np.abs(p["scores"] - d["scores"]).max()))
+    if worst > 1e-4:
+        raise AssertionError(f"{phase}: dump off model.predict by {worst}")
+    scalars = {k: v for k, v in res.items() if isinstance(v, float)}
+    if not scalars or not all(math.isfinite(v) for v in scalars.values()):
+        raise AssertionError(f"{phase}: metrics {scalars}")
+    again = test_cli.main([name, "--eval-from-pkl", out, "--device", "cuda",
+                           *options])
+    if {k: again[k] for k in scalars} != scalars:
+        raise AssertionError(f"{phase}: --eval-from-pkl gives other metrics")
+    emit(dict(phase=phase, config=name, options=TEST_OPTIONS,
+              frames=frames, eval_ms=eval_ms,
+              launches_per_frame={k: v // max(frames, 1)
+                                  for k, v in counts.items()},
+              dump_vs_predict_max_abs=worst,
+              detections=sum(len(p["boxes"]) for p in dump["preds"]),
+              metrics=scalars, device=smi))
+    return scalars
+
+
+def data_phases(smi, tmp: str):
+    """The four phases from files on disk (DATA_ROOTS under `tmp`):
+    nusc_data_train, nusc_data_test, nusc_lc_data_train (with its test
+    CLI) and kitti_data (train, then the test CLI with kitti_eval).
+    Returns the launches a step of each train run."""
+    from srfdet3d_torch.configs import get_config
+    from srfdet3d_torch.data import synthetic_root
+    from srfdet3d_torch.models.detector import LIDAR_MODULES, SRFDet
+    from srfdet3d_torch.tools.train import train_dataset
+    from srfdet3d_torch.utils.checkpoint import load_pretrained
+    launches = {}
+
+    # 1. srfdet_voxel_nusc_L from a nuScenes root: one epoch at batch 2
+    # with CBGS and the GT-database paste, its checkpoint restored, a
+    # resume, and one epoch with two microbatches a step at batch 4
+    name = DATA_CONFIGS["nus"]
+    cfg = get_config(name)
+    t0 = time.perf_counter()
+    nus = synthetic_root.write_nuscenes_root(os.path.join(tmp, "nus"),
+                                             **DATA_ROOTS["nus"])
+    write_s = time.perf_counter() - t0
+    ds = train_dataset(cfg, nus["root"], db_info=nus["db"])
+    load_batch = loader_ms(ds, 2)
+    sample = ds[0]
+    base = [name, "--data-root", nus["root"], "--db-info", nus["db"],
+            "--epochs", "1", "--log-interval", "5"]
+    rec, counts, peak = run_train_cli(
+        base + ["--batch-size", "2", "--work-dir",
+                os.path.join(tmp, "wd_nus")])
+    want = train_launches(rec["model"])
+    check_launches("nusc_data_train", counts, want, len(rec["step_ms"]))
+    launches["nusc_data_train"] = want
+    load_ms, size_mb = check_restore("nusc_data_train", rec)
+    l_ckpt = rec["checkpoint"]
+    del rec["model"], rec["opt"]
+    resumed, rcounts, resume_peak = run_train_cli(
+        [name, "--data-root", nus["root"], "--db-info", nus["db"],
+         "--epochs", "2", "--batch-size", "2", "--resume-from", l_ckpt,
+         "--log-interval", "5", "--work-dir", os.path.join(tmp, "wd_res")])
+    if resumed["first_step"] != rec["last_step"] or \
+            resumed["last_step"] != 2 * rec["last_step"]:
+        raise AssertionError(f"resume: steps {resumed['first_step']} -> "
+                             f"{resumed['last_step']}, saved at "
+                             f"{rec['last_step']}")
+    check_launches("nusc_data_resume", rcounts, want,
+                   len(resumed["step_ms"]))
+    del resumed["model"], resumed["opt"]
+    free_cache()
+    accum, acounts, accum_peak = run_train_cli(
+        base + ["--batch-size", "4", "--work-dir",
+                os.path.join(tmp, "wd_accum"), "--cfg-options",
+                "optim.accum_steps=2"])
+    check_launches("nusc_data_accum", acounts, want,
+                   2 * len(accum["step_ms"]))
+    del accum["model"], accum["opt"]
+    free_cache()
+    emit(dict(phase="nusc_data_train", config=name, cbgs_samples=len(ds),
+              frames=DATA_ROOTS["nus"]["n_train"],
+              points_before_filter=DATA_ROOTS["nus"]["points"] *
+              (DATA_ROOTS["nus"]["sweeps"] + 1),
+              points_kept=int(sample["points_mask"].sum()),
+              gt_kept=int(sample["gt_mask"].sum()), root_write_s=write_s,
+              loader_ms_per_batch=load_batch, batch=2,
+              **step_stats(rec), peak_gb=peak, launches_per_step=want,
+              ckpt_save_ms=rec["save_ms"], ckpt_load_ms=load_ms,
+              ckpt_mb=size_mb, losses=rec["metrics"],
+              resume=dict(first_step=resumed["first_step"],
+                          last_step=resumed["last_step"],
+                          step_p50_ms=statistics.median(resumed["step_ms"]),
+                          wait_share=step_stats(resumed)["wait_share"],
+                          peak_gb=resume_peak),
+              # both after the first run: cuDNN has timed its algorithms
+              accum=dict(batch=4, accum_steps=2,
+                         steps=len(accum["step_ms"]),
+                         step_p50_ms=statistics.median(accum["step_ms"]),
+                         peak_gb=accum_peak, batch2_peak_gb=resume_peak,
+                         losses=accum["metrics"]),
+              device=smi))
+
+    # 2. the test CLI on the val infos from that checkpoint
+    test_cli_phase("nusc_data_test", name, nus["root"], l_ckpt, tmp, smi)
+
+    # 3. srfdet_voxel_nusc_LC, the staged fine-tune: the LiDAR checkpoint
+    # into the LC model (--load-from), the LiDAR branch frozen
+    lc_name = DATA_CONFIGS["nus_lc"]
+    lc_cfg = get_config(lc_name)
+    t0 = time.perf_counter()
+    lc = synthetic_root.write_nuscenes_root(os.path.join(tmp, "nus_lc"),
+                                            **DATA_ROOTS["nus_lc"])
+    write_s = time.perf_counter() - t0
+    l_state = torch.load(l_ckpt, map_location="cpu",
+                         weights_only=True)["model"]
+    lidar_names = {k for k in l_state
+                   if not k.endswith("num_batches_tracked")}
+    fresh = SRFDet(lc_cfg, device="cuda", seed=0)
+    init = {k: v.detach().clone() for k, v in fresh.state_dict().items()}
+    restored = set(load_pretrained(fresh, l_ckpt))
+    state = fresh.state_dict()
+    kept_init = [k for k in state if k not in restored and
+                 not torch.equal(state[k], init[k])]
+    wrong = [k for k in restored
+             if not torch.equal(state[k].cpu(), l_state[k])]
+    if restored != lidar_names or kept_init or wrong:
+        raise AssertionError(f"LC load: {len(restored)} restored of "
+                             f"{len(lidar_names)}; moved {kept_init[:4]}; "
+                             f"wrong {wrong[:4]}")
+    n_img = sum(1 for k in state if k not in restored)
+    del fresh, init, state
+    lc_ds = train_dataset(lc_cfg, lc["root"], cbgs=False)
+    lc_load = loader_ms(lc_ds, 1, batches=4)
+    rec, counts, peak = run_train_cli(
+        [lc_name, "--data-root", lc["root"], "--load-from", l_ckpt,
+         "--no-cbgs", "--batch-size", "1", "--epochs", "1",
+         "--log-interval", "1", "--work-dir", os.path.join(tmp, "wd_lc")])
+    want = train_launches(rec["model"])
+    check_launches("nusc_lc_data_train", counts, want, len(rec["step_ms"]))
+    launches["nusc_lc_data_train"] = want
+    # the frozen LiDAR branch, parameters and BN buffers, is the L
+    # checkpoint's bit for bit after the fine-tune's steps
+    after = rec["model"].state_dict()
+    moved = [k for k in lidar_names if k.split(".")[0] in LIDAR_MODULES
+             and not torch.equal(after[k].cpu(), l_state[k])]
+    if moved or not any(k.split(".")[0] in LIDAR_MODULES
+                        for k in lidar_names):
+        raise AssertionError(f"LC fine-tune moved frozen LiDAR tensors "
+                             f"{moved[:4]}")
+    load_ms, size_mb = check_restore("nusc_lc_data_train", rec)
+    lc_ckpt = rec["checkpoint"]
+    del rec["model"], rec["opt"], after
+    free_cache()
+    emit(dict(phase="nusc_lc_data_train", config=lc_name,
+              frames=DATA_ROOTS["nus_lc"]["n_train"], cameras=6,
+              raw_hw=DATA_ROOTS["nus_lc"]["img_hw"],
+              img_shape=lc_cfg.img.img_shape, mode=lc_cfg.img.mode,
+              cameras_in_batch=lc_cfg.img.num_cams,
+              root_write_s=write_s, restored_from_l=len(restored),
+              kept_init=n_img, loader_ms_per_batch=lc_load, batch=1,
+              **step_stats(rec), peak_gb=peak, launches_per_step=want,
+              frozen_lidar_tensors=sum(k.split(".")[0] in LIDAR_MODULES
+                                       for k in lidar_names),
+              ckpt_save_ms=rec["save_ms"], ckpt_load_ms=load_ms,
+              ckpt_mb=size_mb, losses=rec["metrics"], device=smi))
+    test_cli_phase("nusc_lc_data_test", lc_name, lc["root"], lc_ckpt, tmp,
+                   smi)
+    free_cache()
+
+    # 4. srfdet_voxel_kitti_L: two steps at batch 2, then kitti_eval
+    k_name = DATA_CONFIGS["kitti"]
+    k_cfg = get_config(k_name)
+    t0 = time.perf_counter()
+    kit = synthetic_root.write_kitti_root(os.path.join(tmp, "kitti"),
+                                          **DATA_ROOTS["kitti"])
+    write_s = time.perf_counter() - t0
+    k_ds = train_dataset(k_cfg, kit["root"], db_info=kit["db"])
+    k_load = loader_ms(k_ds, 2, batches=2)
+    rec, counts, peak = run_train_cli(
+        [k_name, "--data-root", kit["root"], "--db-info", kit["db"],
+         "--batch-size", "2", "--epochs", "1", "--log-interval", "1",
+         "--work-dir", os.path.join(tmp, "wd_kitti")])
+    want = train_launches(rec["model"])
+    check_launches("kitti_data", counts, want, len(rec["step_ms"]))
+    launches["kitti_data"] = want
+    load_ms, size_mb = check_restore("kitti_data", rec)
+    k_ckpt = rec["checkpoint"]
+    del rec["model"], rec["opt"]
+    emit(dict(phase="kitti_data_train", config=k_name,
+              frames=DATA_ROOTS["kitti"]["n_train"], root_write_s=write_s,
+              loader_ms_per_batch=k_load, batch=2, **step_stats(rec),
+              peak_gb=peak, launches_per_step=want,
+              ckpt_save_ms=rec["save_ms"], ckpt_load_ms=load_ms,
+              ckpt_mb=size_mb, losses=rec["metrics"], device=smi))
+    test_cli_phase("kitti_data_test", k_name, kit["root"], k_ckpt, tmp, smi)
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, t, max_err):
     bound_by = t.get("bound_by") or (
         "operations" if t["ops_bound_ms"] >= t["bytes_bound_ms"]
@@ -1833,7 +2211,7 @@ def kernel_entry(name, source, replaces, launches, t, max_err):
     # device time
     for key in ("tc_bound_ms", "simt_bound_ms", "device_ms", "host_ms",
                 "prep_ms", "prep_device_ms", "builds", "lc_launches",
-                "lc_train_launches", "img_geometry"):
+                "lc_train_launches", "data_launches", "img_geometry"):
         if key in t:
             entry[key] = t[key]
     return entry
@@ -1990,6 +2368,10 @@ def main() -> int:
             batch_size=c.optim.batch_size_per_device,
             prepare=seed_dcn_offsets)
         torch.cuda.empty_cache()
+    # the runtime around the model: train and test from files on disk
+    with tempfile.TemporaryDirectory() as tmp:
+        data_launches = data_phases(smi, tmp)
+    free_cache()
     tiny_end_to_end(tiny_test_config())
     tiny_end_to_end(table_backend(tiny_kitti_test_config()))
     tiny_end_to_end(table_backend(tiny_test_config()))
@@ -2036,6 +2418,8 @@ def main() -> int:
         entry["lc_launches"] = {ph: c[key] for ph, c in lc_launches.items()}
         entry["lc_train_launches"] = {ph: c[key]
                                       for ph, c in lc_train.items()}
+        entry["data_launches"] = {ph: c[key]
+                                  for ph, c in data_launches.items()}
     emit({"kernels": [
         kernel_entry("gather_conv", "srfdet3d_torch/csrc/gather_conv.cu",
                      "srfdet3d_tpu/ops/pallas_onehot.py:67", k1_launches,

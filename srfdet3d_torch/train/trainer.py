@@ -4,8 +4,8 @@ reference AdamW lr 2e-4, wd 0.01, grad clip 35, cfg
 srfdet_voxel_nusc_L.py:337-353).
 
     opt = make_optimizer(model, cfg, total_steps)
-    gen = torch.Generator(device=model.device).manual_seed(seed)
-    metrics = train_step(model, opt, batch, gen)
+    metrics = train_step(model, opt, batch, step_generator(model, seed, step))
+    out = eval_step(model, batch)
 
 `batch` holds points, points_mask, gt_boxes (B, G, 7|9), gt_labels (B, G)
 and gt_mask (B, G), and for an LC model images and lidar2img.  The
@@ -13,7 +13,12 @@ freeze rules (`freeze_mask`: freeze_lidar, freeze_img, the image
 backbone's frozen_stages and norm_frozen) take effect when the optimizer
 is made.  The JAX package splits the step into a grad program
 and an apply program to work around XLA; eager PyTorch needs no split.
-Gradient accumulation (`optim.accum_steps > 1`) is not ported yet.
+With `optim.accum_steps` = a > 1 the step runs a strided microbatches
+(rows i, a+i, 2a+i, ...), as JAX's `_grads_accum`: each normalizes its
+losses by its own positives, BN running statistics update once a
+microbatch (chained, like consecutive steps), the grads are summed and
+then divided by a, the reported losses are the microbatches' means, and
+one AdamW update follows.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from __future__ import annotations
 import math
 from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..config import OptimConfig, SRFDetConfig
@@ -104,9 +110,6 @@ class FlatAdamW:
 
     def __init__(self, model: torch.nn.Module, cfg: SRFDetConfig,
                  total_steps: int):
-        if cfg.optim.accum_steps > 1:
-            raise NotImplementedError("optim.accum_steps > 1 is not ported "
-                                      "yet")
         mask = freeze_mask(model, cfg)
         for name, p in model.named_parameters():
             p.requires_grad_(mask[name])
@@ -175,25 +178,69 @@ def _frozen_stats(model) -> List[Tuple[torch.Tensor, torch.Tensor]]:
             for b in getattr(model, name).buffers()]
 
 
+def step_generator(model, seed: int, step: int) -> torch.Generator:
+    """The generator of train step `step` of a run seeded `seed`, on the
+    model's device: seeded from (seed, step) alone, as JAX folds the host
+    step into its base key, so a resumed run draws what an uninterrupted
+    one draws."""
+    words = np.random.SeedSequence((seed, step)).generate_state(2, np.uint32)
+    g = torch.Generator(device=model.device)
+    g.manual_seed((int(words[0]) << 31) | (int(words[1]) >> 1))
+    return g
+
+
+def _microbatches(batch: Dict[str, torch.Tensor], accum: int
+                  ) -> List[Dict[str, torch.Tensor]]:
+    """Strided split of the batch axis: microbatch i takes rows i, a+i, ..."""
+    out = [{} for _ in range(accum)]
+    for k, v in batch.items():
+        v = torch.as_tensor(v)
+        if v.shape[0] % accum:
+            raise ValueError(f"batch dim {v.shape[0]} not divisible by "
+                             f"accum_steps={accum}")
+        for i in range(accum):
+            out[i][k] = v[i::accum]
+    return out
+
+
 def train_step(model, opt: FlatAdamW, batch: Dict[str, torch.Tensor],
                generator: Optional[torch.Generator] = None
                ) -> Dict[str, torch.Tensor]:
     """One step: forward in train mode, losses, backward, AdamW update.
     Returns the losses, `loss` (their sum) and `grad_norm` (the clip's,
     over the trainable grads).  `generator` draws GridMask's and the
-    head's dropout masks."""
+    head's dropout masks (the microbatches draw from it in turn)."""
     model.train()
     for p in opt.params:
         p.grad = None
     keep = _frozen_stats(model)
-    losses = losses_of(model, batch, generator)
+    accum = max(int(model.cfg.optim.accum_steps), 1)
+    parts = [batch] if accum == 1 else _microbatches(batch, accum)
+    sums: Dict[str, torch.Tensor] = {}
+    for mb in parts:
+        losses = losses_of(model, mb, generator)
+        total = sum(losses.values())
+        total.backward()
+        losses["loss"] = total
+        for k, v in losses.items():
+            sums[k] = v.detach() if k not in sums else sums[k] + v.detach()
     with torch.no_grad():
         for buf, saved in keep:
             buf.copy_(saved)
-    total = sum(losses.values())
-    total.backward()
+        if accum > 1:
+            for p in opt.params:
+                if p.grad is not None:
+                    p.grad.div_(accum)
     grad_norm = opt.step()
-    metrics = {k: v.detach() for k, v in losses.items()}
-    metrics["loss"] = total.detach()
+    metrics = {k: v / accum if accum > 1 else v for k, v in sums.items()}
     metrics["grad_norm"] = grad_norm
     return metrics
+
+
+@torch.no_grad()
+def eval_step(model, batch: Dict[str, torch.Tensor]
+              ) -> Dict[str, torch.Tensor]:
+    """Predict in eval mode (JAX `make_eval_step`): decoded boxes, scores,
+    labels and valid of every frame."""
+    model.eval()
+    return model.predict(batch)

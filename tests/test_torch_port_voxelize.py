@@ -105,7 +105,11 @@ def test_port_imports_no_jax():
         "need = ['assign.ota', 'models.losses', 'ops.focal_loss', "
         "'ops.gather_conv_bwd', 'ops.roi_scatter', 'train.trainer', "
         "'models.middle', 'configs', 'models.vovnet', 'models.resnet', "
-        "'models.deform_conv']\n"
+        "'models.deform_conv', 'data.box_np', 'data.transforms', "
+        "'data.img_transforms', 'data.datasets', 'data.loader', "
+        "'data.synthetic_root', 'evals.nuscenes_eval', 'evals.kitti_eval', "
+        "'evals.waymo_eval', 'evals.formatters', 'utils.checkpoint', "
+        "'utils.logging', 'tools.train', 'tools.test']\n"
         "missed = [n for n in need if 'srfdet3d_torch.' + n not in "
         "sys.modules]\n"
         "assert not missed, missed\n"
@@ -131,6 +135,12 @@ def test_entry_points_default_to_cuda():
         return
     with pytest.raises(RuntimeError, match="CUDA"):
         SRFDet(tiny_test_config())
+    # the train and test CLIs without --device ask for the card too
+    from srfdet3d_torch.tools import test as test_cli
+    from srfdet3d_torch.tools import train as train_cli
+    for cli in (train_cli, test_cli):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(["tiny", "--synthetic"])
     # the image branch in bfloat16 is not ported (float32 is)
     bf16 = dataclasses.replace(ImgBranchConfig(), compute_dtype="bfloat16")
     with pytest.raises(NotImplementedError):
