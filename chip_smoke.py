@@ -120,7 +120,28 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    CLI with kitti_eval, iou_3d on the card); each line carries the
    loader's ms a batch measured alone on the same root, step p50, the
    share of the loop spent waiting on the loader, peak GB, the
-   checkpoint's save and load ms and size, or the eval's ms;
+   checkpoint's save and load ms and size, or the eval's ms; then
+   convert_roundtrip: a seeded full-width model A of srfdet_voxel_nusc_L,
+   srfdet_voxel_nusc_LC and srfdet_dvoxel_waymo_LC (seeded DCNv2 offsets)
+   written in the reference's mm-stack names and layouts
+   (reference_checkpoint: spconv KIO, the fused in_proj, SECOND's first
+   conv on the reference's BEV channel order, DCNv2 (Cout, Cin, 3, 3)) as
+   mmdet writes a release ({"state_dict": module.-prefixed, "meta"}),
+   converted by the port's convert CLI and loaded by the test CLI's load
+   path into a fresh model B: B's weights A's bit for bit, B's predict on
+   the card A's (valid masks and labels identical, boxes and scores
+   within 1e-6), launches equal to the structure; the .pth's MB, the
+   convert's and the load's seconds; then flagship_learn: the flagship at
+   full width trained on two planted nuScenes keyframes (LEARN_ROOT: no
+   sweeps, one box of each class a frame, 400 points planted in each)
+   through the port's dataset (the test pipeline's transforms), loader and
+   train_step for LEARN_STEPS steps at batch 2 with the config's AdamW at
+   LEARN_OPTIONS, the loss every 25 steps, and the test CLI's nuScenes
+   evaluator on those two frames at score_thr 0 with the seeded random
+   weights and after training: the last loss at most half the first,
+   mAP at least max(100 x the random weights', 0.01), each frame's
+   top-scored box within 1 m BEV of a planted centre; step p50, peak GB,
+   launches a step and a frame equal to the structure;
 11. tiny predicts (tiny_test_config; tiny_kitti_test_config and
    tiny_test_config with middle.rulebook="table"; tiny_pillar_test_config
    with its own corner RoIAlign; two tiny LC configs: VoVNet-19-slim on
@@ -144,7 +165,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    prep_device_ms (plan maps, hash builds) and builds; every kernel also
    carries lc_launches, its launches in each LC predict,
    lc_train_launches, its launches in each LC train step, and
-   data_launches, its launches a step in each data phase's train run.
+   data_launches, its launches a step in each data phase's train run,
+   convert_launches, its launches in each round-trip predict, and
+   learn_launches, its launches a flagship_learn step.
 
 The second-to-last line is nvidia-smi's name and power limit; the last line
 is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -2198,6 +2221,423 @@ def data_phases(smi, tmp: str):
     return launches
 
 
+# the three configs of convert_roundtrip: the flagship, the headline LC
+# fine-tune (VoVNet-99) and Waymo LC (ResNet-101 with DCNv2, a BN image
+# neck, the dynamic VFE)
+CONVERT_CONFIGS = ("srfdet_voxel_nusc_L", "srfdet_voxel_nusc_LC",
+                   "srfdet_dvoxel_waymo_LC")
+# the port's names of a head iteration's modules -> the reference's
+# (SingleSRFDetHeadLiDAR's attributes carry the _lidar suffix)
+_HEAD_REF = {"norm_attn": "norm1_lidar", "norm_inst": "norm2_lidar",
+             "norm_ffn": "norm3_lidar", "ffn1": "linear1_lidar",
+             "ffn2": "linear2_lidar", "class_logits": "class_logits_lidar",
+             "bboxes_delta": "bboxes_delta_lidar",
+             "output_fused_proj": "output_fused_proj"}
+
+
+def _encoder_ref_names(cfg):
+    """The sparse encoder's port module -> (the reference's
+    SparseSequential or SparseBasicBlock, the conv's index in a block: 0
+    for a SparseSequential (conv .0, BN .1), 1 or 2 for conv1 / conv2)."""
+    mc = cfg.middle
+    names = {"conv_input": ("conv_input", 0), "conv_out": ("conv_out", 0)}
+    last = len(mc.encoder_channels) - 1
+    for i, blocks in enumerate(mc.encoder_channels):
+        for j in range(len(blocks)):
+            tm = f"encoder_layers.encoder_layer{i + 1}.{j}"
+            if mc.block_type == "conv_module":
+                names[f"down{i}" if i and not j else f"subm{i}_{j}"] = (tm, 0)
+            elif j == len(blocks) - 1 and i != last:
+                names[f"down{i}"] = (tm, 0)
+            else:
+                for k in (1, 2):
+                    names[f"bb{i}_{j}_conv{k}"] = (tm, k)
+    return names
+
+
+def reference_checkpoint(model):
+    """The port model's weights in the reference's mm-stack module names
+    and layouts, as a released .pth holds them: spconv weights in 'KIO'
+    (kz, ky, kx, in, out), SECOND's first conv on the reference's c*D + d
+    BEV channels, MultiheadAttention's fused in_proj, DCNv2 weights
+    (Cout, Cin, kh, kw), the BN step counters kept.  The inverse of
+    srfdet3d_torch.utils.torch_convert (the JAX package has no exporter:
+    this half of the round trip lives here).  CPU tensors."""
+    import re
+    from srfdet3d_torch.utils.torch_convert import (_encoder_out_depth,
+                                                    bev_in_perm)
+    cfg = model.cfg
+    enc = _encoder_ref_names(cfg) if cfg.middle.kind == "sparse" else {}
+    second = [(s, j) for s, n in enumerate(cfg.backbone.layer_nums)
+              for j in range(n + 1)]
+    num_ins = {"pts_neck": len(cfg.backbone.out_channels), "img_neck": 4}
+    out, qkv = {}, {}
+    for key, t in model.state_dict().items():
+        t = t.detach().cpu()
+        top, _, rest = key.partition(".")
+        ref = None
+        if top == "pts_voxel_encoder":
+            src = "vfe_layers" if cfg.vfe.kind == "dynamic" else "pfn_layers"
+            m = re.fullmatch(r"layers\.(\d+)\.(linear|bn)\.(\w+)", rest)
+            if m:
+                sub = "linear" if m[2] == "linear" else "norm"
+                ref = f"{top}.{src}.{m[1]}.{sub}.{m[3]}"
+            m = re.fullmatch(r"centroid_(fc|bn)([12])\.(\w+)", rest)
+            if m:
+                idx = (0 if m[1] == "fc" else 1) + 3 * (int(m[2]) - 1)
+                ref = f"{top}.cen2point_pos_enc.{idx}.{m[3]}"
+        elif top == "pts_middle_encoder":
+            name, _, leaf = rest.partition(".")
+            tm, k = enc[name]
+            if leaf == "kernel":
+                taps = (3, 3, 3) if t.shape[0] == 27 else (3, 1, 1)
+                t = t.reshape(taps + tuple(t.shape[1:]))
+                ref = f"{top}.{tm}.{f'conv{k}' if k else '0'}.weight"
+            else:
+                ref = f"{top}.{tm}.{f'bn{k}' if k else '1'}.{leaf[3:]}"
+        elif top == "pts_backbone":
+            m = re.fullmatch(r"blocks\.(\d+)\.(conv|bn)\.(\w+)", rest)
+            s, j = second[int(m[1])]
+            if m[2] == "conv" and int(m[1]) == 0 and \
+                    cfg.middle.kind == "sparse":
+                perm = torch.from_numpy(bev_in_perm(
+                    _encoder_out_depth(cfg), cfg.middle.output_channels))
+                w = torch.empty_like(t)
+                w[:, perm] = t
+                t = w
+            ref = f"{top}.blocks.{s}.{3 * j + (m[2] == 'bn')}.{m[3]}"
+        elif top in num_ins:
+            m = re.fullmatch(r"(lateral|fpn|extra)\.(\d+)\.(conv|bn)\.(\w+)",
+                             rest)
+            i = int(m[2])
+            mod = {"lateral": f"lateral_convs.{i}", "fpn": f"fpn_convs.{i}",
+                   "extra": f"fpn_convs.{num_ins[top] + i}"}[m[1]]
+            ref = f"{top}.{mod}.{m[3]}.{m[4]}"
+        elif top == "img_backbone" and cfg.img.backbone.startswith("vovnet"):
+            m = re.fullmatch(r"stem(\d)\.(conv|bn)\.(\w+)", rest)
+            if m:
+                sub = "conv" if m[2] == "conv" else "norm"
+                ref = f"{top}.stem.stem_{m[1]}/{sub}.{m[3]}"
+            m = re.fullmatch(r"stages\.(\d+)\.(\d+)\.(convs\.(\d+)|concat|ese)"
+                             r"\.(conv|bn|fc)\.(\w+)", rest)
+            if m:
+                s, b = int(m[1]) + 2, int(m[2]) + 1
+                pre = f"{top}.stage{s}.OSA{s}_{b}"
+                sub = "conv" if m[5] == "conv" else "norm"
+                if m[3] == "ese":
+                    ref = f"{pre}.ese.fc.{m[6]}"
+                elif m[3] == "concat":
+                    ref = f"{pre}.concat.OSA{s}_{b}_concat/{sub}.{m[6]}"
+                else:
+                    ref = (f"{pre}.layers.{m[4]}.OSA{s}_{b}_{m[4]}/{sub}"
+                           f".{m[6]}")
+        elif top == "img_backbone":
+            m = re.fullmatch(r"layers\.(\d+)\.(\d+)\.(.+)", rest)
+            if rest.startswith(("conv1.", "bn1.")):
+                ref = key
+            elif m:
+                pre = f"{top}.layer{int(m[1]) + 1}.{m[2]}"
+                part = m[3]
+                mm = re.fullmatch(r"(conv\d|down)\.(conv|bn)\.(\w+)", part)
+                if part == "dcn2.kernel":          # (9 Cin, Cout) tap-major
+                    cout = t.shape[1]
+                    t = t.reshape(3, 3, -1, cout).permute(3, 2, 0, 1)
+                    ref = f"{pre}.conv2.weight"
+                elif part.startswith(("dcn2.conv_offset.", "bn2.")):
+                    ref = f"{pre}.{part.replace('dcn2.', 'conv2.')}"
+                elif mm and mm[1] == "down":
+                    ref = (f"{pre}.downsample.{0 if mm[2] == 'conv' else 1}"
+                           f".{mm[3]}")
+                elif mm:
+                    n = mm[1][-1]
+                    ref = (f"{pre}.conv{n}.{mm[3]}" if mm[2] == "conv"
+                           else f"{pre}.bn{n}.{mm[3]}")
+        elif top == "bbox_head":
+            m = re.fullmatch(r"heads\.(\d+)\.(\w+)\.(.+)", rest)
+            if rest in ("init_proposal_boxes", "init_proposal_feats"):
+                ref = f"{key}.weight"
+            elif re.fullmatch(r"dpg_dw(_img)?\.\d+\..+", rest):
+                mod, lvl, leaf = rest.split(".", 2)
+                kind = "img" if mod.endswith("_img") else "lidar"
+                ref = f"{top}.dpg_dw_convs_{kind}.{lvl}.{leaf}"
+            elif re.fullmatch(r"dpg_fc[12]\.\w+", rest):
+                mod, leaf = rest.split(".")
+                ref = f"{top}.{mod}_lidar.{leaf}"
+            elif re.fullmatch(r"dpg_fc[12]_img\.\w+", rest):
+                ref = key
+            elif rest.startswith("img_conv."):
+                ref = f"{top}.img_convs.{rest[len('img_conv.'):]}"
+            elif m:
+                pre = f"{top}.head_series_lidar.{m[1]}"
+                mod, part = m[2], m[3]
+                tower = re.fullmatch(r"(fcs|norms)\.(\d+)\.(\w+)", part)
+                if mod == "self_attn" and part.startswith(
+                        ("q_proj", "k_proj", "v_proj")):
+                    proj, leaf = part.split(".")
+                    qkv.setdefault((pre, leaf), {})[proj] = t
+                    continue
+                if mod == "self_attn":
+                    ref = f"{pre}.self_attn_lidar.{part}"
+                elif mod == "inst_interact":
+                    ref = f"{pre}.inst_interact_lidar.{part}"
+                elif mod in ("cls_fcs", "cls_norms", "reg_fcs", "reg_norms"):
+                    tw, kind = mod.split("_")
+                    k, leaf = part.split(".")
+                    idx = 3 * int(k) + (kind == "norms")
+                    ref = f"{pre}.{tw}_module_lidar.{idx}.{leaf}"
+                else:
+                    ref = f"{pre}.{_HEAD_REF[mod]}.{part}"
+        if ref is None:
+            raise KeyError(f"no reference name for the port's {key}")
+        out[ref] = t.contiguous()
+    for (pre, leaf), parts in qkv.items():
+        out[f"{pre}.self_attn_lidar.in_proj_{leaf}"] = torch.cat(
+            [parts["q_proj"], parts["k_proj"], parts["v_proj"]])
+    return out
+
+
+def convert_roundtrip(smi, tmp: str):
+    """A seeded port model A (CONVERT_CONFIGS, full width; Waymo LC with
+    seeded DCNv2 offsets) in the reference's names and layouts
+    (reference_checkpoint, spconv KIO), saved as mmdet writes a release
+    ({"state_dict": module.-prefixed, "meta"}); the port's convert CLI
+    reads it and the test CLI's load path (load_for_eval) loads its output
+    into a fresh model B: B's weights equal A's bit for bit and B's predict
+    on the card (decoded at TEST_OPTIONS' score_thr 0) equals A's on the
+    phase's synthetic batch (valid masks and labels identical, boxes and
+    scores within 1e-6; A's own second predict beside it), with launches
+    equal to the structure.  Returns the launches of each predict."""
+    from srfdet3d_torch.configs import get_config
+    from srfdet3d_torch.models.detector import SRFDet
+    from srfdet3d_torch.tools import convert_checkpoint
+    from srfdet3d_torch.tools.train import apply_cfg_options
+    from srfdet3d_torch.utils.checkpoint import load_for_eval
+    launches = {}
+    for name in CONVERT_CONFIGS:
+        t_phase = time.perf_counter()
+        # decode at score_thr 0: random weights score near the focal prior
+        cfg = apply_cfg_options(get_config(name), TEST_OPTIONS)
+        batch = (lc_batch(cfg, 1, seed=0) if cfg.use_img
+                 else synthetic_batch(cfg, 1, seed=0))
+        a = SRFDet(cfg, device="cuda", seed=11)
+        dcn = seed_dcn_offsets(a)
+        out_a = a.predict(batch)
+        again = a.predict(batch)
+        t0 = time.perf_counter()
+        ref = reference_checkpoint(a)
+        pth = os.path.join(tmp, f"{name}.pth")
+        torch.save({"state_dict": {f"module.{k}": v for k, v in ref.items()},
+                    "meta": {"epoch": 20}}, pth)
+        export_s = time.perf_counter() - t0
+        out = os.path.join(tmp, f"{name}_port.pt")
+        t0 = time.perf_counter()
+        meta = convert_checkpoint.main([name, pth, out,
+                                        "--spconv-layout", "KIO"])
+        convert_s = time.perf_counter() - t0
+        b = SRFDet(cfg, device="cuda", seed=12)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        load_for_eval(out, b)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        sa, sb = a.state_dict(), b.state_dict()
+        differ = [k for k in sa if not k.endswith("num_batches_tracked")
+                  and not torch.equal(sa[k], sb[k])]
+        if differ or meta["unset_port_tensors"]:
+            raise AssertionError(
+                f"convert_roundtrip {name}: weights differ at {differ[:4]}, "
+                f"{meta['unset_port_tensors']} tensors unset")
+        want = predict_launches(b)
+        reset_counts()
+        out_b = b.predict(batch)
+        counts = read_counts()
+        check_launches(f"convert_roundtrip {name}", counts, want, 1)
+        launches[name] = counts
+
+        def worst(x, y):
+            return max(float((x[k] - y[k]).abs().max())
+                       for k in ("boxes", "scores"))
+        err, own = worst(out_a, out_b), worst(out_a, again)
+        if not all(torch.equal(out_a[k], out_b[k])
+                   for k in ("valid", "labels")) or err > 1e-6 or \
+                not all_finite(out_b) or not bool(out_b["valid"].any()):
+            raise AssertionError(f"convert_roundtrip {name}: B's predict "
+                                 f"differs from A's by {err}")
+        emit(dict(phase="convert_roundtrip", config=name,
+                  pth_mb=os.path.getsize(pth) / 1e6,
+                  reference_tensors=len(ref), port_tensors=meta["tensors"],
+                  unused_reference_keys=meta["unused_reference_keys"],
+                  dcn_offset_convs=dcn, export_s=export_s,
+                  convert_s=convert_s, load_s=load_s,
+                  valid=int(out_b["valid"].sum()), max_abs_diff=err,
+                  a_rerun_max_abs_diff=own, launches=counts,
+                  seconds=time.perf_counter() - t_phase, device=smi))
+        del a, b, sa, sb, ref
+        for path in (pth, out):
+            os.remove(path)
+        free_cache()
+    return launches
+
+
+class RepeatFrames:
+    """`dataset`'s frames in turn, `length` samples: one loader pass over
+    a whole training run, so the loader's prefetch spans every step."""
+
+    def __init__(self, dataset, length: int):
+        self.dataset, self.length = dataset, length
+
+    def __len__(self) -> int:
+        return self.length
+
+    def __getitem__(self, i: int):
+        return self.dataset[i % len(self.dataset)]
+
+
+# flagship_learn: two nuScenes keyframes of 34,688 points, one box of each
+# class a frame with 400 points planted in each (every box a GT), no
+# sweeps: the writer's sweeps are uniform noise (a real sweep repeats the
+# scene's surfaces).  With 10 of them the points occupy ~262k voxels,
+# over voxels_cap (120,000), and the voxelizer keeps the smallest
+# plan-major keys: the boxes in the upper half of y never reach the model;
+# with 2, a large box's centre was still 1.4-1.6 m off after 400 steps in
+# one run of four (bench/learn_sweep.py, PERF.md).  Steps at batch 2
+# (both frames) with the test pipeline's transforms and the config's AdamW
+# at lr 1e-3: at its own 2e-4 a proposal still memorising another frame's
+# box (21 m off) scored 0.026 under the top box; 20 warm-up steps, where
+# the config's 2,000 would outlast the run
+LEARN_ROOT = dict(n_train=2, n_val=0, points=34688, sweeps=0, boxes=10,
+                  per_box=400, db_per_class=0, seed=3)
+LEARN_STEPS = 400
+LEARN_OPTIONS = ("optim.lr=0.001", "optim.warmup_iters=20")
+
+
+def learn_eval(name, root, ckpt, tag, tmp):
+    """The test CLI on the learning root's train frames (score_thr 0) from
+    `ckpt`: the metrics, the dumped frames, the launches against the
+    structure."""
+    from srfdet3d_torch.tools import test as test_cli
+    dump = os.path.join(tmp, f"learn_{tag}.pkl")
+    reset_counts()
+    t0 = time.perf_counter()
+    res = test_cli.main([name, ckpt, "--data-root", root["root"],
+                         "--ann-file", root["train"], "--batch-size", "1",
+                         "--out", dump, "--device", "cuda", "--cfg-options",
+                         *TEST_OPTIONS])
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    with open(dump, "rb") as f:
+        frames = pickle.load(f)
+    return res, frames, counts, ms
+
+
+def flagship_learn(smi, tmp: str, options=LEARN_OPTIONS,
+                   steps: int = LEARN_STEPS, phase: str = "flagship_learn",
+                   planted: dict = LEARN_ROOT):
+    """The flagship at full width learns planted boxes on the card: a
+    seeded root (`planted`: write_nuscenes_root's arguments), training
+    through the port's dataset (test pipeline: no paste, no random flips
+    or rotations), loader and train_step, the test CLI's nuScenes
+    evaluator on the same two frames before (the seeded random weights)
+    and after.  Passes when the last
+    step's loss is at most half the first's, mAP after >= max(100 x the
+    random weights', 0.01), and each frame's top-scored box lies within 1 m
+    BEV of a planted centre; launches equal the structure, every step and
+    frame.  Returns the train step's launches."""
+    from srfdet3d_torch.configs import get_config
+    from srfdet3d_torch.data import NuScenesDataset, data_loader
+    from srfdet3d_torch.data import synthetic_root
+    from srfdet3d_torch.models.detector import SRFDet
+    from srfdet3d_torch.tools.train import apply_cfg_options
+    from srfdet3d_torch.train.trainer import (make_optimizer,
+                                              step_generator, train_step)
+    from srfdet3d_torch.utils.checkpoint import save_checkpoint
+    t_phase = time.perf_counter()
+    name = "srfdet_voxel_nusc_L"
+    cfg = apply_cfg_options(get_config(name), options)
+    root = synthetic_root.write_nuscenes_root(os.path.join(tmp, phase),
+                                              **planted)
+    ds = NuScenesDataset(cfg, info_path=root["train"], data_root=root["root"],
+                         test_mode=False, augment=False)
+    model = SRFDet(cfg, device="cuda", seed=0)
+    opt = make_optimizer(model, cfg, steps)
+    init = os.path.join(tmp, f"{phase}_init.pt")
+    save_checkpoint(init, model)
+    before, _, counts, before_ms = learn_eval(name, root, init, "init", tmp)
+    frames = len(ds)
+    check_launches(f"{phase} eval", counts, predict_launches(model), frames)
+
+    losses, step_ms = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t_train = time.perf_counter()
+    loader = data_loader(RepeatFrames(ds, 2 * steps), 2, shuffle=False)
+    for step, batch in enumerate(loader):
+        t0 = time.perf_counter()
+        metrics = train_step(model, opt, {k: torch.from_numpy(v)
+                                          for k, v in batch.items()},
+                             step_generator(model, 0, step))
+        losses.append(float(metrics["loss"]))          # syncs
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if step == 0:       # the learned proposal boxes get a gradient
+            grad = model.bbox_head.init_proposal_boxes.grad
+            init_grad = None if grad is None else float(grad.norm())
+        if not math.isfinite(losses[-1]):
+            raise AssertionError(f"{phase}: loss {losses[-1]} at step {step}")
+        if step % 25 == 0 or step == steps - 1:
+            emit(dict(phase=f"{phase}_loss", step=step, loss=losses[-1],
+                      lr=opt.schedule(step)))
+    train_s = time.perf_counter() - t_train
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = train_launches(model)
+    check_launches(phase, read_counts(), want, len(losses))
+    trained = os.path.join(tmp, f"{phase}_trained.pt")
+    save_checkpoint(trained, model)
+    after, dump, counts, after_ms = learn_eval(name, root, trained, "trained",
+                                               tmp)
+    check_launches(f"{phase} eval", counts, predict_launches(model), frames)
+    # each frame's top-scored box against the boxes planted in it (the
+    # info's, in the dump's order: the test CLI does not shuffle); the five
+    # best with their class, score and nearest planted box beside it
+    top_err, top5 = [], []
+    for info, pred in zip(ds.infos, dump["preds"]):
+        order = np.argsort(-pred["scores"], kind="stable")[:5]
+        rows = []
+        for i in order:
+            dist = np.linalg.norm(info["gt_boxes"][:, :2] -
+                                  pred["boxes"][i, :2], axis=1)
+            near = int(dist.argmin())
+            rows.append(dict(label=str(pred["labels_name"][i]),
+                             score=float(pred["scores"][i]),
+                             bev_err_m=float(dist[near]),
+                             nearest=str(info["gt_names"][near])))
+        top5.append(rows)
+        top_err.append(rows[0]["bev_err_m"] if rows else math.inf)
+    bar = max(100 * before["mAP"], 0.01)
+    ok = (losses[-1] <= 0.5 * losses[0] and after["mAP"] >= bar and
+          len(top_err) == frames and max(top_err) < 1.0)
+    emit(dict(phase=phase, config=name, options=options, lr=cfg.optim.lr,
+              steps=len(losses),
+              frames=frames, planted_per_box=planted["per_box"],
+              gt_per_frame=[len(g["boxes"]) for g in dump["gts"]],
+              loss_first=losses[0], loss_last=losses[-1],
+              loss_every_25=losses[::25] + losses[-1:],
+              map_random=before["mAP"], nds_random=before["NDS"],
+              map_trained=after["mAP"], nds_trained=after["NDS"],
+              map_bar=bar, top_box_bev_err_m=top_err, top5=top5,
+              init_proposal_boxes_grad_norm=init_grad,
+              step_p50_ms=statistics.median(step_ms), train_s=train_s,
+              eval_ms=[before_ms, after_ms], peak_gb=peak,
+              launches_per_step=want, passed=ok,
+              seconds=time.perf_counter() - t_phase, device=smi))
+    if not ok:
+        raise AssertionError(f"{phase}: did not learn: loss {losses[0]} -> "
+                             f"{losses[-1]}, mAP {before['mAP']} -> "
+                             f"{after['mAP']} (bar {bar}), top boxes "
+                             f"{top_err} m off")
+    return want
+
+
 def kernel_entry(name, source, replaces, launches, t, max_err):
     bound_by = t.get("bound_by") or (
         "operations" if t["ops_bound_ms"] >= t["bytes_bound_ms"]
@@ -2211,7 +2651,8 @@ def kernel_entry(name, source, replaces, launches, t, max_err):
     # device time
     for key in ("tc_bound_ms", "simt_bound_ms", "device_ms", "host_ms",
                 "prep_ms", "prep_device_ms", "builds", "lc_launches",
-                "lc_train_launches", "data_launches", "img_geometry"):
+                "lc_train_launches", "data_launches", "convert_launches",
+                "learn_launches", "img_geometry"):
         if key in t:
             entry[key] = t[key]
     return entry
@@ -2368,9 +2809,14 @@ def main() -> int:
             batch_size=c.optim.batch_size_per_device,
             prepare=seed_dcn_offsets)
         torch.cuda.empty_cache()
-    # the runtime around the model: train and test from files on disk
+    # the runtime around the model: train and test from files on disk;
+    # a reference-format checkpoint through the convert and test CLIs; the
+    # flagship learning planted boxes
     with tempfile.TemporaryDirectory() as tmp:
         data_launches = data_phases(smi, tmp)
+        free_cache()
+        convert_launches = convert_roundtrip(smi, tmp)
+        learn_launches = flagship_learn(smi, tmp)
     free_cache()
     tiny_end_to_end(tiny_test_config())
     tiny_end_to_end(table_backend(tiny_kitti_test_config()))
@@ -2420,6 +2866,9 @@ def main() -> int:
                                       for ph, c in lc_train.items()}
         entry["data_launches"] = {ph: c[key]
                                   for ph, c in data_launches.items()}
+        entry["convert_launches"] = {ph: c[key]
+                                     for ph, c in convert_launches.items()}
+        entry["learn_launches"] = learn_launches[key]
     emit({"kernels": [
         kernel_entry("gather_conv", "srfdet3d_torch/csrc/gather_conv.cu",
                      "srfdet3d_tpu/ops/pallas_onehot.py:67", k1_launches,

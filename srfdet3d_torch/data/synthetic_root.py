@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import os
 import pickle
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -73,6 +73,16 @@ def _plant(rng, pts: np.ndarray, boxes: np.ndarray, per_box: int) -> None:
         pts[sl, 0] = b[0] + loc[:, 0] * c - loc[:, 1] * s
         pts[sl, 1] = b[1] + loc[:, 0] * s + loc[:, 1] * c
         pts[sl, 2] = b[2] + b[5] / 2 + loc[:, 2]
+
+
+def _per_box(per_box: Optional[int], points: int, boxes: int) -> int:
+    """Points planted a box: `per_box`, or min(20, points // boxes)."""
+    if per_box is None:
+        return min(20, points // max(boxes, 1))
+    if per_box * boxes > points:
+        raise ValueError(f"{per_box} points in each of {boxes} boxes exceed "
+                         f"the frame's {points}")
+    return per_box
 
 
 def _write_image(path: str, img: np.ndarray) -> str:
@@ -148,13 +158,17 @@ def write_nuscenes_root(root: str, n_train: int = 4, n_val: int = 2,
                         boxes: int = 35, cams: bool = False,
                         img_hw: Tuple[int, int] = (900, 1600),
                         image_ext: str = ".npy", db_per_class: int = 3,
-                        seed: int = 0) -> Dict[str, str]:
+                        seed: int = 0, per_box: Optional[int] = None
+                        ) -> Dict[str, str]:
     """nuScenes in the mmdet3d info format: each keyframe a (points, 5)
     .bin, `sweeps` past sweeps of the same density with their
     sensor2lidar poses and timestamps, `boxes` GT boxes over the ten
     classes (gravity-centre z, velocities, LiDAR point counts, a few with
     none), and with `cams` the six camera frames and their calibration.
-    Returns the paths: root, train, val, db."""
+    `per_box` keyframe points are planted in each box (default
+    min(20, points // boxes), and random LiDAR point counts); given, it is
+    every box's num_lidar_pts too, so no box drops out of the GT.  Returns
+    the paths: root, train, val, db."""
     rng = np.random.default_rng(seed)
     os.makedirs(os.path.join(root, "samples"), exist_ok=True)
     lo, hi = (-54.0, -54.0, -4.0), (54.0, 54.0, 2.0)
@@ -168,7 +182,7 @@ def write_nuscenes_root(root: str, n_train: int = 4, n_val: int = 2,
                      for k in rng.permutation(boxes)]
             gt = _boxes(rng, names, (-45, -45, lo[2]), (45, 45, 0))
             key = _points(rng, points, 5, lo, hi)
-            _plant(rng, key, gt, min(20, points // max(boxes, 1)))
+            _plant(rng, key, gt, _per_box(per_box, points, boxes))
             rel = f"samples/{tag}.bin"
             key.tofile(os.path.join(root, rel))
             sw = []
@@ -189,6 +203,8 @@ def write_nuscenes_root(root: str, n_train: int = 4, n_val: int = 2,
             centre[:, 2] += centre[:, 5] / 2         # gravity centre
             npts = rng.integers(0, 400, len(names))
             npts[rng.random(len(names)) < 0.1] = 0
+            if per_box is not None:       # each box holds what was planted
+                npts[:] = per_box
             info = {"token": tag, "lidar_path": rel, "sweeps": sw,
                     "timestamp": ts, "gt_boxes": centre,
                     "gt_names": np.array(names),
@@ -239,7 +255,8 @@ def _kitti_calib(rng, hw: Tuple[int, int], n_views: int = 1) -> Dict:
 def _kitti_like_root(root: str, prefix: str, n_train: int, n_val: int,
                      points: int, dim: int, boxes: int, classes,
                      lo, hi, views: int, img_hw, image_ext: str,
-                     db_per_class: int, seed: int) -> Dict[str, str]:
+                     db_per_class: int, seed: int,
+                     per_box: Optional[int] = None) -> Dict[str, str]:
     rng = np.random.default_rng(seed)
     os.makedirs(os.path.join(root, "velodyne"), exist_ok=True)
     for v in range(views):
@@ -254,7 +271,7 @@ def _kitti_like_root(root: str, prefix: str, n_train: int, n_val: int,
             gt = _boxes(rng, names, (lo[0] + 2, lo[1] + 2, lo[2]),
                         (hi[0] - 2, hi[1] - 2, 0))
             pts = _points(rng, points, dim, lo, hi)
-            _plant(rng, pts, gt, min(20, points // max(boxes, 1)))
+            _plant(rng, pts, gt, _per_box(per_box, points, boxes))
             rel = f"velodyne/{idx:06d}.bin"
             pts.tofile(os.path.join(root, rel))
             for v in range(views):
@@ -283,26 +300,29 @@ def write_kitti_root(root: str, n_train: int = 4, n_val: int = 2,
                      points: int = 120_000, boxes: int = 12,
                      img_hw: Tuple[int, int] = (375, 1242),
                      image_ext: str = ".npy", db_per_class: int = 3,
-                     seed: int = 0) -> Dict[str, str]:
+                     seed: int = 0, per_box: Optional[int] = None
+                     ) -> Dict[str, str]:
     """KITTI in the mmdet3d info format: (points, 4) velodyne .bin files in
     the forward field of view, the front camera's frame (image_0/), calib
     (P0-P2, R0_rect, Tr_velo_to_cam) and annos (gt_boxes_lidar, bottom-
-    centre z, and names with a trailing DontCare)."""
+    centre z, and names with a trailing DontCare); `per_box` as in
+    write_nuscenes_root."""
     return _kitti_like_root(root, "kitti", n_train, n_val, points, 4, boxes,
                             ("Pedestrian", "Cyclist", "Car"),
                             (0.0, -40.0, -3.0), (70.4, 40.0, 1.0), 1, img_hw,
-                            image_ext, db_per_class, seed)
+                            image_ext, db_per_class, seed, per_box)
 
 
 def write_waymo_root(root: str, n_train: int = 2, n_val: int = 1,
                      points: int = 150_000, boxes: int = 20, views: int = 5,
                      img_hw: Tuple[int, int] = (1280, 1920),
-                     image_ext: str = ".npy", seed: int = 0
-                     ) -> Dict[str, str]:
+                     image_ext: str = ".npy", seed: int = 0,
+                     per_box: Optional[int] = None) -> Dict[str, str]:
     """Waymo through the mmdet3d kitti-format conversion: (points, 6) .bin
     files around the car, `views` camera frames (image_0/ ... image_{n-1}/,
-    projections P0 ...) and annos with the three classes."""
+    projections P0 ...) and annos with the three classes; `per_box` as in
+    write_nuscenes_root."""
     return _kitti_like_root(root, "waymo", n_train, n_val, points, 6, boxes,
                             ("Car", "Pedestrian", "Cyclist"),
                             (-75.2, -75.2, -2.0), (75.2, 75.2, 4.0), views,
-                            img_hw, image_ext, 0, seed)
+                            img_hw, image_ext, 0, seed, per_box)

@@ -4,14 +4,16 @@ Usage:
   python -m srfdet3d_torch.tools.train <config_name> [--work-dir DIR]
       [--resume-from CKPT] [--load-from CKPT] [--epochs N]
       [--batch-size B] [--seed S] [--synthetic] [--data-root PATH]
-      [--ann-file PATH] [--db-info PKL] [--no-cbgs] [--device DEV]
-      [--cfg-options k=v ...]
+      [--ann-file PATH] [--db-info PKL] [--no-cbgs] [--debug-nans]
+      [--device DEV] [--cfg-options k=v ...]
 
 config_name is one of srfdet3d_torch.configs.CONFIGS.  --synthetic trains
 on generated scenes (no dataset needed).  --cfg-options takes dotted keys
 into the frozen config dataclasses, e.g. optim.lr=1e-4
 optim.accum_steps=2.  --device defaults to cuda; pass cpu to run the
-plain versions of the kernels on the CPU.
+plain versions of the kernels on the CPU.  --debug-nans turns on
+autograd's anomaly detection (a NaN made in a backward raises there) and
+raises FloatingPointError at the first step whose loss is not finite.
 
 Checkpoints go to <work-dir>/<config>/epoch_<n>.pt; a first SIGTERM or
 SIGINT saves preempt_<step>.pt after the step in flight and exits, and
@@ -126,6 +128,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="run validation eval every N epochs (mmcv "
                          "EvalHook); 0 = off")
     ap.add_argument("--no-cbgs", action="store_true")
+    ap.add_argument("--debug-nans", action="store_true",
+                    help="autograd anomaly detection (the reference's "
+                         "set_detect_anomaly, train.py:317) and a finite "
+                         "check of every step's loss; both raise")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     ap.add_argument("--cfg-options", nargs="*", default=None)
@@ -253,6 +259,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
 
     previous = {sig: signal.signal(sig, _on_preempt)
                 for sig in (signal.SIGTERM, signal.SIGINT)}
+    anomaly = torch.is_anomaly_enabled()
+    torch.autograd.set_detect_anomaly(anomaly or args.debug_nans)
     last: Dict[str, torch.Tensor] = {}
     try:
         start_epoch = host_step // steps_per_epoch
@@ -276,6 +284,9 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                     step_generator(model, args.seed, host_step))
                 _sync(dev)
                 t2 = time.perf_counter()
+                if args.debug_nans and not torch.isfinite(metrics["loss"]):
+                    raise FloatingPointError(
+                        f"step {host_step}: loss {float(metrics['loss'])}")
                 last = metrics
                 record["wait_ms"].append((t1 - t0) * 1e3)
                 record["step_ms"].append((t2 - t1) * 1e3)
@@ -304,6 +315,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                 if preempt_save():           # signal during the eval pass
                     return record
     finally:
+        torch.autograd.set_detect_anomaly(anomaly)
         for sig, handler in previous.items():
             signal.signal(sig, handler)
         record["last_step"] = host_step

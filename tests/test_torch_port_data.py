@@ -14,6 +14,7 @@ resizes in PyTorch and the JAX package in PIL, within 0.05 grey levels on
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -336,6 +337,45 @@ def test_npy_frames_equal_png_frames(tmp_path):
     s = [tds.NuScenesDataset(cfg, info_path=r["train"], data_root=r["root"],
                              augment=False)[0] for r in (a, b)]
     assert_same_sample(*s)
+
+
+@pytest.mark.parametrize("writer", ["nuscenes", "kitti"])
+def test_planted_points_per_box(tmp_path, writer):
+    """The writers' per_box: by default min(20, points // boxes) points
+    are planted in each box (the files of an explicit per_box of that
+    count are the same bytes); per_box=60 plants 60 points inside each
+    box, and on nuScenes makes it every box's num_lidar_pts."""
+    import pickle
+    write = getattr(roots, f"write_{writer}_root")
+    kw = dict(n_train=1, n_val=0, points=600, boxes=6, db_per_class=0,
+              seed=5, **({"sweeps": 1} if writer == "nuscenes" else {}))
+    base = write(str(tmp_path / "a"), **kw)
+    same = write(str(tmp_path / "b"), per_box=20, **kw)
+    more = write(str(tmp_path / "c"), per_box=60, **kw)
+    with open(base["train"], "rb") as f:
+        infos = pickle.load(f)
+    info = infos["infos"][0] if writer == "nuscenes" else infos[0]
+    rel = info["lidar_path"] if writer == "nuscenes" else \
+        info["point_cloud"]["velodyne_path"]
+    dim = 5 if writer == "nuscenes" else 4
+    pts = [np.fromfile(os.path.join(r["root"], rel),
+                       np.float32).reshape(-1, dim)
+           for r in (base, same, more)]
+    np.testing.assert_array_equal(pts[0], pts[1])
+    boxes = info["gt_boxes"] if writer == "nuscenes" else \
+        info["annos"]["gt_boxes_lidar"]
+    for n, cloud in ((20, pts[0]), (60, pts[2])):
+        for i, b in enumerate(boxes):
+            p = cloud[i * n:(i + 1) * n, :2] - b[:2]
+            c, s_ = np.cos(b[6]), np.sin(b[6])
+            local = np.stack([p[:, 0] * c + p[:, 1] * s_,
+                              -p[:, 0] * s_ + p[:, 1] * c], -1)
+            assert (np.abs(local) <= b[3:5] / 2 + 1e-4).all()
+    if writer == "nuscenes":
+        with open(more["train"], "rb") as f:
+            planted = pickle.load(f)["infos"][0]
+        assert (planted["num_lidar_pts"] == 60).all()
+        np.testing.assert_array_equal(planted["gt_boxes"], info["gt_boxes"])
 
 
 def test_are_points_in_image_matches_jax():

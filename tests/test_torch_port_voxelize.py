@@ -69,6 +69,34 @@ def test_voxelize_matches_jax(b, p, vs, cap_pts, v_cap):
         assert vm.all(), "the overflow case must fill every voxel slot"
 
 
+def test_voxel_cap_keeps_the_smallest_keys_not_the_first_points():
+    """Over voxels_cap the JAX package keeps the voxels of the smallest
+    plan-major keys ((y * nx + x) * nz + z), and the port with it; the
+    reference's mmcv hard voxelization keeps the first voxels in point
+    order (keyframe points come before the sweeps').  So a keyframe
+    point at high y loses its voxel to later points at low y: in a scene
+    that overflows the cap, the objects of the upper half in y vanish
+    (ROADMAP Queue 3, item 11; PERF.md, flagship_learn)."""
+    n_first, n_later, v_cap = 8, 40, 32
+    pts = np.zeros((1, n_first + n_later, 5), np.float32)
+    pts[0, :n_first, 0] = np.linspace(-8, 8, n_first)
+    pts[0, :n_first, 1] = 8.0                      # the first points: high y
+    pts[0, n_first:, 0] = np.linspace(-9.5, 9.5, n_later)
+    pts[0, n_first:, 1] = -8.0                     # later points: low y
+    mask = np.ones(pts.shape[:2], bool)
+    # 0.25 m cells: every point its own voxel, 48 voxels for 32 slots
+    jspec, tspec = _specs((0.25, 0.25, 0.5), 4, v_cap)
+    jv = jvox.voxelize_points_batched(jnp.asarray(pts), jnp.asarray(mask),
+                                      jspec, with_counts=False)
+    tv = voxelize_points_batched(torch.from_numpy(pts),
+                                 torch.from_numpy(mask), tspec)
+    idx = tv.point_voxel_idx.numpy()[0]
+    np.testing.assert_array_equal(idx, np.asarray(jv.point_voxel_idx)[0])
+    assert (idx[:n_first] == v_cap).all()          # dropped, though first
+    assert (idx[n_first:n_first + v_cap] < v_cap).all()
+    # first-come (the reference's rule) would have kept all eight
+
+
 def test_vfe_and_flatten_match_jax():
     """HardSimpleVFE over the flattened batch: float means within 1e-6."""
     rng = np.random.default_rng(5)
@@ -92,10 +120,11 @@ def test_vfe_and_flatten_match_jax():
 
 
 def test_port_imports_no_jax():
-    """Importing the whole port, the train step's modules included, pulls
-    in neither jax nor srfdet3d_tpu."""
+    """Importing the whole port, the train step's modules and the
+    checkpoint converter included, and chip_smoke.py (its reference-naming
+    exporter), pulls in neither jax nor srfdet3d_tpu."""
     code = (
-        "import sys, pkgutil, importlib, srfdet3d_torch\n"
+        "import sys, pkgutil, importlib, srfdet3d_torch, chip_smoke\n"
         "for m in pkgutil.walk_packages(srfdet3d_torch.__path__, "
         "'srfdet3d_torch.'):\n"
         "    importlib.import_module(m.name)\n"
@@ -109,7 +138,9 @@ def test_port_imports_no_jax():
         "'data.img_transforms', 'data.datasets', 'data.loader', "
         "'data.synthetic_root', 'evals.nuscenes_eval', 'evals.kitti_eval', "
         "'evals.waymo_eval', 'evals.formatters', 'utils.checkpoint', "
-        "'utils.logging', 'tools.train', 'tools.test']\n"
+        "'utils.logging', 'tools.train', 'tools.test', "
+        "'utils.torch_convert', 'tools.convert_checkpoint', "
+        "'tools.eval_results_from_pkl']\n"
         "missed = [n for n in need if 'srfdet3d_torch.' + n not in "
         "sys.modules]\n"
         "assert not missed, missed\n"

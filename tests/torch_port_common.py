@@ -4,6 +4,7 @@ step on both sides on the same weights and batch, and the tiny LC configs'
 train step through JAX make_train_step."""
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -16,6 +17,7 @@ import __graft_entry__ as graft
 from srfdet3d_tpu import config as jconfig
 from srfdet3d_tpu import configs as jconfigs
 from srfdet3d_tpu.models.detector import SRFDet as JSRFDet
+from srfdet3d_tpu.models.head import decode_boxes as j_decode_boxes
 from srfdet3d_tpu.models.losses import srfdet_losses as j_losses
 from srfdet3d_tpu.train.trainer import TrainState
 from srfdet3d_tpu.train.trainer import freeze_mask as j_freeze_mask
@@ -215,10 +217,23 @@ def lidar2img_rig(n_cam: int, h: int, w: int) -> np.ndarray:
     return np.stack(mats).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=8)
+def init_shapes(jcfg, signature):
+    """The JAX SRFDet's variable shapes for a batch of `signature` ((name,
+    shape, dtype) of each input), traced once a process and shared by the
+    cases that build the same model."""
+    batch = {k: jax.ShapeDtypeStruct(shape, dtype)
+             for k, shape, dtype in signature}
+    return jax.eval_shape(
+        lambda r, b: JSRFDet(jcfg).init(r, b, train=False),
+        jax.random.PRNGKey(0), batch)
+
+
 def check_predict(jcfg, tcfg, batch_size=2, points_seed=0, weight_seed=12,
                   extra=None, variables_hook=None, init_extra=None):
-    """JAX SRFDet.predict against the port's on the same points and the
-    same seeded weights (class biases zeroed, so scores spread over (0, 1)
+    """JAX SRFDet.predict (its forward and decode_boxes in one jitted
+    program) against the port's on the same points and the same seeded
+    weights (class biases zeroed, so scores spread over (0, 1)
     and decoding has work): forward logits and boxes within 1e-4, decoded
     scores within 1e-5 and boxes within 1e-4 (float32 op order); labels and
     valid flags (the NMS keep sets) exactly.  `extra`: more numpy inputs
@@ -234,18 +249,25 @@ def check_predict(jcfg, tcfg, batch_size=2, points_seed=0, weight_seed=12,
               **{k: jnp.asarray(v) for k, v in extra.items()}}
     init_batch = {**jbatch, **{k: jnp.asarray(v)
                                for k, v in (init_extra or {}).items()}}
-    shapes = jax.eval_shape(lambda r, b: model.init(r, b, train=False),
-                            jax.random.PRNGKey(0), init_batch)
+    shapes = init_shapes(jcfg, tuple(
+        (k, v.shape, v.dtype.name) for k, v in sorted(init_batch.items())))
     variables = random_variables(shapes, weight_seed)
     head = variables["params"]["bbox_head"]["head_series"]["single_head"]
     head["class_logits"]["bias"][:] = 0.0
     if variables_hook is not None:
         variables_hook(variables)
+    t = jcfg.test
 
     @jax.jit
     def run(v, b):
+        # JSRFDet.predict's body (the forward, then decode_boxes with the
+        # config's test settings) on one forward, shared with the raw
+        # outputs: one trace and one compile of the model, not two
         logits, boxes = model.apply(v, b, train=False)
-        return logits, boxes, model.apply(v, b, method=JSRFDet.predict)
+        return logits, boxes, j_decode_boxes(
+            logits[-1], boxes[-1], use_nms=t.use_nms, nms_thr=t.nms_thr,
+            score_thr=t.score_thr, max_per_img=t.max_per_img,
+            post_center_range=t.post_center_range)
 
     j_logits, j_boxes, j_out = jax.device_get(run(variables, jbatch))
     port = SRFDet(tcfg, device="cpu")
@@ -465,3 +487,151 @@ def check_freeze_mask(jcfg, port, shapes):
             frozen.add(keys[:2])
     assert sorted(seen) == sorted(got)
     return frozen
+
+
+# ---------------------------------------------------------------------------
+# reference (mm-stack) state dicts for the checkpoint converters
+
+
+def _reference_resnet_state(cfg, rng, st):
+    """The LC image entries of a ResNet config in the reference's naming
+    (mmdet ResNet with DCNv2 stages, an FPN with BN and no conv bias or a
+    plain one with bias, the head's image extras and fused projections),
+    as test_torch_convert_full.py builds the VoVNet ones."""
+    from srfdet3d_tpu.models.resnet import RESNET_DEPTHS
+
+    def t(key, *shape):
+        st[key] = rng.normal(size=shape).astype(np.float32) * 0.05
+
+    def bn2(prefix, c):
+        t(f"{prefix}.weight", c)
+        t(f"{prefix}.bias", c)
+        st[f"{prefix}.running_mean"] = np.zeros(c, np.float32)
+        st[f"{prefix}.running_var"] = np.ones(c, np.float32)
+        st[f"{prefix}.num_batches_tracked"] = np.asarray(1)
+
+    ic = cfg.img
+    depth = int(ic.backbone.split("-")[1])
+    kind, layers = RESNET_DEPTHS[depth]
+    assert kind == "bottleneck"
+    t("img_backbone.conv1.weight", 64, 3, 7, 7)
+    bn2("img_backbone.bn1", 64)
+    planes, in_ch = 64, 64
+    outs = []
+    for l, n in enumerate(layers, start=1):
+        for i in range(n):
+            tm = f"img_backbone.layer{l}.{i}"
+            t(f"{tm}.conv1.weight", planes, in_ch, 1, 1)
+            bn2(f"{tm}.bn1", planes)
+            t(f"{tm}.conv2.weight", planes, planes, 3, 3)
+            bn2(f"{tm}.bn2", planes)
+            if ic.stage_with_dcn[l - 1]:
+                t(f"{tm}.conv2.conv_offset.weight", 27, planes, 3, 3)
+                t(f"{tm}.conv2.conv_offset.bias", 27)
+            t(f"{tm}.conv3.weight", planes * 4, planes, 1, 1)
+            bn2(f"{tm}.bn3", planes * 4)
+            if i == 0:
+                t(f"{tm}.downsample.0.weight", planes * 4, in_ch, 1, 1)
+                bn2(f"{tm}.downsample.1", planes * 4)
+            in_ch = planes * 4
+        outs.append(in_ch)
+        planes *= 2
+    noc = ic.neck_out_channels
+    for i, cin in enumerate(outs):
+        for conv, k, c_in in (("lateral_convs", 1, cin),
+                              ("fpn_convs", 3, noc)):
+            t(f"img_neck.{conv}.{i}.conv.weight", noc, c_in, k, k)
+            if ic.neck_norm:
+                bn2(f"img_neck.{conv}.{i}.bn", noc)
+            else:
+                t(f"img_neck.{conv}.{i}.conv.bias", noc)
+    hc = cfg.head
+    hid, c = hc.hidden_dim, hc.feat_channels_lidar
+    if hid != hc.feat_channels_img:
+        for i in range(hc.img_feat_lvls):
+            t(f"bbox_head.img_convs.{i}.weight", hid, hc.feat_channels_img,
+              3, 3)
+            t(f"bbox_head.img_convs.{i}.bias", hid)
+    for lvl in range(hc.img_feat_lvls - 1):
+        ch = hid * (lvl + 1)
+        t(f"bbox_head.dpg_dw_convs_img.{lvl}.conv.weight", ch, 1, 3, 3)
+        bn2(f"bbox_head.dpg_dw_convs_img.{lvl}.bn", ch)
+    t("bbox_head.dpg_fc1_img.weight", 1500, 30 * 30)
+    t("bbox_head.dpg_fc1_img.bias", 1500)
+    t("bbox_head.dpg_fc2_img.weight", hc.num_dpg_exp * hc.num_proposals,
+      1500)
+    t("bbox_head.dpg_fc2_img.bias", hc.num_dpg_exp * hc.num_proposals)
+    for it in range(hc.num_heads):
+        m = f"bbox_head.head_series_lidar.{it}"
+        t(f"{m}.output_fused_proj.weight", c, hid + c)
+        t(f"{m}.output_fused_proj.bias", c)
+
+
+def reference_state(cfg, seed):
+    """A seeded state dict with the reference's module names and torch
+    layouts (spconv 'KIO') for any shipped or tiny port config: the
+    generators of test_torch_convert_full.py for the LiDAR branch (the
+    pillar one for a pillar config) and the VoVNet image branch,
+    _reference_resnet_state for a ResNet one, and the DynamicVFE's
+    centroid MLP (cen2point_pos_enc, whose width 32 widens the first
+    layer's input).  The DPG's first Linears take their input width from
+    the port model (the generators' grid arithmetic holds for the
+    full-width LiDAR grids only, and their image DPG is 30 x 30, KITTI
+    LC's 30 x 15)."""
+    import test_torch_convert_full as full
+    rng = np.random.default_rng(seed)
+    if cfg.middle.kind == "pillar_scatter":
+        st = full._synthetic_torch_state_pillar(cfg, rng)
+    else:
+        st = full._synthetic_torch_state(cfg, rng)
+    if cfg.vfe.kind == "dynamic" and cfg.vfe.with_centroid_aware:
+        tp = "pts_voxel_encoder.cen2point_pos_enc"
+        for li, bi, cin in ((0, 1, 3), (3, 4, 32)):
+            st[f"{tp}.{li}.weight"] = rng.normal(
+                size=(32, cin)).astype(np.float32)
+            for leaf, val in (("weight", rng.uniform(0.8, 1.2, 32)),
+                              ("bias", rng.normal(0, 0.1, 32)),
+                              ("running_mean", rng.normal(0, 0.1, 32)),
+                              ("running_var", rng.uniform(0.5, 1.5, 32))):
+                st[f"{tp}.{bi}.{leaf}"] = val.astype(np.float32)
+    if cfg.use_img:
+        if cfg.img.backbone.startswith("vovnet"):
+            full._synthetic_torch_img_state(cfg, rng, st)
+        else:
+            _reference_resnet_state(cfg, rng, st)
+    shapes = meta_state_shapes(cfg)
+    for ref, port in (("dpg_fc1_lidar", "dpg_fc1"),
+                      ("dpg_fc1_img", "dpg_fc1_img")):
+        key = f"bbox_head.{ref}.weight"
+        want = shapes.get(f"bbox_head.{port}.weight")
+        if key in st and st[key].shape != want:
+            st[key] = rng.normal(size=want).astype(np.float32) * 0.05
+    return st
+
+
+def spconv_to_oki(state):
+    """The same state dict with every spconv weight (5-D, KIO) in spconv
+    2.x's (out, kz, ky, kx, in) layout."""
+    return {k: (np.transpose(v, (4, 0, 1, 2, 3))
+                if k.startswith("pts_middle_encoder.") and np.ndim(v) == 5
+                else v) for k, v in state.items()}
+
+
+def jax_route_state(state, jcfg, layout="KIO"):
+    """The port's state dict by the JAX route: the JAX package's
+    convert_reference_state_dict, then the weight bridge's map onto the
+    port's names (numpy)."""
+    from srfdet3d_tpu.utils.torch_convert import (
+        convert_reference_state_dict as j_convert)
+    hc = jcfg.head
+    return jax_state_dict(j_convert(state, jcfg, spconv_layout=layout),
+                          hc.num_heads, hc.num_cls_convs)
+
+
+def meta_state_shapes(tcfg):
+    """The port model's state_dict shapes less the BN step counters,
+    built on the meta device."""
+    with torch.device("meta"):
+        port = SRFDet(tcfg, device="meta")
+    return {k: tuple(v.shape) for k, v in port.state_dict().items()
+            if not k.endswith("num_batches_tracked")}
