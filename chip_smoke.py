@@ -141,7 +141,29 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    weights and after training: the last loss at most half the first,
    mAP at least max(100 x the random weights', 0.01), each frame's
    top-scored box within 1 m BEV of a planted centre; step p50, peak GB,
-   launches a step and a frame equal to the structure;
+   launches a step and a frame equal to the structure; then data
+   parallelism (srfdet3d_torch/parallel): ddp_flagship_train, the
+   flagship at full width (dropout off) on two ranks that share the card
+   over gloo (host-staged collectives; NCCL refuses two ranks on one
+   card), `python3 chip_smoke.py --ddp-worker <dir>` each, at batch 2
+   a rank, for 3 steps, against this process at batch 4: each step run
+   again from the ranks' state before it (rank 0's parameters, buffers
+   and AdamW moments), playing back the ranks' discrete decisions
+   (Decisions: RoI levels, sample corners, OTA matches), and held within
+   DDP_LOSS_RTOL, DDP_GRAD_RTOL, DDP_LEAF_TOL and 2 lr (step_errors); the
+   decisions that flip and the first step's error without playback
+   reported; the ranks' parameters and buffers bit for bit equal, each
+   rank's launches a step equal to the structure, its p50 and peak, the
+   collectives a step and the gloo all-reduce times;
+   ddp_nccl_world1, 3 flagship steps in an NCCL group of one, every
+   collective issued, between two runs with no group on the same weights
+   (p50s, differences per step), the first step held within the same
+   tolerances against a no-group step that plays back its decisions;
+   ddp_cli, the launchers
+   dist_train.sh (2 ranks, gloo on the card, 4 steps from a seeded root)
+   and dist_test.sh (3 val frames on 2 ranks) against the test CLI in one
+   process on the same checkpoint (the dump within 1e-4, the metrics within
+   1e-4); every subprocess killed at DDP_TIMEOUT;
 11. tiny predicts (tiny_test_config; tiny_kitti_test_config and
    tiny_test_config with middle.rulebook="table"; tiny_pillar_test_config
    with its own corner RoIAlign; two tiny LC configs: VoVNet-19-slim on
@@ -166,8 +188,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    carries lc_launches, its launches in each LC predict,
    lc_train_launches, its launches in each LC train step, and
    data_launches, its launches a step in each data phase's train run,
-   convert_launches, its launches in each round-trip predict, and
-   learn_launches, its launches a flagship_learn step.
+   convert_launches, its launches in each round-trip predict,
+   learn_launches, its launches a flagship_learn step, and ddp_launches,
+   each ddp_flagship_train rank's launches a step.
 
 The second-to-last line is nvidia-smi's name and power limit; the last line
 is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -175,6 +198,7 @@ is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -2638,6 +2662,754 @@ def flagship_learn(smi, tmp: str, options=LEARN_OPTIONS,
     return want
 
 
+# data parallelism (srfdet3d_torch/parallel): the flagship's step on two
+# ranks that share the card over gloo, against one process on the whole
+# batch; an NCCL group of one; the launchers dist_train.sh and dist_test.sh
+
+# two ranks at batch 2 each, against one process at batch 4, for DDP_STEPS
+# steps; dropout off, as the JAX package's DP test runs it (each rank's
+# masks fold in its rank, one process draws others)
+DDP_RANK_BATCH, DDP_WORLD, DDP_STEPS = 2, 2, 3
+# every subprocess of the DDP phases is killed at this many seconds
+DDP_TIMEOUT = 300
+# the tolerances of the DDP phases' steps, 2 ranks or an NCCL group of
+# one against one process without a group, each step from the same
+# state (the first from the seeded weights, each later one from rank
+# 0's parameters, buffers and AdamW moments), the one process playing
+# back the ranks' discrete decisions (Decisions).  At the flagship's
+# random weights a rounding in the forward flips some ReLU inputs, and
+# the flips alone moved the step-0 grads by 6.4-6.7% (PERF.md §6);
+# played back, what remains is rounding: the ranks sum BN statistics,
+# normalizers and grads in halves, the synced BatchNorm2d takes flax's
+# mean-of-squares variance where cuDNN takes its own, each process times
+# its own cuDNN algorithms, and the card's float atomics.  That rounding
+# still moves the grads by 0.1-0.9% (|g - g_ref| / |g_ref|; a leaf's by
+# up to 1.8% of its largest): the DPG's mixture softmax is saturated at
+# these weights (logits up to 262), and its backward turns a 3e-4 change
+# of its cotangent into a 4e-3 change of the logits' grad, which reaches
+# every LiDAR leaf through the DPG staircase and the BEV neck.  A missing
+# sync in the forward moves the losses by 1e-2 or more (half-batch BN
+# statistics or normalizers), a missing or doubled grad all-reduce the
+# grads by 50-100%; the exact semantics are held on the CPU
+# (tests/test_torch_port_ddp.py, _sync_bn.py).  The flips each step are
+# reported.
+DDP_LOSS_RTOL = 2e-4          # each loss
+DDP_GRAD_RTOL = 2e-2          # grad_norm, and |g - g_ref| / |g_ref|
+DDP_LEAF_TOL = 5e-2           # the worst leaf's |g - g_ref| over its largest
+
+
+def grad_errors(got, ref, sizes, names):
+    """(|got - ref| / |ref|, the worst leaf's max |diff| over
+    max(its largest |grad|, 1e-3 x the tree's), that leaf) of two flat
+    grad vectors."""
+    tree_max = float(ref.abs().max())
+    worst, worst_leaf = 0.0, None
+    for name, a, b in zip(names, torch.split(got, sizes),
+                          torch.split(ref, sizes)):
+        err = float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                1e-3 * tree_max)
+        if err > worst:
+            worst, worst_leaf = err, name
+    return float((got - ref).norm() / ref.norm()), worst, worst_leaf
+
+
+def ddp_config():
+    from srfdet3d_torch.configs import srfdet_voxel_nusc_L
+    cfg = srfdet_voxel_nusc_L()
+    return cfg.replace(head=dataclasses.replace(cfg.head, dropout=0.0))
+
+
+def ddp_batch(cfg):
+    """The global batch: DDP_WORLD x DDP_RANK_BATCH rows of the synthetic
+    scene with GT."""
+    return synthetic_batch(cfg, DDP_WORLD * DDP_RANK_BATCH, seed=0,
+                           with_gt=True)
+
+
+class Decisions:
+    """The train step's discrete decisions, recorded, and played back where
+    asked: the branch of every kink and choice whose side a rounding can
+    change.  Each ReLU's mask (F.relu), each RoI's FPN level
+    (roi_align._level_geometry), each bilinear sample's corner cell and
+    out-of-map flag along each axis (roi_align._axis_corners), the OTA
+    matches (losses.ota_assign_batch), which box corners bound each BEV
+    RoI (head.lidar_rois_from_boxes) and which refined centers and sizes
+    are clipped (SingleSRFDetHead.apply_deltas), in call order.  At the
+    flagship's random weights a rounding in the forward flips some of
+    them, and a flip moves the step's grads by percents (one ReLU input
+    within a rounding of zero carries its element's whole gradient); a
+    run that plays back another run's decisions takes the same branch of
+    each, so that what remains between the two is rounding.  `replay`:
+    {kind: [tensor a call]} (kinds not named run as they are).  `calls`
+    keeps every call's own decisions, played back or not, on the device;
+    take() moves them to the host."""
+
+    KINDS = ("level", "corners", "ota", "relu", "extreme", "clip")
+    # the batch axis of each kind's record (joined_decisions)
+    BATCH_AXIS = dict(level=0, corners=1, ota=1, relu=0, extreme=1, clip=1)
+
+    def __init__(self, replay=None):
+        import torch.nn.functional as F
+        from srfdet3d_torch.models import head, losses
+        from srfdet3d_torch.ops import roi_align
+        self.roi_align, self.losses, self.F, self.head = (roi_align, losses,
+                                                          F, head)
+        self.orig = (roi_align._level_geometry, roi_align._axis_corners,
+                     losses.ota_assign_batch, F.relu,
+                     head.lidar_rois_from_boxes,
+                     head.SingleSRFDetHead.apply_deltas)
+        self.replay = {k: list(v) for k, v in (replay or {}).items()}
+        self.calls = {k: [] for k in self.KINDS}
+        roi_align._level_geometry = self._level
+        roi_align._axis_corners = self._corners
+        losses.ota_assign_batch = self._ota
+        F.relu = self._relu
+        head.lidar_rois_from_boxes = self._rois
+        head.SingleSRFDetHead.apply_deltas = \
+            lambda mod, d, b: self._apply_deltas(mod, d, b)
+
+    def close(self):
+        (self.roi_align._level_geometry, self.roi_align._axis_corners,
+         self.losses.ota_assign_batch, self.F.relu,
+         self.head.lidar_rois_from_boxes,
+         self.head.SingleSRFDetHead.apply_deltas) = self.orig
+
+    def _next(self, kind, device):
+        if kind not in self.replay:
+            return None
+        if not self.replay[kind]:
+            raise AssertionError(f"Decisions: no {kind} call left to play")
+        return self.replay[kind].pop(0).to(device)
+
+    def _level(self, shapes, rois, strides, finest_scale):
+        out = self.orig[0](shapes, rois, strides, finest_scale)
+        self.calls["level"].append(out[0].detach().clone())
+        lvl = self._next("level", rois.device)
+        if lvl is None:
+            return out
+        # the level's scale, extent and row offset, as _level_geometry
+        # computes them
+        dev = rois.device
+        sizes = [h * w for h, w in shapes]
+        hs = torch.tensor([float(h) for h, _ in shapes], device=dev)
+        ws = torch.tensor([float(w) for _, w in shapes], device=dev)
+        scales = torch.tensor([1.0 / s for s in strides],
+                              dtype=torch.float32, device=dev)
+        offsets = torch.tensor([sum(sizes[:i]) for i in range(len(shapes))],
+                               device=dev)
+        return lvl, scales[lvl], hs[lvl], ws[lvl], offsets[lvl]
+
+    def _corners(self, pos, size):
+        out = self.orig[1](pos, size)
+        self.calls["corners"].append(torch.stack(
+            [out[0], out[4].long()]).to(torch.int32))
+        rec = self._next("corners", pos.device)
+        if rec is None:
+            return out
+        # the recorded cell and flag, the weights linear in pos about that
+        # cell, as _axis_corners computes them
+        size = size[:, None]
+        c0, oob = rec[0].float(), rec[1].bool()
+        lc = torch.minimum(pos.clamp_min(0.0), size - 1.0) - c0
+        c1 = torch.minimum(c0 + 1, size - 1.0)
+        edge = c0 >= size - 1.0
+        w0 = torch.where(oob, 0.0, torch.where(edge, 1.0, 1.0 - lc))
+        w1 = torch.where(oob, 0.0, torch.where(edge, 0.0, lc))
+        return c0.long(), c1.long(), w0, w1, oob
+
+    def _ota(self, *args, **kwargs):
+        out = self.orig[2](*args, **kwargs)
+        self.calls["ota"].append(out.detach().clone())
+        rec = self._next("ota", out.device)
+        return out if rec is None else rec
+
+    def _relu(self, x, inplace=False):
+        self.calls["relu"].append(x > 0)
+        rec = self._next("relu", x.device)
+        if rec is None:
+            return self.orig[3](x, inplace)
+        return torch.where(rec, x, 0.0)
+
+    def _rois(self, boxes_abs, pc_range, voxel_size):
+        """lidar_rois_from_boxes, its extreme corners recorded (and played
+        back through a gather)."""
+        from srfdet3d_torch.geometry.boxes import boxes3d_to_corners3d
+        corners = boxes3d_to_corners3d(boxes_abs[..., :8],
+                                       bottom_center=False,
+                                       yaw_as_sincos=True, log_size=True)
+        lo = boxes_abs.new_tensor(pc_range[:2])
+        vs = boxes_abs.new_tensor(voxel_size[:2])
+        xy = (corners[..., :2] - lo) / vs
+        self.calls["extreme"].append(torch.stack(
+            [xy.argmin(-2), xy.argmax(-2)]).to(torch.int8))
+        rec = self._next("extreme", xy.device)
+        if rec is None:
+            return self.orig[4](boxes_abs, pc_range, voxel_size)
+        pick = [xy.gather(-2, i.long().unsqueeze(-2)).squeeze(-2)
+                for i in rec]
+        return torch.cat(pick, -1)
+
+    def _apply_deltas(self, mod, d, b):
+        """SingleSRFDetHead.apply_deltas, its clipped centers and sizes
+        recorded (and played back)."""
+        lo = b.new_tensor(mod.pc_range[:3])
+        hi = b.new_tensor(mod.pc_range[3:6])
+        raw = (b[..., 0:3] + d[..., 0:3] * torch.exp(b[..., 3:6]) - lo) / \
+            (hi - lo)
+        size = d[..., 3:6]
+        self.calls["clip"].append(torch.stack(
+            [raw < 0.0, raw > 1.0, size > mod.scale_clamp]))
+        rec = self._next("clip", d.device)
+        if rec is None:
+            return self.orig[5](mod, d, b)
+        low, high, big = rec
+        ctr = torch.where(low, 0.0, torch.where(high, 1.0, raw))
+        new_sizes = b[..., 3:6] + torch.where(big, mod.scale_clamp, size)
+        return torch.cat([ctr, new_sizes, d[..., 6:]], -1)
+
+    def take(self):
+        """The calls since the last take, on the host."""
+        out = {k: [t.cpu() for t in v] for k, v in self.calls.items()}
+        self.calls = {k: [] for k in self.KINDS}
+        return out
+
+
+def decision_flips(a, b):
+    """How many decisions differ between two runs' records of one step
+    (take()'s dicts), by kind (a sample's corner counts once, for its cell
+    or its flag), and the slots of each."""
+    out = {}
+    for kind in Decisions.KINDS:
+        if len(a[kind]) != len(b[kind]):
+            raise AssertionError(f"{kind}: {len(a[kind])} calls against "
+                                 f"{len(b[kind])}")
+        diff = [(x != y).reshape(x.shape[0], -1).any(0) if kind == "corners"
+                else x != y for x, y in zip(a[kind], b[kind])]
+        out[kind] = int(sum(int(d.sum()) for d in diff))
+        out[kind + "_slots"] = int(sum(d.numel() for d in diff))
+    return out
+
+
+def joined_decisions(per_rank):
+    """The global batch's decisions from each rank's record of one step,
+    rank by rank along each kind's batch axis (ranks hold contiguous
+    rows)."""
+    return {kind: [torch.cat(parts, Decisions.BATCH_AXIS[kind])
+                   for parts in zip(*(r[kind] for r in per_rank))]
+            for kind in Decisions.KINDS}
+
+
+def flat_grads(params):
+    return torch.cat([p.grad.reshape(-1) for p in params]).cpu()
+
+
+def flat_state(model):
+    return torch.cat([t.detach().float().reshape(-1)
+                      for t in list(model.parameters()) +
+                      list(model.buffers())]).cpu()
+
+
+def ddp_steps(model, opt, batch, want, keep_grads: bool,
+              steps: int = DDP_STEPS, replay=None, keep_states=False):
+    """`steps` train steps on `batch`: per step the metrics, the launches
+    (held against `want`), the ms, the step's own decisions (Decisions,
+    on the host), with keep_grads the flat grads and the flat parameters
+    after the update, with keep_states the state_dict and the AdamW
+    moments before the step (host).  `replay`: a Decisions replay a step
+    to play back."""
+    from srfdet3d_torch.train.trainer import train_step
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = []
+    for step in range(steps):
+        row = {}
+        if keep_states:
+            row["before"] = dict(
+                state={k: v.detach().cpu().clone()
+                       for k, v in model.state_dict().items()},
+                mu=opt.mu.cpu().clone(), nu=opt.nu.cpu().clone(),
+                count=opt.count)
+        dec = Decisions(None if replay is None else replay[step])
+        try:
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = train_step(model, opt, batch, gen)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            dec.close()
+        counts = read_counts()
+        if counts != want:
+            raise AssertionError(f"ddp step {step} launched {counts}, "
+                                 f"the structure gives {want}")
+        row.update(metrics={k: float(v) for k, v in metrics.items()},
+                   launches=counts, ms=ms, decisions=dec.take())
+        if keep_grads:
+            row.update(grads=flat_grads(opt.params),
+                       params=torch.cat([p.detach().reshape(-1)
+                                         for p in opt.params]).cpu())
+        out.append(row)
+    return out
+
+
+def load_step_state(model, opt, before) -> None:
+    """A model and its optimizer at a state ddp_steps kept (keep_states)."""
+    model.load_state_dict(before["state"])
+    opt.mu.copy_(before["mu"])
+    opt.nu.copy_(before["nu"])
+    opt.count = before["count"]
+
+
+def ddp_worker(work: str) -> int:
+    """One rank of ddp_flagship_train (RANK, WORLD_SIZE, MASTER_ADDR and
+    MASTER_PORT from the parent; gloo on cuda:0): the flagship's steps on
+    its rows of the global batch; every rank its decisions a step, its
+    final state, launches, ms, peak memory and the collectives a step;
+    rank 0 also the state before each step and the grads and parameters
+    after it.  Writes <work>/rank<r>.pt."""
+    import torch.distributed as dist
+    from srfdet3d_torch import set_backend_flags
+    from srfdet3d_torch.models.detector import SRFDet
+    from srfdet3d_torch.parallel import mesh
+    from srfdet3d_torch.train.trainer import make_optimizer
+    set_backend_flags()
+    dev = torch.device("cuda:0")
+    if not mesh.init_from_env(dev):
+        raise RuntimeError("ddp worker: no group in the environment")
+    rank, world = mesh.rank(), mesh.world()
+    cfg = ddp_config()
+    model = SRFDet(cfg, device=dev, seed=0)
+    mesh.broadcast_module(model)
+    opt = make_optimizer(model, cfg, total_steps=1000)
+    batch = {k: v.to(dev) for k, v in
+             mesh.shard_rows(ddp_batch(cfg), rank, world).items()}
+    collectives = {"calls": 0, "bytes": 0}
+    plain_all_reduce = dist.all_reduce
+
+    def counted(t, *args, **kwargs):
+        collectives["calls"] += 1
+        collectives["bytes"] += t.numel() * t.element_size()
+        return plain_all_reduce(t, *args, **kwargs)
+    dist.all_reduce = counted
+    torch.cuda.reset_peak_memory_stats()
+    steps = ddp_steps(model, opt, batch, train_launches(model),
+                      keep_grads=rank == 0, keep_states=rank == 0)
+    dist.all_reduce = plain_all_reduce
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # the grad all-reduce alone (one flat buffer) and a BN-sized one
+    times = {}
+    for what, tensors in (("grads", None),
+                          ("stats_257", [torch.ones(257, device=dev)])):
+        reps = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if tensors is None:
+                mesh.all_reduce_grads(opt.params)
+            else:
+                dist.all_reduce(tensors[0])
+            torch.cuda.synchronize()
+            reps.append((time.perf_counter() - t0) * 1e3)
+        times[what] = statistics.median(reps[1:])
+    final = flat_state(model)
+    torch.save(dict(rank=rank, steps=steps, final=final, peak_gb=peak,
+                    collectives_per_step={k: v // DDP_STEPS for k, v in
+                                          collectives.items()},
+                    allreduce_ms=times,
+                    grad_mb=sum(p.numel() for p in opt.params) * 4 / 1e6),
+               os.path.join(work, f"rank{rank}.pt"))
+    mesh.barrier()
+    mesh.shutdown()
+    return 0
+
+
+def run_group(cmds, envs, timeout: float, logs):
+    """Start every command at once (its own session), wait for all of them
+    up to `timeout` seconds, kill every process group still running, and
+    raise unless each exited 0 (with the end of its log)."""
+    import signal
+    procs = []
+    try:
+        for cmd, env, log in zip(cmds, envs, logs):
+            with open(log, "w") as f:
+                procs.append(subprocess.Popen(
+                    cmd, env=env, stdout=f, stderr=subprocess.STDOUT,
+                    start_new_session=True))
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    bad = [(cmd, p.returncode, log) for cmd, p, log in zip(cmds, procs, logs)
+           if p.returncode != 0]
+    if bad:
+        tails = []
+        for cmd, code, log in bad:
+            with open(log) as f:
+                tails.append(f"{' '.join(cmd[-3:])} exited {code}:\n"
+                             f"{f.read()[-3000:]}")
+        raise AssertionError("\n".join(tails))
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def step_errors(got, want, sizes, names, lr):
+    """One step of the run under test against the reference's from the
+    same state: each loss's, grad_norm's and the grads' relative error,
+    the worst leaf's, and the largest parameter difference after the
+    update against its bound (2 lr where a grad sits inside the rounding:
+    Adam's first moves flip with its sign)."""
+    loss_err = {k: abs(got["metrics"][k] - v) / max(abs(v), 1e-12)
+                for k, v in want["metrics"].items()}
+    rel, worst, leaf = grad_errors(got["grads"], want["grads"], sizes, names)
+    return dict(max_loss_rel_err=max(v for k, v in loss_err.items()
+                                     if k != "grad_norm"),
+                grad_norm_rel_err=loss_err["grad_norm"],
+                global_grad_rel_err=rel, worst_leaf_grad_err=worst,
+                worst_leaf=leaf,
+                max_param_diff=float((got["params"] -
+                                      want["params"]).abs().max()),
+                param_bound=2 * lr + 1e-6)
+
+
+def step_ok(err) -> bool:
+    return (err["max_loss_rel_err"] <= DDP_LOSS_RTOL and
+            err["grad_norm_rel_err"] <= DDP_GRAD_RTOL and
+            err["global_grad_rel_err"] <= DDP_GRAD_RTOL and
+            err["worst_leaf_grad_err"] <= DDP_LEAF_TOL and
+            err["max_param_diff"] <= err["param_bound"])
+
+
+DDP_TOLERANCES = dict(loss_rtol=DDP_LOSS_RTOL, grad_norm_rtol=DDP_GRAD_RTOL,
+                      grad_rel=DDP_GRAD_RTOL, worst_leaf=DDP_LEAF_TOL,
+                      param="2 lr + 1e-6",
+                      reference="one process from the same state, playing "
+                                "back the decisions")
+
+
+def ddp_flagship_train(smi, tmp: str):
+    """The flagship at full width, DDP_WORLD ranks sharing the card over
+    gloo (host-staged collectives), DDP_RANK_BATCH rows each, for
+    DDP_STEPS steps, against one process on the whole batch: a timed run
+    of the same steps from the same weights (its p50 and peak, and at the
+    first step the decisions that differ from the ranks' and the grads'
+    error, unchecked), then each step again from the ranks' state before
+    it, playing back the ranks' decisions of that step, each within the
+    DDP_* tolerances (step_errors); the ranks' final parameters and
+    buffers bit for bit equal; each rank's launches a step equal to the
+    structure, its p50 and peak.  Returns each rank's launches a step."""
+    from srfdet3d_torch.models.detector import SRFDet
+    from srfdet3d_torch.train.trainer import make_lr_schedule, make_optimizer
+    t_phase = time.perf_counter()
+    cfg = ddp_config()
+    model = SRFDet(cfg, device="cuda", seed=0)
+    opt = make_optimizer(model, cfg, total_steps=1000)
+    want = train_launches(model)
+    batch = {k: v.cuda() for k, v in ddp_batch(cfg).items()}
+    torch.cuda.reset_peak_memory_stats()
+    ref = ddp_steps(model, opt, batch, want, keep_grads=True)
+    ref_peak = torch.cuda.max_memory_allocated() / 1e9
+    sizes = [p.numel() for p in opt.params]
+    names = [n for n, p in model.named_parameters()
+             if any(p is q for q in opt.params)]
+    del model, opt
+    free_cache()
+    work = os.path.join(tmp, "ddp_flagship")
+    os.makedirs(work)
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(free_port()), WORLD_SIZE=str(DDP_WORLD),
+               SRFDET_DIST_BACKEND="gloo")
+    t0 = time.perf_counter()
+    run_group([[sys.executable, os.path.abspath(__file__), "--ddp-worker",
+                work]] * DDP_WORLD,
+              [dict(env, RANK=str(r), LOCAL_RANK="0")
+               for r in range(DDP_WORLD)], DDP_TIMEOUT,
+              [os.path.join(work, f"rank{r}.log") for r in range(DDP_WORLD)])
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"),
+                        weights_only=False) for r in range(DDP_WORLD)]
+    lr = make_lr_schedule(cfg.optim, 1000)
+    rows = []
+    for step in range(DDP_STEPS):
+        got = ranks[0]["steps"][step]
+        played = joined_decisions([r["steps"][step]["decisions"]
+                                   for r in ranks])
+        model = SRFDet(cfg, device="cuda", seed=0)
+        opt = make_optimizer(model, cfg, total_steps=1000)
+        if step:
+            load_step_state(model, opt, got["before"])
+        again = ddp_steps(model, opt, batch, want, keep_grads=True, steps=1,
+                          replay=[played])[0]
+        del model, opt
+        free_cache()
+        rows.append(dict(step=step, losses=got["metrics"],
+                         ref_losses=again["metrics"],
+                         **step_errors(got, again, sizes, names, lr(step)),
+                         flips=decision_flips(again["decisions"], played)))
+    unplayed = dict(step_errors(ranks[0]["steps"][0], ref[0], sizes, names,
+                                lr(0)),
+                    flips=decision_flips(ref[0]["decisions"], joined_decisions(
+                        [r["steps"][0]["decisions"] for r in ranks])))
+    identical = all(torch.equal(ranks[0]["final"], r["final"])
+                    for r in ranks[1:])
+    emit(dict(phase="ddp_flagship_train", config=cfg.name, dropout=0.0,
+              ranks=DDP_WORLD, backend="gloo (host-staged, one card)",
+              batch_per_rank=DDP_RANK_BATCH,
+              global_batch=DDP_WORLD * DDP_RANK_BATCH, steps=DDP_STEPS,
+              tolerances=DDP_TOLERANCES, per_step=rows,
+              first_step_without_playback=unplayed,
+              ranks_bit_identical=identical,
+              rank_p50_ms=[statistics.median(s["ms"] for s in r["steps"])
+                           for r in ranks],
+              rank_step_ms=[[s["ms"] for s in r["steps"]] for r in ranks],
+              rank_peak_gb=[r["peak_gb"] for r in ranks],
+              rank_launches=[r["steps"][-1]["launches"] for r in ranks],
+              collectives_per_step=ranks[0]["collectives_per_step"],
+              gloo_one_card_allreduce_ms=ranks[0]["allreduce_ms"],
+              grad_mb=ranks[0]["grad_mb"],
+              ref_p50_ms=statistics.median(s["ms"] for s in ref),
+              ref_step_ms=[s["ms"] for s in ref], ref_peak_gb=ref_peak,
+              ranks_s=ranks_s, seconds=time.perf_counter() - t_phase,
+              device=smi))
+    bad = [r for r in rows if not step_ok(r)]
+    if bad:
+        raise AssertionError(f"ddp_flagship_train: off the one-process "
+                             f"step: {bad[0]}")
+    if not identical:
+        raise AssertionError("ddp_flagship_train: the ranks' parameters "
+                             "and buffers differ")
+    return {f"rank{r['rank']}": r["steps"][-1]["launches"] for r in ranks}
+
+
+def ddp_nccl_world1(smi):
+    """One process in an NCCL group of one: DDP_STEPS flagship steps at
+    batch 2 (the config's dropout, one generator seed on every run) with
+    every collective issued, between two runs of the same steps with no
+    group (the card's float atomics make two runs of one program
+    differ), all from the same seeded weights: the p50 of each, per step
+    each loss's and grad_norm's relative difference from the first
+    no-group run, the first step's grads' error and the decisions that
+    differ.  The group's first step is held within the DDP_* tolerances
+    against one more no-group step from the same weights that plays back
+    its decisions: the synced BatchNorm2d computes flax's statistics, not
+    cuDNN's, so the two are not expected to agree bit for bit."""
+    import datetime
+
+    import torch.distributed as dist
+    from srfdet3d_torch.configs import srfdet_voxel_nusc_L
+    from srfdet3d_torch.models.detector import SRFDet
+    from srfdet3d_torch.parallel import mesh
+    from srfdet3d_torch.train.trainer import make_lr_schedule, make_optimizer
+    t_phase = time.perf_counter()
+    cfg = srfdet_voxel_nusc_L()
+    batch = {k: v.cuda() for k, v in
+             synthetic_batch(cfg, 2, seed=0, with_gt=True).items()}
+    runs, init_s = {}, None
+    for name, steps in (("no_group", DDP_STEPS), ("nccl_world1", DDP_STEPS),
+                        ("no_group_again", DDP_STEPS), ("played_back", 1)):
+        if name == "nccl_world1":
+            t0 = time.perf_counter()
+            dist.init_process_group(
+                "nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                world_size=1, rank=0,
+                timeout=datetime.timedelta(seconds=120))
+            init_s = time.perf_counter() - t0
+        try:
+            model = SRFDet(cfg, device="cuda", seed=0)
+            opt = make_optimizer(model, cfg, total_steps=1000)
+            calls = {"n": 0}
+            plain = dist.all_reduce
+
+            def counted(*args, **kwargs):
+                calls["n"] += 1
+                return plain(*args, **kwargs)
+            dist.all_reduce = counted
+            try:
+                rows = ddp_steps(
+                    model, opt, batch, train_launches(model),
+                    keep_grads=True, steps=steps,
+                    replay=([runs["nccl_world1"]["rows"][0]["decisions"]]
+                            if name == "played_back" else None))
+            finally:
+                dist.all_reduce = plain
+            runs[name] = dict(rows=rows, collectives=calls["n"],
+                              state=flat_state(model),
+                              backend=(dist.get_backend() if mesh.active()
+                                       else None))
+            sizes = [p.numel() for p in opt.params]
+            names = [n for n, p in model.named_parameters()
+                     if any(p is q for q in opt.params)]
+            del model, opt
+        finally:
+            if name == "nccl_world1":
+                dist.destroy_process_group()
+        free_cache()
+    lr = make_lr_schedule(cfg.optim, 1000)
+    base = runs["no_group"]["rows"]
+
+    def against(other):
+        rows = runs[other]["rows"]
+        return dict(rel_diff_per_step=[
+            {k: abs(o["metrics"][k] - b["metrics"][k]) /
+             max(abs(b["metrics"][k]), 1e-12) for k in b["metrics"]}
+            for o, b in zip(rows, base)],
+            first_step=dict(step_errors(rows[0], base[0], sizes, names,
+                                        lr(0)),
+                            flips=decision_flips(rows[0]["decisions"],
+                                                 base[0]["decisions"])),
+            max_state_diff=float((runs[other]["state"] -
+                                  runs["no_group"]["state"]).abs().max()))
+    nccl = runs["nccl_world1"]
+    checked = dict(step_errors(nccl["rows"][0], runs["played_back"]["rows"][0],
+                               sizes, names, lr(0)),
+                   flips=decision_flips(runs["played_back"]["rows"][0][
+                       "decisions"], nccl["rows"][0]["decisions"]))
+    ms = {k: [r["ms"] for r in v["rows"]] for k, v in runs.items()}
+    emit(dict(phase="ddp_nccl_world1", config=cfg.name, batch=2,
+              steps=DDP_STEPS, init_s=init_s,
+              p50_ms=statistics.median(ms["nccl_world1"]),
+              no_group_p50_ms=statistics.median(ms["no_group"]),
+              no_group_again_p50_ms=statistics.median(ms["no_group_again"]),
+              step_ms=ms["nccl_world1"], no_group_step_ms=ms["no_group"],
+              no_group_again_step_ms=ms["no_group_again"],
+              collectives_per_step=nccl["collectives"] // DDP_STEPS,
+              nccl_vs_no_group=against("nccl_world1"),
+              no_group_vs_no_group=against("no_group_again"),
+              first_step_checked=checked, tolerances=DDP_TOLERANCES,
+              losses=[r["metrics"] for r in nccl["rows"]],
+              no_group_losses=[r["metrics"] for r in base],
+              seconds=time.perf_counter() - t_phase, device=smi))
+    if any(runs[n]["collectives"] for n in ["no_group", "no_group_again",
+                                            "played_back"]) or \
+            nccl["collectives"] == 0 or nccl["backend"] != "nccl":
+        raise AssertionError(f"ddp_nccl_world1: collectives "
+                             f"{runs['no_group']['collectives']} without a "
+                             f"group, {nccl['collectives']} with "
+                             f"{nccl['backend']}")
+    if not step_ok(checked):
+        raise AssertionError(f"ddp_nccl_world1: the first step is off the "
+                             f"no-group step: {checked}")
+
+
+# ddp_cli: a flagship root at data_phases' sizes with three val frames
+# (an odd count: rank 0 evaluates two, rank 1 one), trained by
+# dist_train.sh on 2 ranks (gloo on the card) for 2 epochs of 2 steps at a
+# global batch of 2, then evaluated by dist_test.sh on 2 ranks and by the
+# test CLI in one process from the same checkpoint
+DDP_CLI_ROOT = dict(DATA_ROOTS["nus"], n_val=3)
+
+
+def ddp_cli(smi, tmp: str):
+    """The launchers: dist_train.sh and dist_test.sh, 2 ranks, gloo on the
+    card, each process killed at DDP_TIMEOUT.  The train run's log shows
+    every step's finite losses and both ranks' steps; its checkpoint
+    loads; dist_test.sh's dump (rank 0) holds the val frames in dataset
+    order, equal to the one-process test CLI's (labels exactly, boxes and
+    scores within 1e-4: the card's float atomics in the point scatters),
+    its metrics (re-evaluated from the dump, and each rank's printed line)
+    equal the one-process metrics within 1e-4."""
+    import re
+
+    from srfdet3d_torch.configs import get_config
+    from srfdet3d_torch.data import synthetic_root
+    from srfdet3d_torch.tools import test as test_cli
+    from srfdet3d_torch.tools.train import apply_cfg_options
+    t_phase = time.perf_counter()
+    name = "srfdet_voxel_nusc_L"
+    nus = synthetic_root.write_nuscenes_root(os.path.join(tmp, "ddp_nus"),
+                                             **DDP_CLI_ROOT)
+    here = os.path.dirname(os.path.abspath(__file__))
+    tools = os.path.join(here, "srfdet3d_torch", "tools")
+    env = dict(os.environ, NPROC=str(DDP_WORLD), BACKEND="gloo",
+               PYTHON=sys.executable)
+    work = os.path.join(tmp, "ddp_cli")
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    train_log = os.path.join(work, "train.log")
+    run_group([["bash", os.path.join(tools, "dist_train.sh"), name,
+                "--data-root", nus["root"], "--db-info", nus["db"],
+                "--no-cbgs", "--batch-size", "2", "--epochs", "2",
+                "--log-interval", "1", "--device", "cuda:0",
+                "--work-dir", os.path.join(work, "wd")]], [env],
+              DDP_TIMEOUT, [train_log])
+    train_s = time.perf_counter() - t0
+    with open(train_log) as f:
+        log = f.read()
+    steps = [float(m) for m in re.findall(r"^iter \d+ .* loss (\S+)", log,
+                                          re.M)]
+    done = re.findall(r"rank (\d): training done: (\d+) steps", log)
+    ckpt = os.path.join(work, "wd", name, "epoch_2.pt")
+    if len(steps) != 4 or not all(map(math.isfinite, steps)) or \
+            sorted(done) != [("0", "4"), ("1", "4")] or \
+            not os.path.exists(ckpt):
+        raise AssertionError(f"ddp_cli train: losses {steps}, done {done}, "
+                             f"checkpoint {os.path.exists(ckpt)}:\n"
+                             f"{log[-3000:]}")
+    options = ["--cfg-options", *TEST_OPTIONS]
+    dist_out = os.path.join(work, "dist.pkl")
+    test_log = os.path.join(work, "test.log")
+    t0 = time.perf_counter()
+    run_group([["bash", os.path.join(tools, "dist_test.sh"), name, ckpt,
+                "--data-root", nus["root"], "--batch-size", "1",
+                "--device", "cuda:0", "--out", dist_out, *options]], [env],
+              DDP_TIMEOUT, [test_log])
+    test_s = time.perf_counter() - t0
+    with open(test_log) as f:
+        tlog = f.read()
+    printed = re.findall(r"^rank (\d): (\{.*\})$", tlog, re.M)
+    one_out = os.path.join(work, "one.pkl")
+    t0 = time.perf_counter()
+    one = test_cli.main([name, ckpt, "--data-root", nus["root"],
+                         "--batch-size", "1", "--device", "cuda",
+                         "--out", one_out, *options])
+    one_s = time.perf_counter() - t0
+    with open(dist_out, "rb") as f:
+        dist_dump = pickle.load(f)
+    with open(one_out, "rb") as f:
+        one_dump = pickle.load(f)
+    cfg = apply_cfg_options(get_config(name), TEST_OPTIONS)
+    dist_res = test_cli.evaluate(cfg, dist_dump["gts"], dist_dump["preds"],
+                                 device="cuda")
+    frames = len(dist_dump["preds"])
+    worst = 0.0
+    for part in ("gts", "preds"):
+        for x, y in zip(dist_dump[part], one_dump[part]):
+            if list(x["labels_name"]) != list(y["labels_name"]) or \
+                    x["boxes"].shape != y["boxes"].shape:
+                raise AssertionError(f"ddp_cli: a {part} frame differs")
+            for k in ("boxes", "scores"):
+                if k in x and x[k].size:
+                    worst = max(worst, float(np.abs(x[k] - y[k]).max()))
+    scalars = {k: v for k, v in one.items() if isinstance(v, float)}
+    metric_diff = max(abs(dist_res[k] - v) for k, v in scalars.items())
+    if frames != DDP_CLI_ROOT["n_val"] or len(one_dump["preds"]) != frames \
+            or worst > 1e-4 or metric_diff > 1e-4 or \
+            sorted(r for r, _ in printed) != ["0", "1"] or \
+            printed[0][1] != printed[1][1]:
+        raise AssertionError(f"ddp_cli test: {frames} frames, dump off by "
+                             f"{worst}, metrics by {metric_diff}, printed "
+                             f"{printed}:\n{tlog[-3000:]}")
+    emit(dict(phase="ddp_cli", config=name, ranks=DDP_WORLD,
+              backend="gloo (host-staged, one card)", train_steps=len(steps),
+              train_losses=steps, train_s=train_s, val_frames=frames,
+              test_s=test_s, one_process_test_s=one_s,
+              dump_vs_one_process_max_abs=worst,
+              metrics=scalars, metrics_max_abs_diff=metric_diff,
+              metrics_equal=metric_diff == 0.0,
+              detections=sum(len(p["boxes"]) for p in dist_dump["preds"]),
+              seconds=time.perf_counter() - t_phase, device=smi))
+
+
 def kernel_entry(name, source, replaces, launches, t, max_err):
     bound_by = t.get("bound_by") or (
         "operations" if t["ops_bound_ms"] >= t["bytes_bound_ms"]
@@ -2652,7 +3424,7 @@ def kernel_entry(name, source, replaces, launches, t, max_err):
     for key in ("tc_bound_ms", "simt_bound_ms", "device_ms", "host_ms",
                 "prep_ms", "prep_device_ms", "builds", "lc_launches",
                 "lc_train_launches", "data_launches", "convert_launches",
-                "learn_launches", "img_geometry"):
+                "learn_launches", "ddp_launches", "img_geometry"):
         if key in t:
             entry[key] = t[key]
     return entry
@@ -2817,6 +3589,14 @@ def main() -> int:
         free_cache()
         convert_launches = convert_roundtrip(smi, tmp)
         learn_launches = flagship_learn(smi, tmp)
+        free_cache()
+        # data parallelism: two ranks against one process, an NCCL group
+        # of one, and the launchers
+        ddp_launches = ddp_flagship_train(smi, tmp)
+        free_cache()
+        ddp_nccl_world1(smi)
+        free_cache()
+        ddp_cli(smi, tmp)
     free_cache()
     tiny_end_to_end(tiny_test_config())
     tiny_end_to_end(table_backend(tiny_kitti_test_config()))
@@ -2869,6 +3649,8 @@ def main() -> int:
         entry["convert_launches"] = {ph: c[key]
                                      for ph, c in convert_launches.items()}
         entry["learn_launches"] = learn_launches[key]
+        entry["ddp_launches"] = {rank: c[key]
+                                 for rank, c in ddp_launches.items()}
     emit({"kernels": [
         kernel_entry("gather_conv", "srfdet3d_torch/csrc/gather_conv.cu",
                      "srfdet3d_tpu/ops/pallas_onehot.py:67", k1_launches,
@@ -2899,4 +3681,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddp-worker"]:
+        sys.exit(ddp_worker(sys.argv[2]))
     sys.exit(main())

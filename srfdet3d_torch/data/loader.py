@@ -11,10 +11,11 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
+from ..parallel.mesh import shard_rows
 from .datasets import collate_batch
 
 
@@ -25,13 +26,21 @@ def data_loader(dataset,
                 num_workers: int = 4,
                 prefetch: int = 2,
                 drop_last: bool = True,
-                skip_batches: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+                skip_batches: int = 0,
+                shard: Optional[Tuple[int, int]] = None
+                ) -> Iterator[Dict[str, np.ndarray]]:
     """Yields collated numpy batches; runs one epoch.
 
     skip_batches: start at that batch of the (seed-deterministic) order
     WITHOUT materializing the skipped samples — mid-epoch resume
     (the train CLI's preemption resume) must not reprocess the epoch prefix
-    through the augmentation pipeline."""
+    through the augmentation pipeline.
+
+    shard: (rank, world) of a data-parallel run: every batch is rank's
+    rows of the global batch of `batch_size` in the same order
+    (`shard_rows`); only those samples are materialized.  A sample's
+    augmentation draws depend on its index alone, so the rows equal the
+    global batch's."""
     n = len(dataset)
     order = np.arange(n)
     if shuffle:
@@ -41,10 +50,13 @@ def data_loader(dataset,
     if n_batches == first:
         return
 
+    def indices(b):
+        idxs = order[b * batch_size:(b + 1) * batch_size]
+        return idxs if shard is None else shard_rows(idxs, *shard)
+
     if num_workers <= 0:
         for b in range(first, n_batches):
-            idxs = order[b * batch_size:(b + 1) * batch_size]
-            yield collate_batch([dataset[int(i)] for i in idxs])
+            yield collate_batch([dataset[int(i)] for i in indices(b)])
         return
 
     # maxsize=0 would mean UNBOUNDED (whole-epoch host blowup)
@@ -68,9 +80,8 @@ def data_loader(dataset,
                 for b in range(first, n_batches):
                     if stop.is_set():
                         return
-                    idxs = order[b * batch_size:(b + 1) * batch_size]
                     samples = list(pool.map(
-                        lambda i: dataset[int(i)], idxs))
+                        lambda i: dataset[int(i)], indices(b)))
                     if not put(collate_batch(samples)):
                         return
         except BaseException as e:          # propagate to the consumer

@@ -5,6 +5,16 @@ eval mode BN normalizes with its running statistics; in train mode with the
 batch's, and updates the running ones as the JAX package does: the sparse
 encoder's masked BN (padding rows excluded) stores the unbiased variance,
 the dense convs' flax BatchNorm the biased one.
+
+Under a process group (`parallel.mesh`) the train-mode statistics span
+every rank's batch, with their gradient, as the JAX package's shard_map
+step computes them (`psum_if_sync` in MaskedBatchNorm, flax's
+`axis_name` in ConvBNReLU) and the reference's SyncBN: MaskedBatchNorm
+sums the count and the sums in one collective, then the squares centred on
+the global mean in a second; BatchNorm2d averages each rank's mean and
+mean of squares over the ranks (flax's fast variance), and its backward
+sums the gradient's two reductions over the ranks.  Without a group no
+collective is issued.
 """
 
 from __future__ import annotations
@@ -12,8 +22,11 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel import mesh
 
 
 class MaskedBatchNorm(nn.Module):
@@ -33,26 +46,39 @@ class MaskedBatchNorm(nn.Module):
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         xf = x.float()
         if self.training:
-            red = tuple(range(x.ndim - 1))
-            if mask is not None:
-                m = mask.float()[..., None]
-                n = m.sum().clamp_min(1.0)
-                mean = (xf * m).sum(red) / n
-                var = (m * (xf - mean) ** 2).sum(red) / n
-            else:
-                n = torch.tensor(float(xf[..., 0].numel()), device=x.device)
-                mean = xf.mean(red)
-                var = ((xf - mean) ** 2).mean(red)
-            with torch.no_grad():
-                var_u = var * (n / (n - 1.0).clamp_min(1.0))
-                self.running_mean.mul_(1 - self.momentum).add_(
-                    self.momentum * mean)
-                self.running_var.mul_(1 - self.momentum).add_(
-                    self.momentum * var_u)
+            mean, var, n = self._batch_stats(xf, mask)
+            self._update_running(mean, var, n)
         else:
             mean, var = self.running_mean, self.running_var
         y = (xf - mean) * torch.rsqrt(var + self.eps)
         return (y * self.weight + self.bias).to(x.dtype)
+
+    @staticmethod
+    def _batch_stats(xf: torch.Tensor, mask: Optional[torch.Tensor]):
+        """(mean, biased var, count) over the valid rows: the count and the
+        sums, then the squares centred on the mean (JAX `layers.py:48-66`).
+        Under a group both sums span every rank, each in one collective."""
+        red = tuple(range(xf.ndim - 1))
+        if mask is not None:
+            m = mask.float()[..., None]
+            count, total = m.sum(), (xf * m).sum(red)
+        else:
+            m = None
+            count = torch.tensor(float(xf[..., 0].numel()), device=xf.device)
+            total = xf.sum(red)
+        stats = mesh.all_reduce_sum(torch.cat([count.reshape(1), total]))
+        n = stats[0].clamp_min(1.0)
+        mean = stats[1:] / n
+        sq = (xf - mean) ** 2
+        var = mesh.all_reduce_sum((sq if m is None else m * sq).sum(red)) / n
+        return mean, var, n
+
+    @torch.no_grad()
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor,
+                        n: torch.Tensor) -> None:
+        var_u = var * (n / (n - 1.0).clamp_min(1.0))
+        self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
+        self.running_var.mul_(1 - self.momentum).add_(self.momentum * var_u)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -63,14 +89,57 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if mesh.active():
+            y, mean, var = _SyncedBatchNorm2d.apply(x, self.weight,
+                                                    self.bias, self.eps)
+        else:
+            y = F.batch_norm(x, None, None, self.weight, self.bias, True,
+                             0.0, self.eps)
+            with torch.no_grad():
+                var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
             m = self.momentum
             self.running_mean.mul_(1 - m).add_(m * mean)
             self.running_var.mul_(1 - m).add_(m * var)
             self.num_batches_tracked.add_(1)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                            self.eps)
+        return y
+
+
+class _SyncedBatchNorm2d(torch.autograd.Function):
+    """Train-mode BatchNorm2d under a group: flax's nn.BatchNorm with
+    axis_name (ranks' local shapes are equal): the ranks' mean of each
+    rank's mean and mean of squares, in one collective, var = max(mean of
+    squares - mean^2, 0); the normalization is one batch_norm call on
+    those statistics.  The backward sums the two per-channel reductions of
+    the incoming gradient over the ranks in one collective (the
+    statistics' gradient, reference SyncBN), and keeps only x and the
+    statistics for it."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        var_l, mean_l = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+        stats = torch.stack([mean_l, var_l + mean_l * mean_l])
+        dist.all_reduce(stats)
+        mean, mean2 = stats / mesh.world()
+        var = (mean2 - mean * mean).clamp_min(0.0)
+        invstd = torch.rsqrt(var + eps)
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.mark_non_differentiable(mean, var)
+        y = F.batch_norm(x, mean, var, weight, bias, False, 0.0, eps)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, invstd = ctx.saved_tensors
+        shape = (1, -1, 1, 1)
+        xhat = (x - mean.view(shape)) * invstd.view(shape)
+        local = torch.stack([dy.sum((0, 2, 3)), (dy * xhat).sum((0, 2, 3))])
+        sums = local.clone()
+        dist.all_reduce(sums)
+        n = x.numel() // x.shape[1] * mesh.world()
+        dx = (weight * invstd).view(shape) * (
+            dy - (sums[0] / n).view(shape) - xhat * (sums[1] / n).view(shape))
+        return dx, local[1], local[0], None
 
 
 class ConvBNReLU(nn.Module):

@@ -2,9 +2,16 @@
 the JAX package's `models/losses.py`; reference srfdet_head.py loss_ota
 :1041, loss_classification :1098, loss_boxes :1145).
 
-On one card the JAX package's cross-replica sums (`psum_if_sync`) are plain
-sums: every reduction already spans the whole batch.  The `hungarian` and
-`auction` assigners are not ported yet.
+The loss normalizer spans every replica, as the JAX package's
+`psum_if_sync` makes it (reference reduce_mean and sync_cls_avg_factor,
+srfdet_head.py:873-884): under a process group (`parallel.mesh`) each
+layer's positive count `num_inst` is summed over the ranks (no gradient),
+and each rank's losses are its LOCAL focal and L1 sums over that global
+count.  The ranks' losses then sum to the global batch's, and so do their
+gradients once the step sums them (`all_reduce_grads`); the train step
+reports the summed losses.  Without a group the count and the sums are the
+local batch's, which is the whole batch.  The `hungarian` and `auction`
+assigners are not ported yet.
 """
 
 from __future__ import annotations
@@ -17,20 +24,21 @@ from ..assign.ota import ota_assign_batch
 from ..config import LossConfig, OTAConfig
 from ..geometry.boxes import normalize_bbox
 from ..ops.focal_loss import sigmoid_focal_loss
+from ..parallel import mesh
 
 
 def _layer_losses(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
                   matched_gt: torch.Tensor, gt_boxes: torch.Tensor,
-                  gt_labels: torch.Tensor, cfg: LossConfig
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+                  gt_labels: torch.Tensor, cfg: LossConfig,
+                  num_inst: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """One decoder layer.  matched_gt (B, n_p), -1 = unmatched;
-    pred_boxes (B, n_p, code) with absolute centers."""
+    pred_boxes (B, n_p, code) with absolute centers; num_inst the layer's
+    normalizer (its positives over every rank, at least 1)."""
     code = len(cfg.code_weights)
     matched = matched_gt >= 0
     safe_idx = matched_gt.clamp_min(0).long()
     tgt_labels = torch.where(matched, gt_labels.long().gather(1, safe_idx),
                              cfg.num_classes)
-    num_inst = matched.float().sum().clamp_min(1.0)
     cls = sigmoid_focal_loss(pred_logits.float(), tgt_labels,
                              alpha=cfg.cls_alpha, gamma=cfg.cls_gamma)
     loss_cls = cfg.cls_weight * cls.sum() / num_inst
@@ -81,11 +89,14 @@ def srfdet_losses(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
         pred_boxes, pred_logits, per_layer(gt_boxes), per_layer(gt_labels),
         per_layer(gt_mask), torch.tensor(head_idxs, dtype=torch.float32),
         ota_cfg)
+    # every layer's positives, summed over the ranks in one collective
+    num_inst = mesh.sum_if_sync(
+        (matched_all >= 0).flatten(1).float().sum(1)).clamp_min(1.0)
     losses: Dict[str, torch.Tensor] = {}
     for layer in range(num_layers):
         loss_cls, loss_bbox = _layer_losses(
             pred_logits[layer], pred_boxes[layer], matched_all[layer],
-            gt_boxes, gt_labels, loss_cfg)
+            gt_boxes, gt_labels, loss_cfg, num_inst[layer])
         prefix = "" if layer == num_layers - 1 else f"s.{layer}."
         losses[f"{prefix}loss_cls"] = loss_cls
         losses[f"{prefix}loss_bbox"] = loss_bbox

@@ -11,6 +11,13 @@ infos, optionally dumps per-frame results to a pickle (--out), and
 evaluates with the native metric implementations.  `--eval-from-pkl
 results.pkl` re-runs evaluation from a dump without inference.  --device
 defaults to cuda (the model, and iou_3d of the KITTI and Waymo metrics).
+
+Multi-process evaluation (dist_test.sh, one process per card, the same
+environment as the train CLI's): rank r predicts the frames r, r + W,
+r + 2W, ... (`_ProcessShard`), the ranks all-gather each frame's
+fixed-shape rows with a mask of real frames, and every rank evaluates
+every frame in dataset order, so each reports the metrics one process
+would; rank 0 alone writes --out.
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from .. import resolve_device
+from ..parallel import mesh
 
 GT_KEYS = ("gt_boxes", "gt_labels", "gt_mask")
 
@@ -61,6 +68,21 @@ def frames_from_outputs(cfg, out: Dict[str, np.ndarray],
     return gts, preds
 
 
+class _ProcessShard:
+    """Strided per-process view of a dataset (multi-process eval): items
+    offset, offset + stride, ..."""
+
+    def __init__(self, ds, offset: int, stride: int):
+        self.ds, self.offset, self.stride = ds, offset, stride
+
+    def __len__(self):
+        return max((len(self.ds) - self.offset + self.stride - 1)
+                   // self.stride, 0)
+
+    def __getitem__(self, i):
+        return self.ds[self.offset + i * self.stride]
+
+
 def run_inference_eval(cfg, dataset, model, batch_size: int,
                        protocol: str = "auto", out: Optional[str] = None,
                        device=None) -> Dict:
@@ -68,12 +90,26 @@ def run_inference_eval(cfg, dataset, model, batch_size: int,
     metric.  Every frame scores: the ragged tail batch is padded to
     batch_size by repeating its last frame and only its real rows are
     kept.  Optionally dumps {gts, preds} to `out`.  Returns the metric
-    dict."""
+    dict.
+
+    Under a process group each rank predicts its strided shard, the
+    frames' fixed-shape rows are all-gathered (process-major, padded to
+    the largest shard, with a mask of real frames, as the JAX package's
+    process_allgather) and put back in dataset order, as the reference's
+    collect_results does; every rank evaluates them all, and rank 0 alone
+    writes `out`.  Fewer frames than ranks aborts on every rank."""
     from ..data import data_loader
     from ..train.trainer import eval_step
 
-    gts: List[Dict] = []
-    preds: List[Dict] = []
+    if mesh.active():
+        w = mesh.world()
+        if len(dataset) < w:
+            # the global length decides on every rank alike
+            raise SystemExit(f"dataset has {len(dataset)} frames < "
+                             f"{w} processes")
+        dataset = _ProcessShard(dataset, mesh.rank(), w)
+
+    parts: Dict[str, List[np.ndarray]] = {}
     for batch in data_loader(dataset, batch_size, shuffle=False,
                              num_workers=2, drop_last=False):
         n_real = next(iter(batch.values())).shape[0]
@@ -84,11 +120,16 @@ def run_inference_eval(cfg, dataset, model, batch_size: int,
         res = eval_step(model, {k: torch.from_numpy(v)
                                 for k, v in batch.items()
                                 if k not in GT_KEYS})
-        res = {k: v.cpu().numpy() for k, v in res.items()}
-        g, p = frames_from_outputs(cfg, res, batch, n_real)
-        gts += g
-        preds += p
-    if out:
+        rows = {k: v.cpu().numpy()[:n_real] for k, v in res.items()}
+        rows.update({k: batch[k][:n_real] for k in GT_KEYS})
+        for k, v in rows.items():
+            parts.setdefault(k, []).append(v)
+    rows = {k: np.concatenate(v) for k, v in parts.items()}
+    if mesh.active():
+        rows = mesh.strided_order(*mesh.gather_rows(rows))
+    gts, preds = frames_from_outputs(cfg, rows, rows,
+                                     len(rows["gt_mask"]) if rows else 0)
+    if out and mesh.rank() == 0:
         with open(out, "wb") as f:
             pickle.dump({"gts": gts, "preds": preds}, f)
         print(f"dumped {len(preds)} frames to {out}", flush=True)
@@ -117,8 +158,16 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: Optional[List[str]] = None) -> Dict:
     """Evaluate; returns the metric dict (per-class tables included)."""
     args = build_parser().parse_args(argv)
-    dev = resolve_device(args.device)
+    dev = mesh.rank_device(args.device)
+    joined = mesh.init_from_env(dev)
+    try:
+        return _test(args, dev)
+    finally:
+        if joined:
+            mesh.shutdown()
 
+
+def _test(args, dev: torch.device) -> Dict:
     from ..configs import get_config
     from .train import apply_cfg_options, dataset_class
     cfg = apply_cfg_options(get_config(args.config), args.cfg_options)
@@ -153,8 +202,9 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         print(f"loaded {args.checkpoint} @ step {step}", flush=True)
     res = run_inference_eval(cfg, dataset, model, args.batch_size,
                              args.eval, out=args.out, device=dev)
-    print({k: (round(v, 4) if isinstance(v, float) else v)
-           for k, v in res.items() if not isinstance(v, dict)})
+    who = f"rank {mesh.rank()}: " if mesh.world() > 1 else ""
+    print(who + str({k: (round(v, 4) if isinstance(v, float) else v)
+                     for k, v in res.items() if not isinstance(v, dict)}))
     return res
 
 

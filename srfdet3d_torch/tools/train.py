@@ -18,6 +18,22 @@ raises FloatingPointError at the first step whose loss is not finite.
 Checkpoints go to <work-dir>/<config>/epoch_<n>.pt; a first SIGTERM or
 SIGINT saves preempt_<step>.pt after the step in flight and exits, and
 --resume-from that file continues mid-epoch at the same batch.
+
+Data-parallel training runs one process per card (dist_train.sh, which
+starts them with torchrun; or one process a host with SRFDET_COORD_ADDR,
+SRFDET_NUM_HOSTS and SRFDET_HOST_ID as for the JAX package).  Each rank
+runs on cuda:LOCAL_RANK unless --device names one, joins the group
+(`parallel.mesh.init_from_env`: NCCL on CUDA, gloo on the CPU,
+SRFDET_DIST_BACKEND overrides), starts from rank 0's weights and
+optimizer state, and trains on its rows of the same seeded global batch
+(`shard_rows`).  The global batch is --batch-size, or the config's
+batch_size_per_device times the ranks, cut to a multiple of ranks x
+accum_steps.  Rank 0 alone writes config.json, env.json, the log lines
+and the checkpoints, then every rank meets it at a barrier; the ranks
+agree on a preemption signal after every step, so a signal that reaches
+one rank stops them all at the same step.  --eval-interval is skipped
+with more than one rank, as in the JAX CLI: evaluate the checkpoints
+with dist_test.sh.
 """
 
 from __future__ import annotations
@@ -34,7 +50,7 @@ from typing import Dict, List, Optional
 
 import torch
 
-from .. import resolve_device
+from ..parallel import mesh
 
 
 def apply_cfg_options(cfg, options):
@@ -150,8 +166,16 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     metrics, and per step the host ms spent waiting for the loader and the
     ms of the step itself (ending in a device sync)."""
     args = build_parser().parse_args(argv)
-    dev = resolve_device(args.device)
+    dev = mesh.rank_device(args.device)
+    joined = mesh.init_from_env(dev)
+    try:
+        return _train(args, argv, dev)
+    finally:
+        if joined:
+            mesh.shutdown()
 
+
+def _train(args, argv, dev: torch.device) -> Dict:
     from ..configs import get_config
     from ..data import SyntheticDataset, data_loader
     from ..models.detector import SRFDet
@@ -163,23 +187,31 @@ def main(argv: Optional[List[str]] = None) -> Dict:
 
     cfg = apply_cfg_options(get_config(args.config), args.cfg_options)
     epochs = args.epochs or cfg.optim.epochs
+    rank, world = mesh.rank(), mesh.world()
+    main_rank = rank == 0
     work_dir = os.path.join(args.work_dir, cfg.name)
-    os.makedirs(work_dir, exist_ok=True)
-    # reproducibility capture (reference train.py:174-212: cfg.dump +
-    # collect_env + seed/exp meta)
-    with open(os.path.join(work_dir, "config.json"), "w") as f:
-        json.dump(dataclasses.asdict(cfg), f, indent=1, default=str)
-    with open(os.path.join(work_dir, "env.json"), "w") as f:
-        json.dump({"torch": torch.__version__, "cuda": torch.version.cuda,
-                   "device": str(dev),
-                   "device_name": (torch.cuda.get_device_name(dev)
-                                   if dev.type == "cuda" else "cpu"),
-                   "seed": args.seed, "argv": sys.argv if argv is None
-                   else list(argv)}, f, indent=1)
+    if main_rank:
+        os.makedirs(work_dir, exist_ok=True)
+        # reproducibility capture (reference train.py:174-212: cfg.dump +
+        # collect_env + seed/exp meta)
+        with open(os.path.join(work_dir, "config.json"), "w") as f:
+            json.dump(dataclasses.asdict(cfg), f, indent=1, default=str)
+        with open(os.path.join(work_dir, "env.json"), "w") as f:
+            json.dump({"torch": torch.__version__,
+                       "cuda": torch.version.cuda, "device": str(dev),
+                       "device_name": (torch.cuda.get_device_name(dev)
+                                       if dev.type == "cuda" else "cpu"),
+                       "world_size": world,
+                       "backend": (torch.distributed.get_backend()
+                                   if mesh.active() else None),
+                       "seed": args.seed, "argv": sys.argv if argv is None
+                       else list(argv)}, f, indent=1)
+    mesh.barrier()
 
-    batch_size = args.batch_size or cfg.optim.batch_size_per_device
-    # every microbatch of an accumulation step takes batch / accum rows
-    quantum = max(cfg.optim.accum_steps, 1)
+    batch_size = args.batch_size or cfg.optim.batch_size_per_device * world
+    # every microbatch of an accumulation step takes batch / accum rows of
+    # every rank (JAX tools/train.py:117-122)
+    quantum = world * max(cfg.optim.accum_steps, 1)
     batch_size = max(batch_size - batch_size % quantum, quantum)
 
     if args.synthetic:
@@ -192,8 +224,10 @@ def main(argv: Optional[List[str]] = None) -> Dict:
 
     steps_per_epoch = max(len(dataset) // batch_size, 1)
     total_steps = steps_per_epoch * epochs
-    print(f"config={cfg.name} device={dev} batch={batch_size} "
-          f"steps/epoch={steps_per_epoch} epochs={epochs}", flush=True)
+    if main_rank:
+        print(f"config={cfg.name} device={dev} ranks={world} "
+              f"batch={batch_size} steps/epoch={steps_per_epoch} "
+              f"epochs={epochs}", flush=True)
 
     model = SRFDet(cfg, device=dev, seed=args.seed)
     opt = make_optimizer(model, cfg, total_steps)
@@ -204,13 +238,22 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         load_pretrained(model, args.load_from)
     host_step = 0
     if args.resume_from:
+        # every rank reads the same file
         host_step = restore_checkpoint(args.resume_from, model, opt)
-        print(f"resumed from {args.resume_from} @ step {host_step}",
-              flush=True)
+        if main_rank:
+            print(f"resumed from {args.resume_from} @ step {host_step}",
+                  flush=True)
+    # every rank starts from rank 0's weights and moments, bit for bit
+    mesh.broadcast_module(model)
+    mesh.broadcast_tensors([opt.mu, opt.nu])
     logger = MetricLogger(args.log_interval)
 
     val_dataset = None
-    if args.eval_interval > 0:
+    if args.eval_interval > 0 and world > 1:
+        if main_rank:
+            print("eval-interval: skipped with more than one rank; "
+                  "evaluate the checkpoints with dist_test.sh", flush=True)
+    elif args.eval_interval > 0:
         if args.synthetic:
             val_dataset = SyntheticDataset(
                 cfg, length=max(args.synthetic_length // 4, 2),
@@ -239,21 +282,28 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         signal.signal(signum, signal.SIG_DFL)
 
     def save(name: str, meta: Dict) -> str:
+        """Rank 0 writes; every rank waits for the file."""
         path = os.path.join(work_dir, name)
         t0 = time.perf_counter()
-        save_checkpoint(path, model, opt, step=host_step, meta=meta)
-        record["save_ms"].append((time.perf_counter() - t0) * 1e3)
+        if main_rank:
+            save_checkpoint(path, model, opt, step=host_step, meta=meta)
+            record["save_ms"].append((time.perf_counter() - t0) * 1e3)
+        mesh.barrier()
         record["checkpoint"] = path
         return path
 
     def preempt_save() -> bool:
-        if preempted["sig"] is None:
+        # a signal may reach one rank only: every rank asks them all here
+        if not mesh.any_rank(preempted["sig"] is not None):
             return False
         path = save(f"preempt_{host_step}.pt", {
             "config": cfg.name, "classes": cfg.class_names,
             "step": host_step, "preempted": True})
-        print(f"preemption signal {preempted['sig']}: saved {path}",
-              flush=True)
+        if main_rank:
+            sig = preempted["sig"] if world == 1 else (
+                f"{preempted['sig']} on rank 0" if preempted["sig"]
+                else "on another rank")
+            print(f"preemption signal {sig}: saved {path}", flush=True)
         record["preempted"] = True
         return True
 
@@ -272,7 +322,9 @@ def main(argv: Optional[List[str]] = None) -> Dict:
             skip = max(host_step - epoch * steps_per_epoch, 0)
             batches = data_loader(dataset, batch_size, shuffle=True,
                                   seed=args.seed + epoch,
-                                  skip_batches=skip)
+                                  skip_batches=skip,
+                                  shard=((rank, world) if mesh.active()
+                                         else None))
             t0 = time.perf_counter()
             for batch in batches:
                 t1 = time.perf_counter()
@@ -291,7 +343,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                 record["wait_ms"].append((t1 - t0) * 1e3)
                 record["step_ms"].append((t2 - t1) * 1e3)
                 host_step += 1
-                if host_step % args.log_interval == 0:
+                if main_rank and host_step % args.log_interval == 0:
                     logger.log(host_step,
                                {k: float(v) for k, v in metrics.items()},
                                lr=schedule(host_step))
@@ -302,7 +354,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                 path = save(f"epoch_{epoch + 1}.pt", {
                     "config": cfg.name, "classes": cfg.class_names,
                     "epoch": epoch + 1, "step": host_step})
-                print(f"saved {path}", flush=True)
+                if main_rank:
+                    print(f"saved {path}", flush=True)
             if preempt_save():
                 return record
             if val_dataset is not None and \
@@ -320,14 +373,15 @@ def main(argv: Optional[List[str]] = None) -> Dict:
             signal.signal(sig, handler)
         record["last_step"] = host_step
         record["metrics"] = {k: float(v) for k, v in last.items()}
+    who = f"rank {rank}: " if world > 1 else ""
     if record["step_ms"]:
         wait, step = record["wait_ms"], record["step_ms"]
-        print(f"training done: {len(step)} steps, step p50 "
+        print(f"{who}training done: {len(step)} steps, step p50 "
               f"{statistics.median(step):.1f} ms, loader wait "
               f"{sum(wait) / (sum(wait) + sum(step)):.3f} of the loop",
               flush=True)
     else:
-        print("training done", flush=True)
+        print(f"{who}training done", flush=True)
     return record
 
 

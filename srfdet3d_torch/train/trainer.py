@@ -19,6 +19,19 @@ losses by its own positives, BN running statistics update once a
 microbatch (chained, like consecutive steps), the grads are summed and
 then divided by a, the reported losses are the microbatches' means, and
 one AdamW update follows.
+
+Under a process group (`parallel.mesh`, the JAX package's `mesh=` step)
+each rank passes its rows of the global batch (`shard_rows`).  The
+BatchNorms' statistics and the losses' normalizers span every rank; the
+microbatches split the LOCAL batch strided, which makes microbatch i the
+global batch's rows i, a+i, ... as in one process; the grads are summed
+over the ranks once a step, after the microbatches (a sum: each rank's
+loss already divides by the global positives), and the clip's norm is
+taken after that sum; the reported losses are summed over the ranks.
+Every rank then runs the same AdamW update on the same grads, so the
+ranks' parameters stay bit-identical.  The step's generator folds in the
+rank (`step_generator`), so dropout and GridMask masks differ across
+ranks, as the JAX step folds in the replica index.
 """
 
 from __future__ import annotations
@@ -32,6 +45,7 @@ import torch
 from ..config import OptimConfig, SRFDetConfig
 from ..models.detector import LIDAR_MODULES
 from ..models.losses import srfdet_losses
+from ..parallel import mesh
 
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8
 
@@ -182,8 +196,10 @@ def step_generator(model, seed: int, step: int) -> torch.Generator:
     """The generator of train step `step` of a run seeded `seed`, on the
     model's device: seeded from (seed, step) alone, as JAX folds the host
     step into its base key, so a resumed run draws what an uninterrupted
-    one draws."""
-    words = np.random.SeedSequence((seed, step)).generate_state(2, np.uint32)
+    one draws; under a process group from (seed, step, rank), as the JAX
+    step folds in the replica index (`trainer.py:367`)."""
+    key = (seed, step, mesh.rank()) if mesh.active() else (seed, step)
+    words = np.random.SeedSequence(key).generate_state(2, np.uint32)
     g = torch.Generator(device=model.device)
     g.manual_seed((int(words[0]) << 31) | (int(words[1]) >> 1))
     return g
@@ -224,6 +240,7 @@ def train_step(model, opt: FlatAdamW, batch: Dict[str, torch.Tensor],
         losses["loss"] = total
         for k, v in losses.items():
             sums[k] = v.detach() if k not in sums else sums[k] + v.detach()
+    mesh.all_reduce_grads(opt.params)
     with torch.no_grad():
         for buf, saved in keep:
             buf.copy_(saved)
@@ -232,6 +249,10 @@ def train_step(model, opt: FlatAdamW, batch: Dict[str, torch.Tensor],
                 if p.grad is not None:
                     p.grad.div_(accum)
     grad_norm = opt.step()
+    if mesh.active():
+        keys = sorted(sums)
+        summed = mesh.sum_if_sync(torch.stack([sums[k] for k in keys]))
+        sums = dict(zip(keys, summed))
     metrics = {k: v / accum if accum > 1 else v for k, v in sums.items()}
     metrics["grad_norm"] = grad_norm
     return metrics

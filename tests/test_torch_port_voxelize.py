@@ -120,9 +120,10 @@ def test_vfe_and_flatten_match_jax():
 
 
 def test_port_imports_no_jax():
-    """Importing the whole port, the train step's modules and the
-    checkpoint converter included, and chip_smoke.py (its reference-naming
-    exporter), pulls in neither jax nor srfdet3d_tpu."""
+    """Importing the whole port, the train step's modules, the checkpoint
+    converter and the data-parallel package included, and chip_smoke.py
+    (its reference-naming exporter), pulls in neither jax nor
+    srfdet3d_tpu."""
     code = (
         "import sys, pkgutil, importlib, srfdet3d_torch, chip_smoke\n"
         "for m in pkgutil.walk_packages(srfdet3d_torch.__path__, "
@@ -140,7 +141,7 @@ def test_port_imports_no_jax():
         "'evals.waymo_eval', 'evals.formatters', 'utils.checkpoint', "
         "'utils.logging', 'tools.train', 'tools.test', "
         "'utils.torch_convert', 'tools.convert_checkpoint', "
-        "'tools.eval_results_from_pkl']\n"
+        "'tools.eval_results_from_pkl', 'parallel', 'parallel.mesh']\n"
         "missed = [n for n in need if 'srfdet3d_torch.' + n not in "
         "sys.modules]\n"
         "assert not missed, missed\n"

@@ -119,31 +119,52 @@ def check_train_step(tcfg, batch, variables, out, total=100,
     no grad and stay bit for bit (JAX's update of them is exactly zero).
     The port's grad norm is held against `out`'s.  Returns the worst grad
     error over its leaf's largest."""
-    total_loss, losses, grads, new_params, new_bs, gnorm = out
-    hc = tcfg.head
     port = SRFDet(tcfg, device="cpu")
     load_jax_params(port, variables)
     opt = make_optimizer(port, tcfg, total)
     metrics = train_step(port, opt, {k: T(v) for k, v in batch.items()},
                          torch.Generator().manual_seed(0))
+    return compare_train_step(tcfg, port_step_result(port, metrics),
+                              variables, out, total, frozen)
+
+
+def port_step_result(port, metrics):
+    """A port train step's outcome as numpy: (metrics, grads by parameter
+    name (None where a parameter got none), the state_dict after the
+    update without torch's BN step counters, the names of the parameters
+    that do not require a grad)."""
+    return ({k: float(v) for k, v in metrics.items()},
+            {n: None if p.grad is None else p.grad.detach().numpy().copy()
+             for n, p in port.named_parameters()},
+            {k: v.detach().numpy().copy()
+             for k, v in port.state_dict().items()
+             if not k.endswith("num_batches_tracked")},
+            {n for n, p in port.named_parameters() if not p.requires_grad})
+
+
+def compare_train_step(tcfg, result, variables, out, total=100,
+                       frozen=frozenset()):
+    """check_train_step's comparison of a port step's outcome
+    (port_step_result) with the JAX step's `out` on `variables`."""
+    total_loss, losses, grads, new_params, new_bs, gnorm = out
+    metrics, port_grads, port_state, no_grad = result
+    hc = tcfg.head
     assert sorted(k for k in metrics if k.startswith(("loss", "s."))) == \
         sorted(list(losses) + ["loss"])
     for k, v in losses.items():
-        np.testing.assert_allclose(float(metrics[k]), float(v), rtol=1e-5,
+        np.testing.assert_allclose(metrics[k], float(v), rtol=1e-5,
                                    atol=1e-6, err_msg=k)
-    np.testing.assert_allclose(float(metrics["loss"]), float(total_loss),
+    np.testing.assert_allclose(metrics["loss"], float(total_loss),
                                rtol=1e-5)
-    np.testing.assert_allclose(float(metrics["grad_norm"]), float(gnorm),
+    np.testing.assert_allclose(metrics["grad_norm"], float(gnorm),
                                rtol=1e-4)
     jgrad = jax_state_dict({"params": grads}, hc.num_heads, hc.num_cls_convs)
-    params = dict(port.named_parameters())
-    assert set(jgrad) == set(params)
-    assert {n for n, p in params.items() if not p.requires_grad} == \
-        set(frozen)
+    assert set(jgrad) == set(port_grads)
+    assert no_grad == set(frozen)
     tols, worst = {}, 0.0
     tree_max = max(float(np.abs(g).max()) for g in jgrad.values())
     for name, ref in jgrad.items():
-        got = params[name].grad
+        got = port_grads[name]
         if name in frozen:
             assert got is None, name
             continue
@@ -151,24 +172,23 @@ def check_train_step(tcfg, batch, variables, out, total=100,
         if name.endswith("k_proj.bias"):
             # zero but for rounding on both sides: the softmax ignores a
             # shift along the keys
-            for g in (got.numpy(), ref):
+            for g in (got, ref):
                 assert float(np.abs(g).max()) <= 1e-9 * tree_max, name
             tols[name] = np.inf       # its update: noise, within 2 lr
             continue
         scale = max(float(np.abs(ref).max()), 1e-6 * tree_max)
         tols[name] = 2e-4 * scale
-        np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+        np.testing.assert_allclose(got, ref, rtol=0,
                                    atol=tols[name], err_msg=name)
-        worst = max(worst, float(np.abs(got.numpy() - ref).max()) / scale)
+        worst = max(worst, float(np.abs(got - ref).max()) / scale)
     lr0 = make_lr_schedule(tcfg.optim, total)(0)
     after = jax_state_dict({"params": new_params, "batch_stats": new_bs},
                            hc.num_heads, hc.num_cls_convs)
     before = jax_state_dict(variables, hc.num_heads, hc.num_cls_convs)
-    state = {k: v for k, v in port.state_dict().items()
-             if not k.endswith("num_batches_tracked")}
+    state = port_state
     assert set(after) == set(state)
     for name, ref in after.items():
-        got = state[name].numpy()
+        got = state[name]
         if name in frozen:
             np.testing.assert_array_equal(ref, before[name], err_msg=name)
             np.testing.assert_array_equal(got, before[name], err_msg=name)
