@@ -120,7 +120,23 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    CLI with kitti_eval, iou_3d on the card); each line carries the
    loader's ms a batch measured alone on the same root, step p50, the
    share of the loop spent waiting on the loader, peak GB, the
-   checkpoint's save and load ms and size, or the eval's ms; then
+   checkpoint's save and load ms and size, or the eval's ms; all of them
+   on the data pipeline's default point route, the C++ one
+   (srfdet3d_torch/csrc/pointio.cpp, built with g++ after the CUDA
+   kernels); then the host side: data_route (the C++ route's build
+   seconds; the loader's ms a batch on the nuScenes and KITTI roots on
+   each route at 4 threads and 1; samples of both routes equal, the
+   points as sets of rows where they fit points_cap, by count where they
+   do not), data_step_profile (the flagship step at batch 2 from the
+   nuScenes root with the batches held in memory, with the loader on the
+   numpy route and on the C++ route: step p50 with profiling.StepTimer,
+   wait share, the main thread's and the process's CPU ms, and under
+   profiling.trace device busy, host-to-device copy, sync-wait and the
+   main thread's host ms outside the syncs) and raw_tree_train (a raw
+   nuScenes tree through `python -m srfdet3d_torch.tools.create_data
+   nuscenes --with-db`, then one train-CLI epoch from its pickles with
+   the GT-database paste: launches against the structure, the tb/ event
+   file read back); then
    convert_roundtrip: a seeded full-width model A of srfdet_voxel_nusc_L,
    srfdet_voxel_nusc_LC and srfdet_dvoxel_waymo_LC (seeded DCNv2 offsets)
    written in the reference's mm-stack names and layouts
@@ -141,7 +157,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    weights and after training: the last loss at most half the first,
    mAP at least max(100 x the random weights', 0.01), each frame's
    top-scored box within 1 m BEV of a planted centre; step p50, peak GB,
-   launches a step and a frame equal to the structure; then data
+   launches a step and a frame equal to the structure; the phase runs
+   under deterministic cuDNN (deterministic_cudnn: no benchmark timing),
+   restored after; then data
    parallelism (srfdet3d_torch/parallel): ddp_flagship_train, the
    flagship at full width (dropout off) on two ranks that share the card
    over gloo (host-staged collectives; NCCL refuses two ranks on one
@@ -2073,8 +2091,9 @@ def test_cli_phase(phase, name, root, ckpt, work, smi):
 def data_phases(smi, tmp: str):
     """The four phases from files on disk (DATA_ROOTS under `tmp`):
     nusc_data_train, nusc_data_test, nusc_lc_data_train (with its test
-    CLI) and kitti_data (train, then the test CLI with kitti_eval).
-    Returns the launches a step of each train run."""
+    CLI) and kitti_data (train, then the test CLI with kitti_eval), on the
+    loader's default point route (the C++ one).  Returns the launches a
+    step of each train run and the nuScenes and KITTI roots' paths."""
     from srfdet3d_torch.configs import get_config
     from srfdet3d_torch.data import synthetic_root
     from srfdet3d_torch.models.detector import LIDAR_MODULES, SRFDet
@@ -2242,7 +2261,303 @@ def data_phases(smi, tmp: str):
               ckpt_save_ms=rec["save_ms"], ckpt_load_ms=load_ms,
               ckpt_mb=size_mb, losses=rec["metrics"], device=smi))
     test_cli_phase("kitti_data_test", k_name, kit["root"], k_ckpt, tmp, smi)
-    return launches
+    return launches, {"nus": nus, "kitti": kit}
+
+
+# the host side (srfdet3d_torch/data/native.py, utils/profiling.py,
+# tools/create_data.py): the C++ point route against the numpy one on the
+# data roots, the flagship step from files profiled three ways, and a raw
+# nuScenes tree through create_data into the train CLI
+
+# samples of each root held route against route in data_route
+ROUTE_SAMPLES = 4
+# data_step_profile: steps a way (StepTimer drops the first STEP_WARMUP),
+# and profiled steps after them
+STEP_WARMUP, STEP_STEPS, STEP_PROFILED = 2, 10, 3
+# the CUDA runtime calls in which the host waits for the card
+SYNC_CALLS = ("cudaDeviceSynchronize", "cudaStreamSynchronize",
+              "cudaEventSynchronize")
+# the raw tree of raw_tree_train: DATA_ROOTS["nus"]'s sizes
+RAW_NUS_ROOT = dict(n_train=4, n_val=2, points=34688, sweeps=10, boxes=35)
+FLAGSHIP_STEP_LAUNCHES = dict(gather_conv=21, eqmatch=4, subm_bwd=17,
+                              strided_bwd=4, roi_scatter=5,
+                              rulebook_lookup=0)
+
+
+class point_route:
+    """Within the block, the data pipeline's point route (SRFDET_POINT_IO)
+    is `name`; the earlier setting is restored after."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.saved = os.environ.get("SRFDET_POINT_IO")
+        os.environ["SRFDET_POINT_IO"] = self.name
+
+    def __exit__(self, *exc):
+        if self.saved is None:
+            os.environ.pop("SRFDET_POINT_IO", None)
+        else:
+            os.environ["SRFDET_POINT_IO"] = self.saved
+
+
+def data_route(smi, roots, build_s: float, built: bool):
+    """The C++ point route (srfdet3d_torch/csrc/pointio.cpp, built with
+    g++ at first use: `build_s`, `built` whether this process compiled it)
+    against the numpy route on the nuScenes and KITTI data roots of
+    data_phases, with the GT-database paste and CBGS as the train CLI
+    reads them: the loader's ms a batch on each route at num_workers 4
+    (the loader's default) and 1; ROUTE_SAMPLES samples of each root on
+    both routes, every key but the points bit for bit, the points as sets
+    of rows where the in-range count fits points_cap (KITTI) and by kept
+    count where it does not (nuScenes: ~381k points against 262,144)."""
+    from srfdet3d_torch.configs import get_config
+    from srfdet3d_torch.data import native
+    from srfdet3d_torch.tools.train import train_dataset
+    t_phase = time.perf_counter()
+    out = {}
+    for key, batches in (("nus", 6), ("kitti", 2)):
+        cfg = get_config(DATA_CONFIGS[key])
+        root = roots[key]
+        ds = train_dataset(cfg, root["root"], db_info=root["db"])
+        ms = {}
+        for name in ("numpy", "cpp"):
+            with point_route(name):
+                for workers in (4, 1):
+                    ms[f"{name}_w{workers}"] = loader_ms(ds, 2, batches,
+                                                        workers)
+        kept, set_equal = [], []
+        for i in range(ROUTE_SAMPLES):
+            with point_route("numpy"):
+                a = ds[i]
+            with point_route("cpp"):
+                b = ds[i]
+            for k in a:
+                if k not in ("points", "points_mask") and \
+                        not np.array_equal(a[k], b[k]):
+                    raise AssertionError(f"data_route {key}: sample {i} "
+                                         f"{k} differs between the routes")
+            na, nb = int(a["points_mask"].sum()), int(b["points_mask"].sum())
+            if na != nb:
+                raise AssertionError(f"data_route {key}: sample {i} kept "
+                                     f"{na} points on numpy, {nb} on C++")
+            kept.append(nb)
+            if nb < cfg.points_cap:
+                rows = [{r.tobytes() for r in s["points"][s["points_mask"]]}
+                        for s in (a, b)]
+                if rows[0] != rows[1]:
+                    raise AssertionError(f"data_route {key}: sample {i} "
+                                         f"keeps other rows on the routes")
+                set_equal.append(i)
+        out[key] = dict(config=cfg.name, samples=len(ds),
+                        loader_ms=ms, points_cap=cfg.points_cap,
+                        kept=kept, rows_equal_as_sets=set_equal,
+                        kept_count_equal=True)
+    emit(dict(phase="data_route", library=str(native.library_path().name),
+              build_s=build_s, built_here=built, batch=2, **out,
+              seconds=time.perf_counter() - t_phase, device=smi))
+
+
+def profiled_steps(log_dir, run_steps, steps: int):
+    """`steps` steps of run_steps under profiling.trace: a step's device
+    busy ms (every kernel and copy), host-to-device copy ms, ms the main
+    thread waited in CUDA syncs, the window's wall ms, and the main
+    thread's host ms outside those waits."""
+    from torch.autograd import DeviceType
+    from srfdet3d_torch.utils import profiling
+    with profiling.trace(log_dir, "cuda") as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_steps(steps)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = h2d = sync = 0.0
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0.0)
+            busy += us
+            if "HtoD" in e.key:
+                h2d += us
+        elif e.key in SYNC_CALLS:
+            sync += e.cpu_time_total
+    n = max(steps, 1)
+    return dict(device_busy_ms=busy / 1e3 / n, h2d_ms=h2d / 1e3 / n,
+                sync_wait_ms=sync / 1e3 / n, wall_ms=wall / n,
+                main_host_ms=(wall - sync / 1e3) / n,
+                trace_files=len(os.listdir(log_dir)))
+
+
+def data_step_profile(smi, roots, tmp: str):
+    """The flagship train step at batch 2 from the nuScenes data root,
+    three ways in one process after warm-up, each over the same
+    STEP_WARMUP + STEP_STEPS batches of the seeded loader order:
+    in_memory (the batches collated beforehand, no loader thread during
+    the steps), numpy (the loader, 4 threads, on the numpy point route)
+    and cpp (the loader on the C++ route).  Each: step p50 (StepTimer,
+    synced at each step's end), the wait's share of the loop, the main
+    thread's and the process's CPU ms a step (thread_time and
+    process_time around the step's work, before its closing sync), then
+    STEP_PROFILED more steps under
+    profiling.trace: device busy ms, host-to-device copy ms, the ms the
+    main thread waited in CUDA syncs and its host ms outside them.  No
+    bar on speed; launches a step equal the structure."""
+    from srfdet3d_torch.configs import get_config
+    from srfdet3d_torch.data import data_loader
+    from srfdet3d_torch.models.detector import SRFDet
+    from srfdet3d_torch.tools.train import train_dataset
+    from srfdet3d_torch.train.trainer import (make_optimizer,
+                                              step_generator, train_step)
+    from srfdet3d_torch.utils.profiling import StepTimer
+    t_phase = time.perf_counter()
+    cfg = get_config(DATA_CONFIGS["nus"])
+    root = roots["nus"]
+    ds = train_dataset(cfg, root["root"], db_info=root["db"])
+    model = SRFDet(cfg, device="cuda", seed=0)
+    opt = make_optimizer(model, cfg, 1000)
+    want = train_launches(model)
+    total = STEP_WARMUP + STEP_STEPS + STEP_PROFILED
+    count = [0]
+
+    def step(batch):
+        train_step(model, opt, {k: torch.from_numpy(v)
+                                for k, v in batch.items()},
+                   step_generator(model, 0, count[0]))
+        count[0] += 1
+
+    loader = data_loader(ds, 2, seed=0)
+    held = [next(loader) for _ in range(total)]
+    loader.close()
+    for b in held[:2]:                   # warm-up: cuDNN's timings
+        step(b)
+    torch.cuda.synchronize()
+    out = {}
+    for way in ("in_memory", "numpy", "cpp"):
+        # the loader's threads read the route at each sample
+        with point_route("cpp" if way == "in_memory" else way):
+            it = iter(held) if way == "in_memory" else \
+                data_loader(ds, 2, seed=0)
+            timer = StepTimer(warmup=STEP_WARMUP, device="cuda")
+            waits, main_cpu, proc_cpu = [], [], []
+            reset_counts()
+            t0 = time.perf_counter()
+            for i in range(STEP_WARMUP + STEP_STEPS):
+                batch = next(it)
+                t1 = time.perf_counter()
+                with timer:
+                    c0, p0 = time.thread_time(), time.process_time()
+                    step(batch)
+                    # before the timer's sync, which spins on the CPU
+                    c1, p1 = time.thread_time(), time.process_time()
+                if i >= STEP_WARMUP:
+                    waits.append((t1 - t0) * 1e3)
+                    main_cpu.append((c1 - c0) * 1e3)
+                    proc_cpu.append((p1 - p0) * 1e3)
+                t0 = time.perf_counter()
+            check_launches(f"data_step_profile {way}", read_counts(), want,
+                           STEP_WARMUP + STEP_STEPS)
+
+            def run_steps(n):
+                for _ in range(n):
+                    step(next(it))
+
+            prof = profiled_steps(os.path.join(tmp, f"trace_{way}"),
+                                  run_steps, STEP_PROFILED)
+            if way != "in_memory":
+                it.close()
+        summary = timer.summary()
+        out[way] = dict(step_p50_ms=summary["p50_ms"],
+                        step_p90_ms=summary["p90_ms"],
+                        step_mean_ms=summary["mean_ms"],
+                        wait_share=sum(waits) / (sum(waits) +
+                                                 sum(timer.times) * 1e3),
+                        wait_p50_ms=statistics.median(waits),
+                        main_thread_cpu_ms=statistics.median(main_cpu),
+                        process_cpu_ms=statistics.median(proc_cpu),
+                        profiled=prof)
+    del model, opt, held
+    free_cache()
+    emit(dict(phase="data_step_profile", config=cfg.name, batch=2,
+              steps=STEP_STEPS, warmup=STEP_WARMUP,
+              profiled_steps=STEP_PROFILED, loader_workers=4,
+              launches_per_step=want, **out,
+              seconds=time.perf_counter() - t_phase, device=smi))
+
+
+def raw_tree_train(smi, tmp: str):
+    """A raw nuScenes tree (synthetic_root.write_raw_nuscenes_root at the
+    data root's sizes: 4 + 2 keyframes of 34,688 points, 10 sweeps, 35
+    instances a scene) through `python -m srfdet3d_torch.tools.create_data
+    nuscenes --with-db`, then one train-CLI epoch of the flagship at batch
+    2 from the pickles it wrote, with CBGS and the GT-database paste:
+    launches a step equal to the structure (K1 21, K2 4, K3 17, K4 4, K5
+    5), finite losses, and the run's tb/ event file read back by the
+    port's reader (a loss and an lr a step, the last loss the run's)."""
+    import srfdet3d_torch
+    from srfdet3d_torch.data import synthetic_root
+    from srfdet3d_torch.utils.event_file import read_scalars
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "raw_nus")
+    t0 = time.perf_counter()
+    tree = synthetic_root.write_raw_nuscenes_root(root, **RAW_NUS_ROOT)
+    write_s = time.perf_counter() - t0
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(
+        srfdet3d_torch.__file__)))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "srfdet3d_torch.tools.create_data",
+         "nuscenes", "--root", root, "--with-db"], cwd=repo,
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": repo})
+    create_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"create_data failed:\n{proc.stderr[-3000:]}")
+    frames = {}
+    for split in ("train", "val"):
+        with open(os.path.join(root, f"nuscenes_infos_{split}.pkl"),
+                  "rb") as f:
+            frames[split] = len(pickle.load(f))
+    db_info = os.path.join(root, "nuscenes_dbinfos_train.pkl")
+    with open(db_info, "rb") as f:
+        db = pickle.load(f)
+    objects = sum(len(v) for v in db.values())
+    if frames != {"train": RAW_NUS_ROOT["n_train"],
+                  "val": RAW_NUS_ROOT["n_val"]} or not objects:
+        raise AssertionError(f"create_data wrote {frames} frames and "
+                             f"{objects} db objects")
+    name = DATA_CONFIGS["nus"]
+    rec, counts, peak = run_train_cli(
+        [name, "--data-root", root, "--db-info", db_info, "--batch-size",
+         "2", "--epochs", "1", "--log-interval", "1", "--work-dir",
+         os.path.join(tmp, "wd_raw")])
+    want = train_launches(rec["model"])
+    if want != FLAGSHIP_STEP_LAUNCHES:
+        raise AssertionError(f"raw_tree_train: structure {want}")
+    steps = len(rec["step_ms"])
+    check_launches("raw_tree_train", counts, want, steps)
+    scalars = read_scalars(rec["event_file"])
+    losses = [(s, v) for t, s, v in scalars if t == "loss"]
+    lrs = [s for t, s, _ in scalars if t == "lr"]
+    if [s for s, _ in losses] != list(range(1, steps + 1)) or \
+            lrs != list(range(1, steps + 1)) or \
+            losses[-1][1] != np.float32(rec["metrics"]["loss"]):
+        raise AssertionError(f"raw_tree_train: event file {scalars[:6]} "
+                             f"for {steps} steps, last loss "
+                             f"{rec['metrics']['loss']}")
+    del rec["model"], rec["opt"]
+    free_cache()
+    emit(dict(phase="raw_tree_train", config=name,
+              raw_root=dict(RAW_NUS_ROOT, version=tree["version"],
+                            scenes=tree["scenes"]),
+              root_write_s=write_s, create_data_s=create_s,
+              frames=frames, db_objects=objects,
+              db_classes={k: len(v) for k, v in sorted(db.items())},
+              batch=2, **step_stats(rec), peak_gb=peak,
+              launches_per_step=want, event_scalars=len(scalars),
+              losses=rec["metrics"], seconds=time.perf_counter() - t_phase,
+              device=smi))
 
 
 # the three configs of convert_roundtrip: the flagship, the headline LC
@@ -2554,9 +2869,34 @@ def learn_eval(name, root, ckpt, tag, tmp):
     return res, frames, counts, ms
 
 
+class deterministic_cudnn:
+    """Within the block cuDNN runs its deterministic algorithms, chosen by
+    its heuristics (no cudnn.benchmark timing, whose choice can differ
+    from run to run); the earlier flags are restored after."""
+
+    def __enter__(self):
+        self.saved = (torch.backends.cudnn.deterministic,
+                      torch.backends.cudnn.benchmark)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+
+    def __exit__(self, *exc):
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = self.saved
+
+
 def flagship_learn(smi, tmp: str, options=LEARN_OPTIONS,
                    steps: int = LEARN_STEPS, phase: str = "flagship_learn",
                    planted: dict = LEARN_ROOT):
+    """_flagship_learn with cuDNN deterministic (deterministic_cudnn): the
+    phase's outcome then varies between runs only through the float
+    atomics of the port's kernels and PyTorch's scatters."""
+    with deterministic_cudnn():
+        return _flagship_learn(smi, tmp, options, steps, phase, planted)
+
+
+def _flagship_learn(smi, tmp: str, options, steps: int, phase: str,
+                    planted: dict):
     """The flagship at full width learns planted boxes on the card: a
     seeded root (`planted`: write_nuscenes_root's arguments), training
     through the port's dataset (test pipeline: no paste, no random flips
@@ -2653,6 +2993,8 @@ def flagship_learn(smi, tmp: str, options=LEARN_OPTIONS,
               step_p50_ms=statistics.median(step_ms), train_s=train_s,
               eval_ms=[before_ms, after_ms], peak_gb=peak,
               launches_per_step=want, passed=ok,
+              cudnn=dict(deterministic=torch.backends.cudnn.deterministic,
+                         benchmark=torch.backends.cudnn.benchmark),
               seconds=time.perf_counter() - t_phase, device=smi))
     if not ok:
         raise AssertionError(f"{phase}: did not learn: loss {losses[0]} -> "
@@ -3456,6 +3798,12 @@ def main() -> int:
                                      "gather_conv_bwd", "roi_scatter",
                                      "rulebook_lookup"])
     emit(dict(phase="build", seconds=secs))
+    # the C++ point route of the data pipeline: g++ at first use
+    from srfdet3d_torch.data import native
+    host_built = not native.library_path().exists()
+    t0 = time.perf_counter()
+    native.build()
+    host_build_s = time.perf_counter() - t0
 
     cfg = srfdet_voxel_nusc_L()
     batch = synthetic_batch(cfg, 1, seed=0)
@@ -3585,7 +3933,13 @@ def main() -> int:
     # a reference-format checkpoint through the convert and test CLIs; the
     # flagship learning planted boxes
     with tempfile.TemporaryDirectory() as tmp:
-        data_launches = data_phases(smi, tmp)
+        data_launches, roots = data_phases(smi, tmp)
+        free_cache()
+        # the host side: the point routes, the step from files profiled
+        # three ways, a raw tree through create_data into the train CLI
+        data_route(smi, roots, host_build_s, host_built)
+        data_step_profile(smi, roots, tmp)
+        raw_tree_train(smi, tmp)
         free_cache()
         convert_launches = convert_roundtrip(smi, tmp)
         learn_launches = flagship_learn(smi, tmp)

@@ -31,7 +31,10 @@ def set_backend_flags() -> None:
     candidate algorithms once per conv shape: with TF32 off, its heuristic
     alone picks an FFT algorithm for SECOND's first conv (256 -> 128
     channels, 3x3, on the 184 x 184 flagship BEV map) that takes most of
-    predict's time and a workspace of many GB (PERF.md, "H100 port")."""
+    predict's time and a workspace of many GB (PERF.md, "H100 port").
+    A caller that turned on `torch.backends.cudnn.deterministic` keeps
+    cuDNN's heuristic choice instead (no timing, whose pick can differ
+    from run to run): benchmark stays off while deterministic is on."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cudnn.benchmark = True
+    torch.backends.cudnn.benchmark = not torch.backends.cudnn.deterministic

@@ -1,6 +1,7 @@
 """The host-side data pipeline: info-pickle datasets, the point and image
-transforms, CBGS, collate and the prefetching loader (numpy; the JAX
-package's `data/`, copied)."""
+transforms, CBGS, collate and the prefetching loader (numpy, with the .bin
+loads and the range filter, shuffle and pad on a C++ route by default,
+`native.py`; the JAX package's `data/`, copied)."""
 
 from .transforms import (load_points_bin, multi_sweep_aggregate,
                          global_rot_scale_trans, random_flip_3d,

@@ -1,11 +1,16 @@
 """Datasets: info-pkl loaders + pipelines + CBGS + fixed-shape collate.
 
 A copy of the JAX package's `data/datasets.py` (numpy, the same draws:
-a sample equals the JAX package's on its numpy path, bit for bit, but for
-the resize of `_prep_image`'s resize mode, see `img_transforms._resize`).
+a sample equals the JAX package's on the same point route, bit for bit,
+but for the resize of `_prep_image`'s resize mode, see
+`img_transforms._resize`).
 Camera frames may be `.npy` arrays (H, W, 3), read as they are; JPEG and
-PNG frames are decoded with PIL, imported only then.  `show()` (the
-renderers of the JAX package's `vis/`) is not ported.
+PNG frames are decoded with PIL, imported only then.  `show()` draws
+results through the port's `vis/`, which imports cv2 only then.  The
+range filter with its shuffle and pad, and the .bin loads, take the route
+`native.py` selects: the C++ one by default, whose samples equal the JAX
+package's with its C++ extension, or numpy (SRFDET_POINT_IO=numpy),
+whose equal its numpy fallback.
 
 Replaces the reference's CustomNuScenesDataset / CustomKittiDataset /
 CustomWaymoDataset (datasets/*.py) and the mmdet3d base datasets they extend.
@@ -97,6 +102,82 @@ class SRFDetDataset:
         _, labels = self.load_annotations(self.infos[idx])
         return np.unique(labels[labels >= 0]).tolist()
 
+    # BEV render window (meters) and raster resolution per dataset —
+    # mirrors the reference's three dataset-specific renderers
+    # (show_result.py:443 nus 51.2 m, :634 kitti forward 70.4 m,
+    # :827 waymo 75 m)
+    BEV_RANGE = (-51.2, -51.2, 51.2, 51.2)
+    BEV_PIXELS_PER_METER = 10.0
+
+    def show(self, results, out_dir: str, score_thr: float = 0.2,
+             max_frames: Optional[int] = None,
+             save_3d: bool = False) -> int:
+        """Render per-frame result visualizations (reference
+        `dataset.show()`, nuscenes_dataset.py:119-239): a BEV raster of
+        points + GT + thresholded predictions, per-camera projected-box
+        overlays (when the config has an image branch), and optionally the
+        obj/ply 3D scene files.
+
+        results: list of per-frame dicts {"boxes" (N, 7+) bottom-center,
+        "scores" (N,), "labels" (N,)} aligned with this dataset's frames.
+        Returns the number of frames written.
+        """
+        from ..vis import (show_bev_result, show_multi_modality_result,
+                           show_result)
+        n = 0
+        rng = self.BEV_RANGE
+        pc_range = (rng[0], rng[1], -5.0, rng[2], rng[3], 3.0)
+        for i, res in enumerate(results):
+            if max_frames is not None and i >= max_frames:
+                break
+            info = self.infos[i]
+            points = self.load_points(info)
+            gt_boxes, gt_labels = self.load_annotations(info)
+            keep = np.asarray(res["scores"]) > score_thr
+            pred = np.asarray(res["boxes"])[keep]
+            pred_labels = np.asarray(res.get(
+                "labels", np.zeros(len(res["boxes"]))))[keep]
+            show_bev_result(
+                points, gt_boxes[:, :7] if len(gt_boxes) else gt_boxes,
+                pred[:, :7] if len(pred) else pred,
+                os.path.join(out_dir, f"{i:05d}_bev.png"),
+                pc_range=pc_range,
+                pixels_per_meter=self.BEV_PIXELS_PER_METER,
+                pred_labels=pred_labels,
+                gt_labels=gt_labels if len(gt_boxes) else None)
+            if self.cfg.use_img:
+                images, lidar2img = self.load_images(info)
+                img_hw = images.shape[1:3]
+                for v in range(images.shape[0]):
+                    # per-view center gating (reference :194-228)
+                    def in_view(bx):
+                        if len(bx) == 0:
+                            return np.zeros(0, bool)
+                        return are_points_in_image(
+                            bx[:, :3], lidar2img[v], img_hw)
+                    g_m = in_view(gt_boxes)
+                    p_m = in_view(pred)
+                    # de-normalize for display (stored channel order is
+                    # BGR when cfg.img.bgr — see _prep_image)
+                    rgb = (images[v][..., ::-1] if self.cfg.img.bgr
+                           else images[v])
+                    img = rgb * IMAGENET_STD + IMAGENET_MEAN
+                    show_multi_modality_result(
+                        img[..., ::-1],          # RGB -> BGR
+                        pred[p_m][:, :7] if p_m.any() else pred[:0, :7],
+                        lidar2img[v],
+                        os.path.join(out_dir, f"{i:05d}_v{v + 1}.png"),
+                        gt_boxes=(gt_boxes[g_m][:, :7]
+                                  if g_m.any() else None),
+                        labels=pred_labels[p_m])
+            if save_3d:
+                show_result(points,
+                            gt_boxes[:, :7] if len(gt_boxes) else None,
+                            pred[:, :7] if len(pred) else None,
+                            out_dir, f"{i:05d}")
+            n += 1
+        return n
+
     # ---- pipeline ----------------------------------------------------------
     def __len__(self) -> int:
         return len(self.infos)
@@ -168,8 +249,9 @@ class SRFDetDataset:
             sample.update(gt_boxes=gt_boxes, gt_labels=gt_labels,
                           gt_mask=gt_mask)
 
-        # range filter + shuffle + capacity pad
-        pts, mask = T.filter_pad(
+        # range filter + shuffle + capacity pad, one pass on the C++ route
+        from .native import filter_pad_fast
+        pts, mask = filter_pad_fast(
             points, cfg.pc_range, cfg.points_cap,
             shuffle=self.augment,
             seed=int(rng.integers(1 << 31)))
@@ -353,6 +435,8 @@ class NuScenesDataset(SRFDetDataset):
 
 class KittiDataset(SRFDetDataset):
     CLASSES = ("Pedestrian", "Cyclist", "Car")
+    # forward-facing window (reference show_bev_result_kitti, :634)
+    BEV_RANGE = (0.0, -40.0, 70.4, 40.0)
 
     def load_points(self, info: Dict,
                     rng: Optional[np.random.Generator] = None) -> np.ndarray:
@@ -416,6 +500,9 @@ class WaymoDataset(KittiDataset):
     """Waymo via the mmdet3d kitti-format conversion (reference
     waymo_dataset_custom.py:14: num_views=5)."""
     CLASSES = ("Car", "Pedestrian", "Cyclist")
+    # full-surround window (reference show_bev_result_waymo, :827)
+    BEV_RANGE = (-75.0, -75.0, 75.0, 75.0)
+    BEV_PIXELS_PER_METER = 7.0
 
     def load_points(self, info: Dict,
                     rng: Optional[np.random.Generator] = None) -> np.ndarray:

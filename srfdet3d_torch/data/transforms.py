@@ -1,11 +1,12 @@
 """Host-side point-cloud pipeline transforms (numpy).
 
 A copy of the JAX package's `data/transforms.py`: the same numpy code and
-the same `np.random.Generator` draws, so a sample is bit for bit the JAX
-package's on its numpy path.  The JAX package can route the .bin load, the
-range filter with shuffle and pad, and the rigid sweep transform through a
-C++ extension (`native/pointio.cpp`); the port has only the numpy route
-(`filter_pad`).
+the same `np.random.Generator` draws.  As in the JAX package, the .bin load
+goes through `native.py`, whose C++ route (the default) equals the JAX
+package's C++ extension and whose numpy route (SRFDET_POINT_IO=numpy)
+its numpy fallback; `filter_pad` here is the numpy route of the range
+filter with shuffle and pad, which `native.filter_pad_fast` takes on that
+route.
 
 Replacements for the mmdet3d pipeline ops the reference configs
 compose (cfg srfdet_voxel_nusc_L.py:193-262): LoadPointsFromFile,
@@ -37,8 +38,10 @@ def limit_period(val: np.ndarray, offset: float = 0.5,
 
 def load_points_bin(path: str, load_dim: int = 5,
                     use_dim: Optional[Sequence[int]] = None) -> np.ndarray:
-    """Read a .bin float32 point file (KITTI/nuScenes layout)."""
-    pts = np.fromfile(path, dtype=np.float32).reshape(-1, load_dim)
+    """Read a .bin float32 point file (KITTI/nuScenes layout), through
+    the route `native.py` selects."""
+    from .native import load_points_fast
+    pts = load_points_fast(path, load_dim)
     if use_dim is not None and list(use_dim) != list(range(load_dim)):
         pts = pts[:, list(use_dim)]
     return pts

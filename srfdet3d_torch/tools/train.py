@@ -15,7 +15,9 @@ plain versions of the kernels on the CPU.  --debug-nans turns on
 autograd's anomaly detection (a NaN made in a backward raises there) and
 raises FloatingPointError at the first step whose loss is not finite.
 
-Checkpoints go to <work-dir>/<config>/epoch_<n>.pt; a first SIGTERM or
+Checkpoints go to <work-dir>/<config>/epoch_<n>.pt and the logged
+scalars (every --log-interval steps, and the eval's under val/) to a
+TensorBoard event file in <work-dir>/<config>/tb/; a first SIGTERM or
 SIGINT saves preempt_<step>.pt after the step in flight and exits, and
 --resume-from that file continues mid-epoch at the same batch.
 
@@ -163,8 +165,9 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     """Train; returns the run's record: the trained model and its
     optimizer, the first and last step, the last checkpoint and the ms of
     its saves, whether a signal preempted the run, the last step's
-    metrics, and per step the host ms spent waiting for the loader and the
-    ms of the step itself (ending in a device sync)."""
+    metrics, the event file (None on ranks other than 0), and per step the
+    host ms spent waiting for the loader and the ms of the step itself
+    (ending in a device sync)."""
     args = build_parser().parse_args(argv)
     dev = mesh.rank_device(args.device)
     joined = mesh.init_from_env(dev)
@@ -246,7 +249,10 @@ def _train(args, argv, dev: torch.device) -> Dict:
     # every rank starts from rank 0's weights and moments, bit for bit
     mesh.broadcast_module(model)
     mesh.broadcast_tensors([opt.mu, opt.nu])
-    logger = MetricLogger(args.log_interval)
+    # TensorBoard scalars under <work_dir>/tb, written by rank 0 alone
+    logger = MetricLogger(args.log_interval,
+                          log_dir=(os.path.join(work_dir, "tb")
+                                   if main_rank else None))
 
     val_dataset = None
     if args.eval_interval > 0 and world > 1:
@@ -268,7 +274,8 @@ def _train(args, argv, dev: torch.device) -> Dict:
               "batch_size": batch_size,
               "steps_per_epoch": steps_per_epoch, "first_step": host_step,
               "wait_ms": [], "step_ms": [], "save_ms": [],
-              "checkpoint": None, "preempted": False, "metrics": {}}
+              "checkpoint": None, "preempted": False, "metrics": {},
+              "event_file": logger.event_path}
 
     # preemption-safe shutdown: the FIRST SIGTERM/SIGINT sets a flag
     # checked after every step, batch fetch, checkpoint and eval; the loop
@@ -368,6 +375,7 @@ def _train(args, argv, dev: torch.device) -> Dict:
                 if preempt_save():           # signal during the eval pass
                     return record
     finally:
+        logger.close()
         torch.autograd.set_detect_anomaly(anomaly)
         for sig, handler in previous.items():
             signal.signal(sig, handler)

@@ -21,6 +21,7 @@ from srfdet3d_torch.data import synthetic_root
 from srfdet3d_torch.tools import test as test_cli
 from srfdet3d_torch.tools import train as train_cli
 from srfdet3d_torch.train import trainer
+from srfdet3d_torch.utils.event_file import read_scalars
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -54,6 +55,11 @@ def test_train_then_test_in_subprocesses(tmp_path):
     for f in ("epoch_1.pt", "epoch_1.pt.meta.json", "config.json",
               "env.json"):
         assert os.path.exists(os.path.join(wd, "tiny", f)), f
+    # the logged scalars, in a TensorBoard event file under tb/
+    (events,) = os.listdir(os.path.join(wd, "tiny", "tb"))
+    scalars = read_scalars(os.path.join(wd, "tiny", "tb", events))
+    assert {(t, s) for t, s, _ in scalars} >= {("loss", 1), ("loss", 2),
+                                               ("lr", 1), ("lr", 2)}
     out = str(tmp_path / "res.pkl")
     log = run("test", "tiny", ckpt, "--synthetic", "--synthetic-length", "3",
               "--batch-size", "2", "--device", "cpu", "--out", out)

@@ -3,11 +3,15 @@ package's: the point transforms, the box helpers, DBSampler, the four
 datasets from seeded info pickles (L and LC, augment on and off, the KITTI
 synced flip), CBGS, collate and the loader.
 
-The JAX package can route its range filter, shuffle and pad through a C++
-extension whose shuffle draws differ from numpy's; every test here turns
-that route off (`srfdet3d_tpu.data.native._NATIVE = False`) and requires
-the port's samples to equal the JAX package's numpy-path samples bit for
-bit, on every key.  The one exception is a resized camera frame: the port
+Both packages route the .bin load and the range filter with its shuffle
+and pad through C++ (`native/pointio.cpp`, the port's
+`srfdet3d_torch/csrc/pointio.cpp`), whose shuffle draws differ from
+numpy's.  Every test here runs both packages on one route: the numpy route
+(`srfdet3d_tpu.data.native._NATIVE = False`, SRFDET_POINT_IO=numpy) unless
+it takes the `cpp_routes` fixture, and then the default C++ route of each
+(`test_default_route_samples_match_jax`).  On either, the port's samples
+equal the JAX package's bit for bit, on every key.  The one exception is a
+resized camera frame: the port
 resizes in PyTorch and the JAX package in PIL, within 0.05 grey levels on
 0-255 (test_torch_port_img_transforms.py), so after the normalization
 (std >= 57.12) within 0.05 / 57.12 < 1e-3.
@@ -31,6 +35,7 @@ from srfdet3d_torch import configs as tconfigs
 from srfdet3d_torch.data import box_np as tbox
 from srfdet3d_torch.data import datasets as tds
 from srfdet3d_torch.data import loader as tloader
+from srfdet3d_torch.data import native as tnative
 from srfdet3d_torch.data import synthetic_root as roots
 from srfdet3d_torch.data import transforms as tT
 
@@ -38,8 +43,21 @@ NORM_RESIZE_TOL = 1e-3
 
 
 @pytest.fixture(autouse=True)
-def jax_numpy_path(monkeypatch):
+def jax_numpy_path(request, monkeypatch):
+    """Both packages on their numpy route, unless the test asks for the
+    C++ routes."""
+    if "cpp_routes" in request.fixturenames:
+        return
     monkeypatch.setattr(jnative, "_NATIVE", False)
+    monkeypatch.setenv(tnative.ROUTE_ENV, "numpy")
+
+
+@pytest.fixture
+def cpp_routes(monkeypatch):
+    """Both packages on their default route: the C++ one."""
+    monkeypatch.delenv(tnative.ROUTE_ENV, raising=False)
+    if not jnative.have_native():
+        pytest.fail("the JAX package's C++ extension is not built")
 
 
 def assert_same(a, b, msg=""):
@@ -294,6 +312,24 @@ def test_dataset_samples_match_jax(data_roots, case, augment):
         plain.epoch = td.epoch
         assert not np.array_equal(plain[len(td) - 1]["lidar2img"],
                                   t["lidar2img"])
+
+
+@pytest.mark.parametrize("case,augment", CASES)
+def test_default_route_samples_match_jax(data_roots, case, augment,
+                                         cpp_routes):
+    """The default route: the port's C++ route against the JAX package's
+    with its extension on, one epoch, every key bit for bit (a resized
+    camera frame within NORM_RESIZE_TOL)."""
+    jd, td = make_datasets(case, data_roots, augment)
+    resized = case in ("waymo_lc", "kitti_lc_resize")
+    for i in range(len(jd)):
+        assert_same_sample(jd[i], td[i], resized)
+    if augment:
+        # the shuffle ran on the C++ draws: not the numpy route's sample
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv(tnative.ROUTE_ENV, "numpy")
+            other = td[len(td) - 1]
+        assert not np.array_equal(other["points"], td[len(td) - 1]["points"])
 
 
 def test_cbgs_collate_and_loader_match_jax(data_roots):

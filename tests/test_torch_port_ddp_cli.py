@@ -47,7 +47,7 @@ def worker(mode, work):
                                    ["--resume-from", ckpt]))
     out = {k: rec[k] for k in ("preempted", "first_step", "last_step",
                                "batch_size", "steps_per_epoch",
-                               "checkpoint", "metrics")}
+                               "checkpoint", "metrics", "event_file")}
     out["state"] = {k: v.numpy() for k, v in
                     rec["model"].state_dict().items()}
     with open(os.path.join(work, f"{mode}_rank{rank}.pkl"), "wb") as f:
@@ -80,7 +80,12 @@ def test_preempt_on_one_rank_stops_both_and_resumes(tmp_path):
             np.testing.assert_array_equal(v, b["state"][k], err_msg=k)
     files = sorted(os.listdir(os.path.join(work, "tiny")))
     assert files == ["config.json", "env.json", "preempt_2.pt",
-                     "preempt_2.pt.meta.json"], files
+                     "preempt_2.pt.meta.json", "tb"], files
+    # one event file, rank 0's: the other rank writes none
+    events = os.listdir(os.path.join(work, "tiny", "tb"))
+    assert len(events) == 1 and ".tfevents." in events[0]
+    assert outs["preempt"][0]["event_file"].endswith(events[0])
+    assert outs["preempt"][1]["event_file"] is None
     log0, log1 = (text for _, text in runs["preempt"])
     assert "ranks=2 batch=12" in log0 and "saved" in log0
     assert "preemption signal on another rank: saved" in log0

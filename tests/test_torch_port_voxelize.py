@@ -121,16 +121,19 @@ def test_vfe_and_flatten_match_jax():
 
 def test_port_imports_no_jax():
     """Importing the whole port, the train step's modules, the checkpoint
-    converter and the data-parallel package included, and chip_smoke.py
-    (its reference-naming exporter), pulls in neither jax nor
-    srfdet3d_tpu."""
+    converter, the data-parallel package and the host side (the C++
+    point route, create_data, profiling, event files, vis/) included, and
+    chip_smoke.py (its reference-naming exporter), pulls in neither jax
+    nor srfdet3d_tpu, nor cv2 or tensorflow (both absent from the card
+    machine)."""
     code = (
         "import sys, pkgutil, importlib, srfdet3d_torch, chip_smoke\n"
         "for m in pkgutil.walk_packages(srfdet3d_torch.__path__, "
         "'srfdet3d_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'srfdet3d_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'srfdet3d_tpu', 'cv2', 'tensorflow', "
+        "'tensorboard')]\n"
         "assert not bad, bad\n"
         "need = ['assign.ota', 'models.losses', 'ops.focal_loss', "
         "'ops.gather_conv_bwd', 'ops.roi_scatter', 'train.trainer', "
@@ -141,7 +144,10 @@ def test_port_imports_no_jax():
         "'evals.waymo_eval', 'evals.formatters', 'utils.checkpoint', "
         "'utils.logging', 'tools.train', 'tools.test', "
         "'utils.torch_convert', 'tools.convert_checkpoint', "
-        "'tools.eval_results_from_pkl', 'parallel', 'parallel.mesh']\n"
+        "'tools.eval_results_from_pkl', 'parallel', 'parallel.mesh', "
+        "'data.native', 'tools.create_data', 'utils.profiling', "
+        "'utils.event_file', 'vis', 'vis.show_result', "
+        "'tools.show_results_from_pkl', 'tools.mix_imgs_convert_video']\n"
         "missed = [n for n in need if 'srfdet3d_torch.' + n not in "
         "sys.modules]\n"
         "assert not missed, missed\n"
@@ -178,3 +184,23 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(NotImplementedError):
         SRFDet(dataclasses.replace(tiny_test_config(), use_img=True,
                                    img=bf16), device="cpu")
+
+
+def test_backend_flags_keep_a_deterministic_choice():
+    """SRFDet sets cudnn.benchmark, unless the caller asked for
+    deterministic cuDNN (chip_smoke's flagship_learn): then cuDNN's
+    heuristic choice stays, with benchmark off."""
+    from srfdet3d_torch import set_backend_flags
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    try:
+        torch.backends.cudnn.deterministic = False
+        set_backend_flags()
+        assert torch.backends.cudnn.benchmark
+        assert not torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.deterministic = True
+        set_backend_flags()
+        assert not torch.backends.cudnn.benchmark
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
