@@ -182,11 +182,25 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    and dist_test.sh (3 val frames on 2 ranks) against the test CLI in one
    process on the same checkpoint (the dump within 1e-4, the metrics within
    1e-4); every subprocess killed at DDP_TIMEOUT;
+    then the options that no shipped config turns on, through
+   --cfg-options (option_config), at the flagship's full width:
+   options_encoder (srfdet_voxel_nusc_L with the deformable BEV encoder:
+   its predict phase, K1 21 and K2 4, and train steps at batch 2 with the
+   hungarian assigner, K1 21, K2 4, K3 17, K4 4, K5 5 a step, with the host
+   ms of the scipy solves a step), options_auction_nodpg (no DPG, the
+   auction assigner and head remat: train steps, the auction's rounds a
+   step and the budgets it spent, one step's grads with remat within 1e-5
+   of the same step's without, both peaks) and options_img_patch
+   (srfdet_voxel_nusc_LC's predict with the image RoIAlign's xpatch 32 at
+   fallbacks -1 and 0 and its patch 32 at -1: fallback -1 within 1e-4 of
+   the pairs route, the pairs fallback 0 zeroes a camera in each head
+   iteration);
 11. tiny predicts (tiny_test_config; tiny_kitti_test_config and
    tiny_test_config with middle.rulebook="table"; tiny_pillar_test_config
    with its own corner RoIAlign; two tiny LC configs: VoVNet-19-slim on
    2 cameras, and a caffe ResNet-50 with DCNv2 in stages 3-4 and a BN
-   neck), and 12. two tiny train steps each of tiny_test_config, of
+   neck; the VoVNet one with every option a predict runs,
+   all_options_tiny), and 12. two tiny train steps each of tiny_test_config, of
    tiny_kitti_test_config (code size 8) and of the tiny VoVNet LC config,
    and one of the tiny ResNet-50 LC config (TINY_LC_TRAIN: the LiDAR
    branch and the backbone's stem and stage 1 frozen, GridMask off), with
@@ -207,8 +221,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    lc_train_launches, its launches in each LC train step, and
    data_launches, its launches a step in each data phase's train run,
    convert_launches, its launches in each round-trip predict,
-   learn_launches, its launches a flagship_learn step, and ddp_launches,
-   each ddp_flagship_train rank's launches a step.
+   learn_launches, its launches a flagship_learn step, ddp_launches,
+   each ddp_flagship_train rank's launches a step, and options_launches,
+   its launches in each option phase's predict or train step.
 
 The second-to-last line is nvidia-smi's name and power limit; the last line
 is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -254,6 +269,9 @@ KEY_HASH_KERNELS = ("key_hash_fill_kernel", "key_hash_insert_kernel")
 # cycles of torch.cuda._sleep that keep the card busy (~10 ms) at a
 # profiler session's start, so that the session sees every launch after it
 SPIN_CYCLES = 20_000_000
+# timed predicts a predict phase (kept low: the whole run must end within
+# its time limit on a slow host)
+PREDICT_RUNS = 6
 # every kernel against its plain version: rtol + atol * sqrt(terms summed
 # into an output element); the kernel sums in another order than the plain
 # version (K5 with atomics, in an order that changes from run to run), so
@@ -261,7 +279,14 @@ SPIN_CYCLES = 20_000_000
 RTOL, ATOL = 1e-5, 1e-5
 
 
+_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries t_s, the seconds since
+    the script started (where its time goes)."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=time.perf_counter() - _START)
     print(json.dumps(obj), flush=True)
 
 
@@ -273,7 +298,7 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     """Mean device time of fn() over `iters` back-to-back calls."""
     for _ in range(warmup):
         fn()
@@ -442,7 +467,7 @@ def encoder_rulebooks(cfg, batch, dev):
     return conv, subm
 
 
-def kernel_device_ms(fn, per_call: int, iters: int = 10, tries: int = 3,
+def kernel_device_ms(fn, per_call: int, iters: int = 5, tries: int = 3,
                      names=GATHER_GEMM_KERNELS):
     """The named kernels' own device ms (default GATHER_GEMM_KERNELS) a
     call of fn, from torch.profiler key_averages over `iters` calls; unlike
@@ -1118,10 +1143,10 @@ def predict_builds(model):
 
 def predict_phase(phase, cfg, batch, smi, expect, prepare=None):
     """One config's predict at full width, batch 1: launch counts against
-    `expect` and the model's structure, finite outputs, p50 over 20
-    predicts, peak memory, decode with score_thr=0, then the parts (and on
-    an LC model with an image-RoI cap, the visible pairs a camera against
-    it).  `prepare(model)` edits the seeded model first.  Returns the
+    `expect` and the model's structure, finite outputs, p50 over
+    PREDICT_RUNS predicts, peak memory, decode with score_thr=0, then the
+    parts (and on an LC model with an image-RoI cap, the visible pairs a
+    camera against it).  `prepare(model)` edits the seeded model first.  Returns the
     counts and the preparations (read_builds), which must equal
     predict_builds."""
     from srfdet3d_torch.geometry import iou
@@ -1163,7 +1188,7 @@ def predict_phase(phase, cfg, batch, smi, expect, prepare=None):
 
     torch.cuda.reset_peak_memory_stats()
     times = []
-    for _ in range(20):
+    for _ in range(PREDICT_RUNS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         model.predict(dev_batch)
@@ -1233,7 +1258,7 @@ def visible_pairs(phase, model, batch, smi):
               dropped_pairs=dropped, device=smi))
 
 
-def predict_parts(phase, model, batch, smi, runs: int = 5):
+def predict_parts(phase, model, batch, smi, runs: int = 3):
     """Predict split at its layer boundaries, each part ended by a
     synchronize: median host ms and peak device memory of each part."""
     from srfdet3d_torch.models.head import decode_boxes
@@ -1377,7 +1402,7 @@ def device_busy(fn, top: int = 10):
                              for ms, n, name in kernels[:top]])
 
 
-def train_phase(phase, cfg, smi, warmup: int = 2, steps: int = 10,
+def train_phase(phase, cfg, smi, warmup: int = 2, steps: int = 5,
                 batch_size: int = 2, prepare=None):
     """One config's train step at full width, `batch_size` samples of the
     synthetic scene and GT (7 columns at code size 8, else 9; an LC
@@ -1934,7 +1959,7 @@ def free_cache() -> None:
     torch.cuda.empty_cache()
 
 
-def loader_ms(dataset, batch_size: int, batches: int = 6,
+def loader_ms(dataset, batch_size: int, batches: int = 4,
               workers: int = 4) -> float:
     """Host ms a batch of data_loader alone (its thread pool of `workers`,
     prefetch 2) over the first `batches` batches of an epoch."""
@@ -2273,7 +2298,7 @@ def data_phases(smi, tmp: str):
 ROUTE_SAMPLES = 4
 # data_step_profile: steps a way (StepTimer drops the first STEP_WARMUP),
 # and profiled steps after them
-STEP_WARMUP, STEP_STEPS, STEP_PROFILED = 2, 10, 3
+STEP_WARMUP, STEP_STEPS, STEP_PROFILED = 2, 5, 1
 # the CUDA runtime calls in which the host waits for the card
 SYNC_CALLS = ("cudaDeviceSynchronize", "cudaStreamSynchronize",
               "cudaEventSynchronize")
@@ -3752,6 +3777,288 @@ def ddp_cli(smi, tmp: str):
               seconds=time.perf_counter() - t_phase, device=smi))
 
 
+# ---------------------------------------------------------------------------
+# the options no shipped config turns on, at the flagship's full width
+
+IMG_PATCH_VARIANTS = (
+    ("xpatch32_fallback-1", ("head.img_roi_xpatch=32",)),
+    ("xpatch32_fallback0", ("head.img_roi_xpatch=32",
+                            "head.img_roi_xpatch_fallback=0")),
+    ("patch32_fallback-1", ("head.img_roi_patch=32",)))
+
+
+def option_config(name: str, *options: str):
+    """A shipped config with the train CLI's --cfg-options applied."""
+    from srfdet3d_torch.configs import get_config
+    from srfdet3d_torch.tools.train import apply_cfg_options
+    return apply_cfg_options(get_config(name), list(options))
+
+
+def options_encoder(smi):
+    """srfdet_voxel_nusc_L with head.with_lidar_encoder=true: one predict
+    phase at batch 1 (launches K1 21 and K2 4), then train steps at batch
+    2 (2 warm-up, 5 timed) with loss.assigner=hungarian (K1 21, K2 4, K3
+    17, K4 4 and K5 5 a step, finite losses), the host ms of the scipy
+    solves a step and of the one device-to-host copy of every layer's and
+    sample's costs a step (which waits for the forward queued before
+    it)."""
+    from srfdet3d_torch.assign import hungarian
+    t0 = time.perf_counter()
+    cfg = option_config("srfdet_voxel_nusc_L", "head.with_lidar_encoder=true")
+    none = dict.fromkeys(COUNTED, 0)
+    counts, _ = predict_phase("options_encoder_predict", cfg,
+                              synthetic_batch(cfg, 1, seed=0), smi,
+                              dict(none, gather_conv=21, eqmatch=4))
+    free_cache()
+    cfg = option_config("srfdet_voxel_nusc_L", "head.with_lidar_encoder=true",
+                        "loss.assigner=hungarian")
+    # scipy's first import (~2 s, inside the first solve) is not a solve
+    import scipy.optimize  # noqa: F401
+    hungarian.reset_stats()
+    per_step = train_phase("options_encoder_train", cfg, smi, warmup=2,
+                           steps=5)
+    check_launches("options_encoder_train", per_step,
+                   FLAGSHIP_STEP_LAUNCHES, 1)
+    st = dict(hungarian.stats)
+    # srfdet_losses calls: each solves every layer's and sample's problem
+    calls = st["solves"] / (cfg.head.num_heads * 2)
+    free_cache()
+    emit(dict(phase="options_encoder", config=cfg.name,
+              options=["head.with_lidar_encoder=true",
+                       "loss.assigner=hungarian"],
+              predict_launches=counts, train_launches=per_step,
+              loss_evaluations=calls, solves=st["solves"],
+              hungarian_solve_ms_per_step=st["host_ms"] / calls,
+              hungarian_copy_ms_per_step=st["copy_ms"] / calls,
+              seconds=time.perf_counter() - t0, device=smi))
+    return counts, per_step
+
+
+def remat_grads(cfg, batch, seed: int):
+    """One step's grads of the model with head.remat off, off again and
+    on, on the same weights, batch and dropout generator seed: the LiDAR
+    branch's forward runs once and every head reads its maps (its float
+    atomics, the VFE's and the sparse encoder's scatters, would otherwise
+    round differently in two forwards and flip ReLUs, which moves the
+    flagship's grads by percents), then the head, the losses and the
+    whole backward run three times; the two runs without remat show what
+    the backward's float atomics alone move.  Returns, for (off, off) and (on, off): the worst leaf's
+    |g_a - g_b| over its largest grad (the attention key biases, zero but
+    for rounding, over the largest grad of all) with its name, among the
+    head's leaves and among the rest, and the losses' worst relative
+    difference; and each run's peak bytes from the head on."""
+    from srfdet3d_torch.models.detector import SRFDet
+    from srfdet3d_torch.models.losses import srfdet_losses
+    model = SRFDet(cfg, device="cuda", seed=0)
+    model.train()
+    batch = {k: v.cuda() for k, v in batch.items()}
+    points, mask = model._inputs(batch)
+    maps = model.extract_point_features(points, mask)
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    runs, peaks = [], []
+    for i, remat in enumerate((False, False, True)):
+        model.bbox_head.remat = remat
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        logits, boxes = model.bbox_head(maps, gen)
+        losses = srfdet_losses(logits, boxes, batch["gt_boxes"],
+                               batch["gt_labels"], batch["gt_mask"].bool(),
+                               cfg.loss, cfg.ota,
+                               decoder_num_heads=cfg.head.num_heads)
+        grads = torch.autograd.grad(sum(losses.values()),
+                                    [p for _, p in named],
+                                    retain_graph=i < 2, allow_unused=True)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated())
+        runs.append(({k: float(v.detach()) for k, v in losses.items()},
+                     grads))
+    model.bbox_head.remat = cfg.head.remat
+
+    def diff(a, b):
+        """Per part (the head's leaves, which remat recomputes, and the
+        rest, whose grads pass through K5's float atomics first)."""
+        loss_err = max(abs(a[0][k] - v) / max(abs(v), 1e-12)
+                       for k, v in b[0].items())
+        tree_max = max(float(g.abs().max()) for g in b[1] if g is not None)
+        out = {part: dict(max_grad_rel_err=0.0, worst_leaf=None)
+               for part in ("head", "rest")}
+        for (name, _), ga, gb in zip(named, a[1], b[1]):
+            if (ga is None) != (gb is None):
+                raise AssertionError(f"{name}: a grad in one run only")
+            if ga is None:
+                continue
+            scale = (tree_max if name.endswith("k_proj.bias")
+                     else max(float(gb.abs().max()), 1e-30))
+            err = float((ga - gb).abs().max()) / scale
+            part = out["head" if name.startswith("bbox_head.") else "rest"]
+            if err >= part["max_grad_rel_err"]:
+                part.update(max_grad_rel_err=err, worst_leaf=name)
+        return dict(out, max_loss_rel_err=loss_err)
+    return diff(runs[1], runs[0]), diff(runs[2], runs[0]), peaks
+
+
+def options_auction_nodpg(smi):
+    """srfdet_voxel_nusc_L with head.with_dpg=false, loss.assigner=auction
+    and head.remat=true: train steps at batch 2 (launches as the
+    flagship's, finite losses), the auction's rounds a step and the
+    budgets it spent; then remat_grads: one step's grads with remat on
+    against the same step's with it off, each leaf against its largest:
+    the head's (what remat recomputes) within 1e-5, the LiDAR branch's
+    within 1e-5 or twice what the same step run twice without remat moves
+    them (K5's float atomics feed their backward), and both peaks."""
+    from srfdet3d_torch.assign import hungarian
+    t0 = time.perf_counter()
+    cfg = option_config("srfdet_voxel_nusc_L", "head.with_dpg=false",
+                        "loss.assigner=auction", "head.remat=true")
+    hungarian.reset_stats()
+    per_step = train_phase("options_auction_nodpg_train", cfg, smi,
+                           warmup=1, steps=3)
+    check_launches("options_auction_nodpg_train", per_step,
+                   FLAGSHIP_STEP_LAUNCHES, 1)
+    st = dict(hungarian.stats)
+    free_cache()
+    with deterministic_cudnn():
+        again, remat, peaks = remat_grads(cfg, train_batch(cfg, 2, seed=1),
+                                          seed=3)
+    # the head's grads within 1e-5; the rest within 1e-5 or twice what
+    # the backward's float atomics alone move them (plain against plain)
+    rest_tol = max(1e-5, 2 * again["rest"]["max_grad_rel_err"])
+    if (remat["head"]["max_grad_rel_err"] > 1e-5 or
+            remat["rest"]["max_grad_rel_err"] > rest_tol or
+            remat["max_loss_rel_err"] > 1e-6):
+        raise AssertionError(f"options_auction_nodpg: remat's step off the "
+                             f"plain one: {remat}; plain against plain: "
+                             f"{again}")
+    free_cache()
+    emit(dict(phase="options_auction_nodpg", config=cfg.name,
+              options=["head.with_dpg=false", "loss.assigner=auction",
+                       "head.remat=true"],
+              train_launches=per_step, auctions=st["auctions"],
+              auction_rounds_per_step=st["rounds"] / st["auctions"],
+              budgets_spent=st["exhausted"],
+              remat_against_plain=remat, plain_against_plain=again,
+              peak_mem_bytes_plain=peaks[0],
+              peak_mem_bytes_remat=peaks[2],
+              seconds=time.perf_counter() - t0, device=smi))
+    return per_step
+
+
+@torch.no_grad()
+def zeroed_pairs(model, batch, patch: int, x_only: bool):
+    """The (camera, RoI) pairs a fallback of 0 zeroes in each head
+    iteration of one predict: the pooled pairs (the image cap's compacted
+    ones, or all) whose RoI misfits the patch (x_only: its x extent), a
+    list per iteration of counts per (sample, camera)."""
+    from srfdet3d_torch.models.head import (compact_pairs,
+                                            denormalize_centers,
+                                            img_rois_from_boxes)
+    from srfdet3d_torch.ops.roi_align import patch_fits
+    cfg, head = model.cfg, model.bbox_head
+    points, mask = model._inputs(batch)
+    maps = model.extract_point_features(points, mask)
+    img_maps = head.image_maps(model.extract_img_features(
+        model.image_tensor(batch)))
+    shapes = [tuple(f.shape[-2:]) for f in img_maps]
+    boxes0, _ = head.init_proposals(maps, img_maps)
+    _, boxes = model(batch)
+    l2i = batch["lidar2img"].float()
+    strides, cap = cfg.head.img_strides, cfg.head.img_roi_cap
+    out = []
+    for b in [denormalize_centers(boxes0, cfg.pc_range)] + list(boxes[:-1]):
+        cam_rois = img_rois_from_boxes(b, l2i)
+        bs, n_cam, n_p, _ = cam_rois.shape
+        if cap:
+            rois, src = compact_pairs(cam_rois, cfg.img.img_shape, strides,
+                                      cap)
+            real = src < n_p
+        else:
+            rois = cam_rois.reshape(bs * n_cam, n_p, 4)
+            real = torch.ones(rois.shape[:2], dtype=torch.bool,
+                              device=rois.device)
+        fits = patch_fits(shapes, rois.reshape(-1, 4), strides, patch,
+                          x_only=x_only).reshape(real.shape)
+        out.append((~fits & real).sum(1).tolist())
+    return out
+
+
+def options_img_patch(smi):
+    """srfdet_voxel_nusc_LC's predict (batch 1, lc_batch) with the image
+    RoIAlign's capacity rules (IMG_PATCH_VARIANTS): xpatch 32 with fallback
+    -1 and with fallback 0, patch 32 with fallback -1, each on the default
+    model's weights: launches K1 21 and K2 4; with fallback -1 the forward
+    within 1e-4 of the default pairs route's; with fallback 0 the pairs
+    zeroed a camera in each head iteration (zeroed_pairs), and the outputs
+    move iff some pair was zeroed; p50 of 5 predicts each."""
+    from srfdet3d_torch.models.detector import SRFDet
+    t0 = time.perf_counter()
+    base = option_config("srfdet_voxel_nusc_LC")
+    batch = {k: v.cuda() for k, v in lc_batch(base, 1, seed=0).items()}
+    ref_model = SRFDet(base, device="cuda", seed=0)
+    with torch.no_grad():
+        ref = ref_model(batch)
+    state = ref_model.state_dict()
+    del ref_model
+    want = dict(dict.fromkeys(COUNTED, 0), gather_conv=21, eqmatch=4)
+    rows = {}
+    for name, opts in IMG_PATCH_VARIANTS:
+        cfg = option_config("srfdet_voxel_nusc_LC", *opts)
+        model = SRFDet(cfg, device="cuda", seed=0)
+        model.load_state_dict(state)
+        reset_counts()
+        with torch.no_grad():
+            got = model(batch)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if counts != want:
+            raise AssertionError(f"options_img_patch {name} launched "
+                                 f"{counts}, expected {want}")
+        err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+        row = dict(launches=counts, max_abs_diff_to_pairs=err)
+        hc = cfg.head
+        fallback = (hc.img_roi_patch_fallback if hc.img_roi_patch
+                    else hc.img_roi_xpatch_fallback)
+        if fallback < 0:
+            for g, r in zip(got, ref):
+                torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
+        else:
+            zeroed = zeroed_pairs(model, batch, hc.img_roi_xpatch,
+                                  x_only=True)
+            total = sum(sum(it) for it in zeroed)
+            if (total > 0) != (err > 0):
+                raise AssertionError(f"options_img_patch {name}: {total} "
+                                     f"pairs zeroed, outputs moved {err}")
+            row.update(zeroed_per_camera=zeroed, zeroed_pairs=total)
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            model.predict(batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+        row["p50_ms"] = statistics.median(times)
+        rows[name] = row
+        del model
+        free_cache()
+    emit(dict(phase="options_img_patch", config=base.name,
+              img_roi_cap=base.head.img_roi_cap, batch=1, variants=rows,
+              seconds=time.perf_counter() - t0, device=smi))
+    return {name: row["launches"] for name, row in rows.items()}
+
+
+def all_options_tiny():
+    """The tiny VoVNet LC config (tiny_lc_configs) with every option no
+    shipped config turns on that a predict runs: the deformable BEV
+    encoder, no DPG, head remat, and the image RoIAlign's xpatch (4
+    cells, 2 fallback slots a camera); tiny_end_to_end adds the BEV
+    patch (8 cells, 2 slots)."""
+    import dataclasses
+    cfg = tiny_lc_configs()[0]
+    return cfg.replace(name="tiny_lc_all_options", head=dataclasses.replace(
+        cfg.head, with_lidar_encoder=True, with_dpg=False, remat=True,
+        img_roi_xpatch=4, img_roi_xpatch_fallback=2))
+
+
 def kernel_entry(name, source, replaces, launches, t, max_err):
     bound_by = t.get("bound_by") or (
         "operations" if t["ops_bound_ms"] >= t["bytes_bound_ms"]
@@ -3766,7 +4073,8 @@ def kernel_entry(name, source, replaces, launches, t, max_err):
     for key in ("tc_bound_ms", "simt_bound_ms", "device_ms", "host_ms",
                 "prep_ms", "prep_device_ms", "builds", "lc_launches",
                 "lc_train_launches", "data_launches", "convert_launches",
-                "learn_launches", "ddp_launches", "img_geometry"):
+                "learn_launches", "ddp_launches", "options_launches",
+                "img_geometry"):
         if key in t:
             entry[key] = t[key]
     return entry
@@ -3913,9 +4221,9 @@ def main() -> int:
         torch.cuda.empty_cache()
     per_step = train_phase("flagship_train", cfg, smi)
     torch.cuda.empty_cache()
-    train_phase("kitti_train", kcfg, smi, warmup=1, steps=5)
+    train_phase("kitti_train", kcfg, smi, warmup=1, steps=3)
     torch.cuda.empty_cache()
-    train_phase("pillar_train", pcfg, smi, warmup=1, steps=5)
+    train_phase("pillar_train", pcfg, smi, warmup=1, steps=3)
     torch.cuda.empty_cache()
     # the six LC train steps at full width, each at its own batch size,
     # the LiDAR branch frozen: K1 and K2 in the frozen voxel encoders'
@@ -3925,7 +4233,7 @@ def main() -> int:
     for phase, name in LC_TRAIN_PHASES:
         c = CONFIGS[name]()
         lc_train[phase] = train_phase(
-            phase, c, smi, warmup=1, steps=3,
+            phase, c, smi, warmup=1, steps=2,
             batch_size=c.optim.batch_size_per_device,
             prepare=seed_dcn_offsets)
         torch.cuda.empty_cache()
@@ -3952,12 +4260,22 @@ def main() -> int:
         free_cache()
         ddp_cli(smi, tmp)
     free_cache()
+    # the options no shipped config turns on, at full width
+    options_launches = {}
+    (options_launches["options_encoder_predict"],
+     options_launches["options_encoder_train"]) = options_encoder(smi)
+    options_launches["options_auction_nodpg_train"] = \
+        options_auction_nodpg(smi)
+    for name, c in options_img_patch(smi).items():
+        options_launches[f"options_img_patch_{name}"] = c
+    free_cache()
     tiny_end_to_end(tiny_test_config())
     tiny_end_to_end(table_backend(tiny_kitti_test_config()))
     tiny_end_to_end(table_backend(tiny_test_config()))
     tiny_end_to_end(tiny_pillar_test_config(), patch=False)
     for c, seed in zip(tiny_lc_configs(), TINY_LC_SEEDS):
         tiny_end_to_end(c, prepare=seed_dcn_offsets, seed=seed)
+    tiny_end_to_end(all_options_tiny())
     tiny_train(*tiny_train_setup())
     tiny_train(*tiny_kitti_train_setup())
     for backbone, opts, model_seed, batch_seed, steps in TINY_LC_TRAIN:
@@ -4005,6 +4323,8 @@ def main() -> int:
         entry["learn_launches"] = learn_launches[key]
         entry["ddp_launches"] = {rank: c[key]
                                  for rank, c in ddp_launches.items()}
+        entry["options_launches"] = {ph: c[key]
+                                     for ph, c in options_launches.items()}
     emit({"kernels": [
         kernel_entry("gather_conv", "srfdet3d_torch/csrc/gather_conv.cu",
                      "srfdet3d_tpu/ops/pallas_onehot.py:67", k1_launches,

@@ -108,25 +108,22 @@ def bev_geometry(cfg: SRFDetConfig):
 
 
 def _check_supported(cfg: SRFDetConfig) -> None:
+    """The port runs every option of the JAX package's SRFDet but its
+    bfloat16 compute modes; an unknown VFE or middle kind is an error in
+    both."""
     unsupported = []
     if cfg.use_img and cfg.img.compute_dtype not in ("", "float32"):
         unsupported.append(f"img.compute_dtype={cfg.img.compute_dtype}")
-    for patch in ("img_roi_patch", "img_roi_xpatch"):
-        if cfg.use_img and getattr(cfg.head, patch):
-            unsupported.append(f"head.{patch}")
     if cfg.compute_dtype != "float32":
         unsupported.append(f"compute_dtype={cfg.compute_dtype}")
-    if cfg.vfe.kind not in ("hard_simple", "dynamic", "pillar"):
-        unsupported.append(f"vfe.kind={cfg.vfe.kind}")
-    if cfg.middle.kind not in ("sparse", "pillar_scatter"):
-        unsupported.append(f"middle.kind={cfg.middle.kind}")
-    if not cfg.head.with_dpg or cfg.head.with_lidar_encoder:
-        unsupported.append("head: DPG on, no lidar encoder")
     if unsupported:
         raise NotImplementedError(
-            "srfdet3d_torch runs float32 models with a DPG head; not yet "
-            "ported: "
+            "srfdet3d_torch runs float32 models; not yet ported: "
             + ", ".join(unsupported))
+    if cfg.vfe.kind not in ("hard_simple", "dynamic", "pillar"):
+        raise ValueError(f"vfe.kind={cfg.vfe.kind}")
+    if cfg.middle.kind not in ("sparse", "pillar_scatter"):
+        raise ValueError(f"middle.kind={cfg.middle.kind}")
 
 
 class SRFDet(nn.Module):
@@ -199,7 +196,10 @@ class SRFDet(nn.Module):
                 img_levels=hc.img_feat_lvls,
                 img_dpg_hw=(30, 15) if cfg.dataset == "kitti" else (30, 30),
                 img_strides=tuple(hc.img_strides),
-                img_roi_cap=hc.img_roi_cap)
+                img_roi_cap=hc.img_roi_cap, img_roi_patch=hc.img_roi_patch,
+                img_roi_patch_fallback=hc.img_roi_patch_fallback,
+                img_roi_xpatch=hc.img_roi_xpatch,
+                img_roi_xpatch_fallback=hc.img_roi_xpatch_fallback)
         self.bbox_head = SRFDetHead(
             cfg.num_classes, hc.feat_channels_lidar, cfg.neck_num_outs,
             sizes[-1][0] * sizes[-1][1], num_proposals=hc.num_proposals,
@@ -211,7 +211,8 @@ class SRFDet(nn.Module):
             num_attn_heads=hc.num_attn_heads, dynamic_dim=hc.dynamic_dim,
             lidar_strides=tuple(hc.lidar_strides), roi_patch=hc.roi_patch,
             roi_patch_fallback=hc.roi_patch_fallback, dropout=hc.dropout,
-            **img)
+            with_dpg=hc.with_dpg, with_lidar_encoder=hc.with_lidar_encoder,
+            remat=hc.remat, **img)
         self._init_weights(torch.Generator().manual_seed(seed))
         self.to(dev)
         self.eval()
@@ -274,6 +275,8 @@ class SRFDet(nn.Module):
         head = self.bbox_head
         for p in (head.init_proposal_boxes, head.init_proposal_feats):
             p.copy_(torch.randn(p.shape, generator=g))
+        if head.lidar_encoder is not None:
+            head.lidar_encoder.init_weights(g)
         for single in head.heads:
             single.class_logits.bias.fill_(focal_bias(self.cfg.head.prior_prob))
 
@@ -290,7 +293,8 @@ class SRFDet(nn.Module):
         spec = self.cfg.voxelization
         v_cap = spec.max_voxels
         b, p, d = points.shape
-        vox = voxelize_points_batched(points, points_mask, spec)
+        vox = voxelize_points_batched(points, points_mask, spec,
+                                      with_counts=False)
         flat = _flatten_voxelization(vox, v_cap)
         feats = self.pts_voxel_encoder(points.reshape(b * p, d), flat,
                                        b * v_cap)

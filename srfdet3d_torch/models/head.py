@@ -20,7 +20,18 @@ for every pair (`img_roi_cap` 0) or for at most `img_roi_cap` visible pairs
 a camera, compacted in proposal order (the pairs past the cap are
 dropped); a Dense layer projects [image RoI, LiDAR RoI] to the head's
 width.  The DPG mixes its LiDAR logits with ones from a staircase over the
-image levels.
+image levels.  The image RoIAlign takes the capacity rules of the patch
+and xpatch options (`ops.roi_align`) per (sample, camera) row, after the
+cap's compaction.
+
+Options no shipped config turns on: `with_dpg=False` (the learned
+proposals, broadcast over the batch, with no DPG modules),
+`with_lidar_encoder` (the deformable-attention BEV encoder over the LiDAR
+levels before the proposals, `deform_attn.LidarBEVEncoder`), and `remat`
+(each refinement iteration recomputed in the backward pass,
+`torch.utils.checkpoint`).  The JAX package's `unroll_train` and
+`unroll_predict` choose how XLA compiles its scan; the port runs the
+iterations eagerly, one module each, which is what both give.
 """
 
 from __future__ import annotations
@@ -31,29 +42,16 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..geometry.boxes import boxes3d_to_corners3d, denormalize_bbox
 from ..geometry.iou import multiclass_nms_3d
 from ..ops.roi_align import multilevel_roi_align
-from .layers import ConvBNReLU
+from .deform_attn import LidarBEVEncoder
+from .layers import ConvBNReLU, dropout
 
 _DEFAULT_SCALE_CLAMP = math.log(100000.0 / 16)
-
-
-def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator],
-            shape: Optional[Sequence[int]] = None) -> torch.Tensor:
-    """flax's nn.Dropout: keep with probability 1 - rate, scale kept values
-    by 1 / (1 - rate).  `shape` draws a mask that broadcasts over x."""
-    if rate == 0.0:
-        return x
-    if generator is None:
-        raise ValueError("dropout in train mode needs a torch.Generator")
-    keep_prob = 1.0 - rate
-    u = torch.rand(tuple(shape or x.shape), generator=generator,
-                   device=x.device)
-    return torch.where(u < keep_prob, x / keep_prob, 0.0)
 
 
 def focal_bias(prior_prob: float) -> float:
@@ -132,25 +130,30 @@ def compact_pairs(cam_rois: torch.Tensor, img_shape, strides, cap: int):
 
 
 def pooled_img_roi(img_feats: Sequence[torch.Tensor], cam_rois: torch.Tensor,
-                   strides: Sequence[int], res: int, cap: int = 0
+                   strides: Sequence[int], res: int, cap: int = 0,
+                   patch: int = 0, patch_fallback: int = -1,
+                   xpatch: int = 0, xpatch_fallback: int = -1
                    ) -> torch.Tensor:
     """Camera-summed multi-level RoIAlign.  img_feats: L maps (B*n_cam,
     H_l, W_l, C); cam_rois (B, n_cam, n_p, 4) -> (B, n_p, res, res, C).
 
     cap 0: every (camera, proposal) pair.  cap > 0: the pairs of
     compact_pairs, whose unused slots pool to zeros, added back to their
-    proposals."""
+    proposals.  patch / xpatch and their fallbacks: multilevel_roi_align's
+    capacity rules, whose slots count per (sample, camera)."""
     b, n_cam, n_p, _ = cam_rois.shape
     bc = b * n_cam
     c = img_feats[0].shape[-1]
+    rules = dict(out_size=res, patch=patch, patch_fallback=patch_fallback,
+                 xpatch=xpatch, xpatch_fallback=xpatch_fallback)
     if not cap:
         pooled = multilevel_roi_align(img_feats, cam_rois.reshape(bc, n_p, 4),
-                                      strides, out_size=res)
+                                      strides, **rules)
         return pooled.reshape(b, n_cam, n_p, res, res, c).sum(1)
     img_shape = (img_feats[0].shape[1] * strides[0],
                  img_feats[0].shape[2] * strides[0])
     rois, src = compact_pairs(cam_rois, img_shape, strides, cap)
-    pooled = multilevel_roi_align(img_feats, rois, strides, out_size=res)
+    pooled = multilevel_roi_align(img_feats, rois, strides, **rules)
     b_idx = torch.arange(b, device=src.device).repeat_interleave(n_cam)
     flat_prop = torch.where(src < n_p, b_idx[:, None] * n_p + src, b * n_p)
     out = pooled.new_zeros(b * n_p + 1, res * res * c).index_add_(
@@ -242,16 +245,22 @@ class SingleSRFDetHead(nn.Module):
                  scale_clamp: float = _DEFAULT_SCALE_CLAMP,
                  dropout: float = 0.0, img_channels: int = 0,
                  img_strides: Sequence[int] = (4, 8, 16, 32),
-                 img_roi_cap: int = 0):
+                 img_roi_cap: int = 0, img_roi_patch: int = 0,
+                 img_roi_patch_fallback: int = -1, img_roi_xpatch: int = 0,
+                 img_roi_xpatch_fallback: int = -1):
         super().__init__()
         c = feat_channels
+        self.img_rules = dict(
+            cap=img_roi_cap, patch=img_roi_patch,
+            patch_fallback=img_roi_patch_fallback, xpatch=img_roi_xpatch,
+            xpatch_fallback=img_roi_xpatch_fallback)
         self.res = pooler_resolution
         self.dropout = dropout
         self.pc_range, self.voxel_size = tuple(pc_range), tuple(voxel_size)
         self.lidar_strides = tuple(lidar_strides)
         self.roi_patch, self.roi_patch_fallback = roi_patch, roi_patch_fallback
         self.scale_clamp = scale_clamp
-        self.img_strides, self.img_roi_cap = tuple(img_strides), img_roi_cap
+        self.img_strides = tuple(img_strides)
         if img_channels:
             self.output_fused_proj = nn.Linear(img_channels + c, c)
         self.self_attn = MultiHeadAttention(c, num_attn_heads)
@@ -300,7 +309,7 @@ class SingleSRFDetHead(nn.Module):
         if img_feats is not None:
             img_roi = pooled_img_roi(
                 img_feats, img_rois_from_boxes(boxes_abs, lidar2img),
-                self.img_strides, self.res, cap=self.img_roi_cap)
+                self.img_strides, self.res, **self.img_rules)
             roi = self.output_fused_proj(torch.cat([img_roi, roi], -1))
         roi = roi.reshape(bs * n_p, self.res * self.res, c)
 
@@ -338,7 +347,10 @@ class SRFDetHead(nn.Module):
     neck's width) adds the fusion path: `img_conv` 3x3 convs with bias to
     `hidden_dim` (only where the widths differ), the image DPG staircase
     resized to `img_dpg_hw` ((30, 30); (30, 15) on KITTI), and the fused
-    RoIs in every iteration."""
+    RoIs in every iteration.  `with_dpg=False`: num_proposals learned
+    proposals, no DPG; `with_lidar_encoder`: the deformable BEV encoder
+    (`lidar_encoder`) over the LiDAR levels first; `remat`: each
+    iteration recomputed in the backward pass."""
 
     def __init__(self, num_classes: int, feat_channels: int, num_levels: int,
                  dpg_cells: int, num_proposals: int = 900,
@@ -347,21 +359,29 @@ class SRFDetHead(nn.Module):
                  pc_range: Sequence[float] = (-55.2, -55.2, -5.0, 55.2,
                                               55.2, 3.0),
                  img_channels: int = 0, hidden_dim: int = 128,
-                 img_levels: int = 4, img_dpg_hw=(30, 30), **single_kwargs):
+                 img_levels: int = 4, img_dpg_hw=(30, 30),
+                 with_dpg: bool = True, with_lidar_encoder: bool = False,
+                 remat: bool = False, **single_kwargs):
         super().__init__()
         c = feat_channels
         self.num_proposals, self.num_dpg_exp = num_proposals, num_dpg_exp
         self.code_size, self.pc_range = code_size, tuple(pc_range)
         self.deep_supervision = deep_supervision
-        n_emb = num_dpg_exp * num_proposals
+        self.with_dpg, self.remat = with_dpg, remat
+        self.lidar_encoder = (LidarBEVEncoder(c, num_levels)
+                              if with_lidar_encoder else None)
+        n_emb = num_dpg_exp * num_proposals if with_dpg else num_proposals
         self.init_proposal_boxes = nn.Parameter(torch.zeros(n_emb, code_size))
         self.init_proposal_feats = nn.Parameter(torch.zeros(n_emb, c))
-        # depthwise stride-2 staircase: level l's input has (l+1)*C channels
-        self.dpg_dw = nn.ModuleList(
-            ConvBNReLU((l + 1) * c, (l + 1) * c, 3, 2, 1, groups=(l + 1) * c)
-            for l in range(num_levels - 1))
-        self.dpg_fc1 = nn.Linear(dpg_cells, 1024)
-        self.dpg_fc2 = nn.Linear(1024, n_emb)
+        if with_dpg:
+            # depthwise stride-2 staircase: level l's input has (l+1)*C
+            # channels
+            self.dpg_dw = nn.ModuleList(
+                ConvBNReLU((l + 1) * c, (l + 1) * c, 3, 2, 1,
+                           groups=(l + 1) * c)
+                for l in range(num_levels - 1))
+            self.dpg_fc1 = nn.Linear(dpg_cells, 1024)
+            self.dpg_fc2 = nn.Linear(1024, n_emb)
         self.use_img = bool(img_channels)
         self.img_conv = None
         if self.use_img:
@@ -369,6 +389,7 @@ class SRFDetHead(nn.Module):
                 self.img_conv = nn.ModuleList(
                     nn.Conv2d(img_channels, hidden_dim, 3, 1, 1)
                     for _ in range(img_levels))
+        if self.use_img and with_dpg:
             h = hidden_dim
             self.dpg_dw_img = nn.ModuleList(
                 ConvBNReLU((l + 1) * h, (l + 1) * h, 3, 2, 1,
@@ -399,9 +420,15 @@ class SRFDetHead(nn.Module):
         num_dpg_exp learned sets.  With img_maps (image_maps' output,
         B*n_cam maps a level) the mixture logits are the mean of the
         LiDAR staircase's and the image staircase's, whose last level is
-        resized to img_dpg_hw and summed over cameras and channels."""
+        resized to img_dpg_hw and summed over cameras and channels.
+        Without the DPG, the learned set itself for every sample."""
         bs = point_feats[0].shape[0]
         n_p, n_exp = self.num_proposals, self.num_dpg_exp
+        if not self.with_dpg:
+            boxes0 = self.init_proposal_boxes.expand(bs, n_p, self.code_size)
+            prop = self.init_proposal_feats.expand(bs, n_p, -1)
+            return torch.cat([torch.sigmoid(boxes0[..., :3]),
+                              boxes0[..., 3:]], -1), prop
         x = point_feats[0]
         for lvl, dw in enumerate(self.dpg_dw):
             x = torch.cat([point_feats[lvl + 1], dw(x)], 1)
@@ -437,16 +464,23 @@ class SRFDetHead(nn.Module):
         centers; every iteration's outputs keep their graph, and only the
         boxes carried into the next iteration are detached (JAX:
         stop_gradient on the scan carry)."""
+        nhwc = [f.permute(0, 2, 3, 1).contiguous() for f in point_feats]
+        if self.lidar_encoder is not None:
+            # JAX head.py:519-525: the encoded levels feed the DPG too
+            nhwc = self.lidar_encoder(nhwc, generator)
+            point_feats = [f.permute(0, 3, 1, 2) for f in nhwc]
         img_maps = img_nhwc = None
         if self.use_img and img_feats is not None:
             img_maps = self.image_maps(img_feats)
             img_nhwc = [f.permute(0, 2, 3, 1).contiguous() for f in img_maps]
         boxes, prop = self.init_proposals(point_feats, img_maps)
-        nhwc = [f.permute(0, 2, 3, 1).contiguous() for f in point_feats]
         logits_all, boxes_all = [], []
         for head in self.heads:
-            logits, pred, prop = head(nhwc, boxes, prop, generator, img_nhwc,
-                                      lidar2img)
+            args = (nhwc, boxes, prop, generator, img_nhwc, lidar2img)
+            if self.remat and torch.is_grad_enabled():
+                logits, pred, prop = _checkpointed(head, generator, args)
+            else:
+                logits, pred, prop = head(*args)
             boxes = pred.detach()
             logits_all.append(logits)
             boxes_all.append(pred)
@@ -454,6 +488,35 @@ class SRFDetHead(nn.Module):
             logits_all, boxes_all = logits_all[-1:], boxes_all[-1:]
         return (torch.stack(logits_all),
                 denormalize_centers(torch.stack(boxes_all), self.pc_range))
+
+
+def _checkpointed(head: nn.Module, generator: Optional[torch.Generator],
+                  args):
+    """head(*args) under torch.utils.checkpoint: only its inputs are kept,
+    and its forward runs again in the backward pass.  The recomputation
+    draws its dropout masks from `generator` at the state the first run
+    drew them from, and leaves the generator where it found it, so the
+    masks, and the grads, equal the first run's (checkpoint's own RNG
+    stashing covers only the default generators, which the head never
+    draws from)."""
+    if generator is None:
+        return torch.utils.checkpoint.checkpoint(
+            head, *args, use_reentrant=False, preserve_rng_state=False)
+    state = generator.get_state()
+    calls = []
+
+    def run(*a):
+        if not calls:                     # the forward pass
+            calls.append(1)
+            return head(*a)
+        now = generator.get_state()       # the backward's recomputation
+        generator.set_state(state)
+        try:
+            return head(*a)
+        finally:
+            generator.set_state(now)
+    return torch.utils.checkpoint.checkpoint(
+        run, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def decode_boxes(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,

@@ -19,7 +19,7 @@ collective is issued.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -27,6 +27,21 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel import mesh
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator],
+            shape: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """flax's nn.Dropout: keep with probability 1 - rate, scale kept values
+    by 1 / (1 - rate).  `shape` draws a mask that broadcasts over x."""
+    if rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in train mode needs a torch.Generator")
+    keep_prob = 1.0 - rate
+    u = torch.rand(tuple(shape or x.shape), generator=generator,
+                   device=x.device)
+    return torch.where(u < keep_prob, x / keep_prob, 0.0)
 
 
 class MaskedBatchNorm(nn.Module):

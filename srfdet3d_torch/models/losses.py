@@ -1,6 +1,8 @@
-"""Set-prediction losses of the SRFDet head with OTA assignment (a port of
-the JAX package's `models/losses.py`; reference srfdet_head.py loss_ota
-:1041, loss_classification :1098, loss_boxes :1145).
+"""Set-prediction losses of the SRFDet head (a port of the JAX package's
+`models/losses.py`; reference srfdet_head.py loss_ota :1041,
+loss_classification :1098, loss_boxes :1145, loss_hung :760).  The
+assigner is `loss.assigner`: "ota" (the default), "hungarian" (scipy on
+the host) or "auction" (on the device), each run per layer.
 
 The loss normalizer spans every replica, as the JAX package's
 `psum_if_sync` makes it (reference reduce_mean and sync_cls_avg_factor,
@@ -10,8 +12,7 @@ and each rank's losses are its LOCAL focal and L1 sums over that global
 count.  The ranks' losses then sum to the global batch's, and so do their
 gradients once the step sums them (`all_reduce_grads`); the train step
 reports the summed losses.  Without a group the count and the sums are the
-local batch's, which is the whole batch.  The `hungarian` and `auction`
-assigners are not ported yet.
+local batch's, which is the whole batch.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from ..assign.hungarian import hungarian_assign
 from ..assign.ota import ota_assign_batch
 from ..config import LossConfig, OTAConfig
 from ..geometry.boxes import normalize_bbox
@@ -69,10 +71,8 @@ def srfdet_losses(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
     centers, log sizes; gt_boxes (B, G, 7|9) raw sizes, gravity-center z;
     gt_labels (B, G); gt_mask (B, G) bool.  Returns loss_cls / loss_bbox of
     the last layer and s.{i}.loss_* of the auxiliary layers."""
-    if loss_cfg.assigner != "ota":
-        raise NotImplementedError(
-            f"assigner {loss_cfg.assigner!r} is not ported yet; the port "
-            f"runs the OTA assigner")
+    if loss_cfg.assigner not in ("ota", "hungarian", "auction"):
+        raise ValueError(f"unknown assigner {loss_cfg.assigner!r}")
     num_layers = pred_logits.shape[0]
     # aux layer i uses head_idx i + 1; the last uses the decoder's layer
     # count (reference srfdet_head.py:1067), so deep_supervision=False
@@ -80,15 +80,21 @@ def srfdet_losses(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
     top_idx = decoder_num_heads or num_layers
     head_idxs = [top_idx if layer == num_layers - 1 else layer + 1
                  for layer in range(num_layers)]
-    # every layer's assignment in one batched loop
+    # every layer's assignment in one batched call
     lead = (num_layers,) + tuple(gt_boxes.shape[:1])
 
     def per_layer(t):
         return t[None].expand(lead + tuple(t.shape[1:]))
-    matched_all = ota_assign_batch(
-        pred_boxes, pred_logits, per_layer(gt_boxes), per_layer(gt_labels),
-        per_layer(gt_mask), torch.tensor(head_idxs, dtype=torch.float32),
-        ota_cfg)
+    gt = (per_layer(gt_boxes), per_layer(gt_labels), per_layer(gt_mask))
+    if loss_cfg.assigner == "ota":
+        matched_all = ota_assign_batch(
+            pred_boxes, pred_logits, *gt,
+            torch.tensor(head_idxs, dtype=torch.float32), ota_cfg)
+    else:
+        matched_all = hungarian_assign(
+            pred_boxes, pred_logits, *gt, cls_weight=loss_cfg.cls_weight,
+            reg_weight=loss_cfg.bbox_weight,
+            on_device=loss_cfg.assigner == "auction")
     # every layer's positives, summed over the ranks in one collective
     num_inst = mesh.sum_if_sync(
         (matched_all >= 0).flatten(1).float().sum(1)).clamp_min(1.0)

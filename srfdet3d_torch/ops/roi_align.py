@@ -9,10 +9,14 @@ and every output cell is the mean of sr x sr bilinear samples, computed
 here by direct bilinear sampling of the level's (H*W, C) rows.  Samples
 beyond one cell outside the map are zero; others clamp to the edge.
 
-The patch option reproduces the JAX package's capacity rule: a RoI whose
-weighted cells do not fit a P x P window is a misfit; misfits take the
-first `patch_fallback` slots in RoI order (-1: all of them) and keep their
-exact value, and the misfits after those slots pool to zeros.
+The patch and xpatch options reproduce the JAX package's capacity rules:
+a RoI whose weighted cells do not fit a P x P window (patch), or a row of
+XP cells (xpatch, which tests x alone), is a misfit; the misfits of each
+image (each row of `rois`) take the first `patch_fallback` /
+`xpatch_fallback` slots in RoI order (-1: all of them) and keep their
+exact value, and the misfits after those slots pool to exact zeros.  The
+values themselves are the pairs route's: the JAX package's window
+gathers compute the same bilinear samples.  patch wins over xpatch.
 
 The backward (`CornerPool`) gives the feature table its cotangent through
 the roi_scatter kernel (K5, ops/roi_scatter.py) and the corner weights
@@ -91,12 +95,15 @@ def _axis_fits(pos, size, patch):
 
 def patch_fits(shapes, rois: torch.Tensor, strides: Sequence[int],
                patch: int, out_size: int = 7, sampling_ratio: int = 2,
-               finest_scale: float = 56.0) -> torch.Tensor:
+               finest_scale: float = 56.0, x_only: bool = False
+               ) -> torch.Tensor:
     """(R,) bool: does each RoI's weighted cell span fit a patch x patch
-    window at its level?  shapes: the levels' (H, W); rois (R, 4)."""
+    window (x_only: a row of `patch` cells) at its level?  shapes: the
+    levels' (H, W); rois (R, 4)."""
     _, s, h_l, w_l, _ = _level_geometry(shapes, rois, strides, finest_scale)
     sx, sy = _sample_grid(rois, s, out_size, sampling_ratio)
-    return _axis_fits(sx, w_l, patch) & _axis_fits(sy, h_l, patch)
+    fits = _axis_fits(sx, w_l, patch)
+    return fits if x_only else fits & _axis_fits(sy, h_l, patch)
 
 
 class Corners(NamedTuple):
@@ -156,12 +163,13 @@ class CornerPool(torch.autograd.Function):
 def corner_samples(shapes, rois: torch.Tensor, strides: Sequence[int],
                    out_size: int = 7, sampling_ratio: int = 2,
                    finest_scale: float = 56.0, patch: int = 0,
-                   patch_fallback: int = -1) -> Corners:
+                   patch_fallback: int = -1, xpatch: int = 0,
+                   xpatch_fallback: int = -1) -> Corners:
     """The bilinear corners of every sample of every RoI.  shapes: the
     levels' (H, W); rois (B, R, 4).  Returns Corners over the B*R RoIs:
     idx (B*R, 4, S, S) rows of the (B * rows, C) table the levels flatten
     into, their weights wgt (same shape), drop (B*R,), the misfits past the
-    fallback slots, and the per-axis corners."""
+    fallback slots of their row b, and the per-axis corners."""
     b, r, _ = rois.shape
     rows = sum(h * w for h, w in shapes)
     flat = rois.reshape(b * r, 4)
@@ -177,10 +185,11 @@ def corner_samples(shapes, rois: torch.Tensor, strides: Sequence[int],
     cw = torch.stack([wy0, wy1, wx0, wx1], 1)
     idx, wgt = expand_axes(cells, cw, level)
     drop = torch.zeros(b * r, dtype=torch.bool, device=rois.device)
-    if patch:
-        fits = patch_fits(shapes, flat, strides, patch, out_size,
-                          sampling_ratio, finest_scale)
-        cap = r if patch_fallback < 0 else patch_fallback
+    if patch or xpatch:
+        fits = patch_fits(shapes, flat, strides, patch or xpatch, out_size,
+                          sampling_ratio, finest_scale, x_only=not patch)
+        fallback = patch_fallback if patch else xpatch_fallback
+        cap = r if fallback < 0 else fallback
         mis = ~fits.reshape(b, r)
         slot = torch.cumsum(mis.long(), 1) - 1
         drop = (mis & (slot >= cap)).reshape(-1)
@@ -190,7 +199,8 @@ def corner_samples(shapes, rois: torch.Tensor, strides: Sequence[int],
 def multilevel_roi_align(feats: Sequence[torch.Tensor], rois: torch.Tensor,
                          strides: Sequence[int], out_size: int = 7,
                          sampling_ratio: int = 2, finest_scale: float = 56.0,
-                         patch: int = 0, patch_fallback: int = -1
+                         patch: int = 0, patch_fallback: int = -1,
+                         xpatch: int = 0, xpatch_fallback: int = -1
                          ) -> torch.Tensor:
     """Batched RoIAlign.  feats: L maps (B, H_l, W_l, C); rois (B, R, 4)
     [x1, y1, x2, y2] in the stride-1 frame -> (B, R, out, out, C)."""
@@ -200,7 +210,8 @@ def multilevel_roi_align(feats: Sequence[torch.Tensor], rois: torch.Tensor,
     table = torch.cat([f.reshape(b, -1, c) for f in feats], 1
                       ).reshape(-1, c)
     cs = corner_samples(shapes, rois, strides, out_size, sampling_ratio,
-                        finest_scale, patch, patch_fallback)
+                        finest_scale, patch, patch_fallback, xpatch,
+                        xpatch_fallback)
     pooled = CornerPool.apply(table, cs.idx, cs.wgt, cs.drop, cs.cells,
                               cs.cw, cs.level, out_size, sampling_ratio)
     return pooled.reshape(b, r, out_size, out_size, c)

@@ -14,6 +14,7 @@ and when more than V_cap voxels are occupied the V_cap smallest keys stay.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -27,6 +28,8 @@ class VoxelizedPoints:
     point_mask: torch.Tensor        # (.., P) bool
     voxel_coords: torch.Tensor      # (.., V_cap, 3) int64 (z, y, x); 0 if empty
     voxel_mask: torch.Tensor        # (.., V_cap) bool
+    # (.., V_cap) int64 kept points a voxel (zeros without with_counts)
+    num_points: Optional[torch.Tensor] = None
 
 
 def compute_voxel_coords(points: torch.Tensor, spec: VoxelizationSpec):
@@ -44,10 +47,12 @@ def compute_voxel_coords(points: torch.Tensor, spec: VoxelizationSpec):
 
 
 def voxelize_points_batched(points: torch.Tensor, point_valid: torch.Tensor,
-                            spec: VoxelizationSpec) -> VoxelizedPoints:
-    """(B, P, C) padded points + (B, P) validity -> batched VoxelizedPoints
-    (the JAX package's with_counts=False: no model path reads the per-voxel
-    point counts).
+                            spec: VoxelizationSpec, with_counts: bool = True
+                            ) -> VoxelizedPoints:
+    """(B, P, C) padded points + (B, P) validity -> batched VoxelizedPoints.
+    with_counts: each voxel's kept points in num_points (past the point
+    cap, as the JAX package counts them); False leaves zeros there and
+    skips the count (the model path, whose VFE counts its own).
 
     The batch folds into the sort key: sample b's keys shift by
     b * (cells + 1), so one global stable sort keeps the samples as
@@ -99,6 +104,11 @@ def voxelize_points_batched(points: torch.Tensor, point_valid: torch.Tensor,
     buf[ghead] = packed
     buf = buf.reshape(b, v_cap + 1, 4)[:, :v_cap]
 
+    num_points = torch.zeros(b * (v_cap + 1), dtype=torch.int64, device=dev)
+    if with_counts:
+        num_points.index_add_(0, gslot, torch.ones_like(gslot))
+    num_points = num_points.reshape(b, v_cap + 1)[:, :v_cap]
+
     point_voxel_idx = torch.empty(b * p, dtype=torch.int64, device=dev)
     point_voxel_idx[order] = slot
     point_voxel_idx = point_voxel_idx.reshape(b, p)
@@ -106,4 +116,5 @@ def voxelize_points_batched(points: torch.Tensor, point_valid: torch.Tensor,
         point_voxel_idx=point_voxel_idx,
         point_mask=point_voxel_idx < v_cap,
         voxel_coords=buf[..., :3].contiguous(),
-        voxel_mask=buf[..., 3] > 0)
+        voxel_mask=buf[..., 3] > 0,
+        num_points=num_points.contiguous())

@@ -12,6 +12,11 @@ module never imports JAX.  Every JAX leaf is mapped to one port tensor:
 - the head's scan-stacked head_series/single_head leaves (leading axis
   num_heads) -> one module per iteration;
 - auto-named flax modules (Dense_0, LayerNorm_3, ...) -> the port's names;
+- the head's deformable BEV encoder, lidar_encoder: level_embed,
+  pos_{i}/{Dense_0, BatchNorm_0, Dense_1} -> pos.{i}.{fc1, bn, fc2},
+  attn_{j} -> layers.{j}.attn, and the encoder's LayerNorm_{k} and
+  Dense_{k} (two a layer, in call order) -> layers.{k // 2}.norm1|norm2
+  and ffn1|ffn2;
 - the image backbones: VoVNet's stem{k} and stage{s}_block{b} (conv{i},
   the concat 1x1 conv, whose input channels keep the join's order, and
   ese), ResNet's stem Conv_0 / BatchNorm_0 and layer{s}_{i} blocks
@@ -105,6 +110,32 @@ def _convbn(prefix: str, path, a):
     return f"{prefix}.{sub}.{name}", arr
 
 
+def _lidar_encoder(path, a):
+    """One leaf under bbox_head/lidar_encoder."""
+    pre = "bbox_head.lidar_encoder"
+    sub = path[0]
+    if sub == "level_embed":
+        return f"{pre}.level_embed", a
+    m = re.fullmatch(r"pos_(\d+)", sub)
+    if m:
+        mod = {"Dense_0": "fc1", "BatchNorm_0": "bn", "Dense_1": "fc2"}[
+            path[1]]
+        name, arr = _leaf(path[2], a, mod == "bn")
+        return f"{pre}.pos.{m.group(1)}.{mod}.{name}", arr
+    m = re.fullmatch(r"attn_(\d+)", sub)
+    if m:
+        if path[1] not in ("value_proj", "sampling_offsets",
+                           "attention_weights", "output_proj"):
+            raise KeyError(path[1])
+        name, arr = _leaf(path[2], a, False)
+        return f"{pre}.layers.{m.group(1)}.attn.{path[1]}.{name}", arr
+    kind, k = re.fullmatch(r"(LayerNorm|Dense)_(\d+)", sub).groups()
+    k = int(k)
+    mod = ("norm" if kind == "LayerNorm" else "ffn") + str(k % 2 + 1)
+    name, arr = _leaf(path[1], a, kind == "LayerNorm")
+    return f"{pre}.layers.{k // 2}.{mod}.{name}", arr
+
+
 def _img_backbone(path, a, dcn_blocks):
     """One leaf under img_backbone (VoVNet or ResNet)."""
     sub = path[0]
@@ -184,6 +215,8 @@ def _map(path, a, n_heads, n_cls, dcn_blocks=frozenset()):
         sub = path[1]
         if sub in ("init_proposal_boxes", "init_proposal_feats"):
             return [(f"bbox_head.{sub}", a)]
+        if sub == "lidar_encoder":
+            return [_lidar_encoder(path[2:], a)]
         m = re.fullmatch(r"dpg_dw_(lidar|img)_(\d+)", sub)
         if m:
             mod = "dpg_dw" if m.group(1) == "lidar" else "dpg_dw_img"

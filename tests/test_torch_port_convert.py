@@ -6,8 +6,13 @@ bit, on seeded reference state dicts at full width (the generators of
 test_torch_convert_full.py, through torch_port_common.reference_state).
 This file: the five LiDAR-only configs in both spconv layouts, a LiDAR-only
 checkpoint into an LC config (the staged fine-tune), unused and missing
-keys, the centroid MLP; test_torch_port_convert_lc.py and
+keys, the centroid MLP, the head without its DPG (its conversion, a
+round trip through the reference names, the weight bridge with the
+deformable BEV encoder's leaves); test_torch_port_convert_lc.py and
 test_torch_port_convert_resnet.py: the six LC configs."""
+
+import dataclasses
+
 
 import numpy as np
 import pytest
@@ -20,7 +25,9 @@ from srfdet3d_torch import configs as tconfigs
 from srfdet3d_torch.config import VFEConfig
 from srfdet3d_torch.utils import torch_convert
 from srfdet3d_torch.utils.torch_convert import convert_reference_state_dict
-from torch_port_common import (jax_route_state, meta_state_shapes,
+from srfdet3d_torch.models.detector import SRFDet
+from torch_port_common import (check_bridge, jax_route_state,
+                               meta_state_shapes, model_shapes,
                                reference_state, spconv_to_oki)
 
 LIDAR_CONFIGS = ("srfdet_voxel_nusc_L", "srfdet_voxel_kitti_L",
@@ -168,3 +175,62 @@ def test_spconv_and_dcn_layouts():
     assert d.shape == (18, 5)
     np.testing.assert_array_equal(d[(1 * 3 + 2) * 2 + 1], w[:, 1, 1, 2])
     np.testing.assert_array_equal(d, jconvert.dcn_w(w))
+
+
+def _head_opts(cfg, **opts):
+    return cfg.replace(head=dataclasses.replace(cfg.head, **opts))
+
+
+def test_head_without_dpg_converts_and_round_trips():
+    """with_dpg=False: a reference checkpoint with num_proposals proposal
+    embeddings and no DPG converts as the JAX route converts it, to the
+    port model's tensors exactly; and a tiny seeded port model through the
+    reference's names (chip_smoke.reference_checkpoint) and back comes out
+    bit for bit, only the BN step counters unused."""
+    import chip_smoke
+    name = "srfdet_voxel_nusc_L"
+    tcfg = _head_opts(tconfigs.get_config(name), with_dpg=False)
+    jcfg = _head_opts(jconfigs.get_config(name), with_dpg=False)
+    n_p = tcfg.head.num_proposals
+    state = {k: (v[:n_p] if ".init_proposal_" in k else v)
+             for k, v in shared_state(name).items()
+             if not k.startswith("bbox_head.dpg_")}
+    got, unused = convert_reference_state_dict(state, tcfg)
+    want = jax_route_state(state, jcfg)
+    assert sorted(got) == sorted(want) == sorted(meta_state_shapes(tcfg))
+    for key, ref in want.items():
+        np.testing.assert_array_equal(got[key].numpy(), ref, err_msg=key)
+    assert got["bbox_head.init_proposal_boxes"].shape[0] == n_p
+
+    tiny = _head_opts(tconfigs.tiny_test_config(), with_dpg=False)
+    model = SRFDet(tiny, device="cpu", seed=4)
+    back, unused = convert_reference_state_dict(
+        chip_smoke.reference_checkpoint(model), tiny)
+    state = {k: v for k, v in model.state_dict().items()
+             if not k.endswith("num_batches_tracked")}
+    assert sorted(back) == sorted(state)
+    for key, t in state.items():
+        assert torch.equal(back[key], t), key
+    assert all(k.endswith("num_batches_tracked") for k in unused)
+
+
+@pytest.mark.parametrize("opts", [dict(with_dpg=False),
+                                  dict(with_dpg=False,
+                                       with_lidar_encoder=True)],
+                         ids=["no_dpg", "encoder_no_dpg"])
+def test_bridge_takes_the_option_trees(opts):
+    """The JAX trees of the head options through load_jax_params: every
+    leaf consumed once, every port tensor set (the encoder's level
+    embeddings, positional MLPs with their BatchNorms, attention and FFN
+    layers), the parameter counts equal; a stray and a missing leaf raise
+    (under bbox_head where it has BN statistics: the encoder's, the
+    DPG's)."""
+    enc = opts.get("with_lidar_encoder", False)
+    port = check_bridge(_head_opts(tconfigs.tiny_test_config(), **opts),
+                        model_shapes(_head_opts(jconfigs.tiny_test_config(),
+                                                **opts)),
+                        branch="bbox_head" if enc or opts.get(
+                            "with_dpg", True) else "pts_backbone")
+    head = port.bbox_head
+    assert (head.lidar_encoder is not None) == enc
+    assert hasattr(head, "dpg_fc1") == opts.get("with_dpg", True)

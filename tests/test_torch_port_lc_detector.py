@@ -130,9 +130,37 @@ def test_lc_predict_without_images_matches_jax():
 
 @pytest.mark.parametrize("patch", ["img_roi_patch", "img_roi_xpatch"])
 def test_lc_image_roi_patch_refused(patch):
-    """The image RoIAlign's patch routes are not ported: a config that
-    asks for one is refused when the model is built."""
+    """The image RoIAlign's patch routes were refused until they were
+    ported: now the model builds with each, every head iteration carries
+    its capacity rule, a predict with fallback -1 equals the pairs route's
+    bit for bit and one with fallback 0 differs (test_torch_port_options_
+    roi.py holds the rules against JAX).  What is still refused on this
+    config is the image branch in bfloat16."""
     base, img, head = CASES["vovnet_2cam"]
-    cfg = _lc(*PORT, base, img, **head, **{patch: 2})
-    with pytest.raises(NotImplementedError, match=patch):
-        SRFDet(cfg, device="cpu")
+    inputs = {k: torch.from_numpy(v) for k, v in _camera_inputs(2).items()}
+    pts, mask = np.zeros((2, 2048, 5), np.float32), np.zeros((2, 2048), bool)
+    rng = np.random.default_rng(0)
+    pts[:, :1024, :3] = rng.uniform(-9, 9, (2, 1024, 3)) * (1, 1, 0.3)
+    mask[:, :1024] = True
+    batch = {"points": torch.from_numpy(pts),
+             "points_mask": torch.from_numpy(mask), **inputs}
+    key = patch.split("_")[-1]
+    outs = {}
+    for fallback in (None, -1, 0):
+        rules = {} if fallback is None else {
+            patch: 2, f"{patch}_fallback": fallback}
+        model = SRFDet(_lc(*PORT, base, img, **head, **rules), device="cpu",
+                       seed=1)
+        if rules:
+            assert all(h.img_rules[key] == 2 and
+                       h.img_rules[f"{key}_fallback"] == fallback
+                       for h in model.bbox_head.heads)
+        with torch.no_grad():
+            outs[fallback] = model(batch)
+    for a, b in zip(outs[-1], outs[None]):
+        assert torch.equal(a, b)
+    assert not torch.equal(outs[0][0], outs[None][0])
+    bf16 = _lc(*PORT, base, dict(img, compute_dtype="bfloat16"), **head,
+               **{patch: 2})
+    with pytest.raises(NotImplementedError, match="img.compute_dtype"):
+        SRFDet(bf16, device="cpu")

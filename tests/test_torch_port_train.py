@@ -175,9 +175,11 @@ def test_srfdet_losses_match_jax():
     assert sorted(got) == sorted(ref)
     for k in ref:
         _close(got[k], ref[k])
-    with pytest.raises(NotImplementedError):
+    # the one-to-one assigners run (test_torch_port_hungarian.py); an
+    # unknown assigner is refused, never replaced by OTA
+    with pytest.raises(ValueError, match="assigner"):
         srfdet_losses(T(pl), T(pb), T(gt), T(labels), T(mask),
-                      dataclasses.replace(tcfg.loss, assigner="hungarian"),
+                      dataclasses.replace(tcfg.loss, assigner="greedy"),
                       tcfg.ota)
 
 

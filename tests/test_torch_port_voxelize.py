@@ -125,7 +125,8 @@ def test_port_imports_no_jax():
     point route, create_data, profiling, event files, vis/) included, and
     chip_smoke.py (its reference-naming exporter), pulls in neither jax
     nor srfdet3d_tpu, nor cv2 or tensorflow (both absent from the card
-    machine)."""
+    machine), nor scipy (imported by the hungarian assigner's host solve
+    alone, when it runs)."""
     code = (
         "import sys, pkgutil, importlib, srfdet3d_torch, chip_smoke\n"
         "for m in pkgutil.walk_packages(srfdet3d_torch.__path__, "
@@ -133,7 +134,7 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'srfdet3d_tpu', 'cv2', 'tensorflow', "
-        "'tensorboard')]\n"
+        "'tensorboard', 'scipy')]\n"
         "assert not bad, bad\n"
         "need = ['assign.ota', 'models.losses', 'ops.focal_loss', "
         "'ops.gather_conv_bwd', 'ops.roi_scatter', 'train.trainer', "
@@ -147,7 +148,8 @@ def test_port_imports_no_jax():
         "'tools.eval_results_from_pkl', 'parallel', 'parallel.mesh', "
         "'data.native', 'tools.create_data', 'utils.profiling', "
         "'utils.event_file', 'vis', 'vis.show_result', "
-        "'tools.show_results_from_pkl', 'tools.mix_imgs_convert_video']\n"
+        "'tools.show_results_from_pkl', 'tools.mix_imgs_convert_video', "
+        "'assign.hungarian', 'models.deform_attn']\n"
         "missed = [n for n in need if 'srfdet3d_torch.' + n not in "
         "sys.modules]\n"
         "assert not missed, missed\n"
