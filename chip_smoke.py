@@ -208,6 +208,24 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    weights on the CPU with the plain versions; then one profiled predict
    of each full-width predict config, the LC ones included
    (*_predict_busy: device busy time and share);
+The bfloat16 compute modes run among these phases: after K1's flagship
+check, K1-bf16 at the same 21 convs on bf16 tables and weights
+(gather_conv_bf16 lines), after K3 / K4's, K4-bf16 at the step's 4
+strided and conv_out convs (conv_bwd_bf16), each within one bf16 ulp of
+its plain version (BF16_RTOL) with ms, device ms, plain, library
+(index_select and bf16 products) and the bound at the bf16 rate
+(PEAK_BF16, 2-byte tables); after flagship_predict, flagship_bf16_predict
+(compute_dtype="bfloat16": K1-bf16 21, K2 4) and flagship_bf16_vs_f32
+(the bf16 model's box centres against the float32 model's on the same
+weights, mean under 0.5 m); after the LC predicts,
+nusc_lc_img_bf16_predict (img.compute_dtype="bfloat16": the launches of
+nusc_lc_predict); after flagship_train, flagship_bf16_train (K1-bf16 21,
+K2 4, K3 17 on float32 upcasts, K4-bf16 4, no K5: bf16 RoIAlign tables
+take the plain route); after the LC train phases, nusc_lc_img_bf16_train
+(nusc_lc_train's launches); after the tiny predicts, tiny_bf16_end_to_end
+of both modes (the card closer to the CPU's bf16 outputs than those are
+to the float32 model's); and their *_busy lines with the others'.  Every
+parameter of every train phase stays float32.
 13. the `kernels` line: per kernel, launches (per flagship predict for K1
    and K2, per flagship train step for K3-K5, per KITTI table predict for
    K6), max error against the plain version, and times per predict or per
@@ -223,7 +241,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    convert_launches, its launches in each round-trip predict,
    learn_launches, its launches a flagship_learn step, ddp_launches,
    each ddp_flagship_train rank's launches a step, and options_launches,
-   its launches in each option phase's predict or train step.
+   its launches in each option phase's predict or train step, and
+   bf16_launches, its launches in each bf16 phase; K1-bf16
+   (gather_conv_bf16) and K4-bf16 (conv_bwd_strided_bf16) are entries of
+   their own.
 
 The second-to-last line is nvidia-smi's name and power limit; the last line
 is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -252,6 +273,13 @@ import torch
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 PEAK_3XTF32 = 495e12 / 3
+# bf16 tensor cores, dense: the bound of the bf16 gather-GEMMs (K1-bf16,
+# K4-bf16), one product a multiply-add
+PEAK_BF16 = 989e12
+# a bf16 kernel against its plain version: both sum in float32 and round
+# once, so they differ by at most one bf16 ulp (2^-7 relative), plus float32
+# summation-order noise near zero (2^-14 of the largest output)
+BF16_RTOL, BF16_ATOL_REL = 2.0 ** -7, 2.0 ** -14
 # the gather-GEMM kernels' own device code, by name in a profiler trace;
 # the strided backward (K4) also runs its preparation kernels (reverse
 # rulebook, row grouping: 5 launches), K5 its one kernel
@@ -269,9 +297,11 @@ KEY_HASH_KERNELS = ("key_hash_fill_kernel", "key_hash_insert_kernel")
 # cycles of torch.cuda._sleep that keep the card busy (~10 ms) at a
 # profiler session's start, so that the session sees every launch after it
 SPIN_CYCLES = 20_000_000
-# timed predicts a predict phase (kept low: the whole run must end within
-# its time limit on a slow host)
-PREDICT_RUNS = 6
+# timed predicts a predict phase, and runs of a predict's or a train
+# step's parts (kept low: the whole run must end within its time limit on a
+# slow host; 6 and 3 before the bf16 phases came)
+PREDICT_RUNS = 4
+PARTS_RUNS = 2
 # every kernel against its plain version: rtol + atol * sqrt(terms summed
 # into an output element); the kernel sums in another order than the plain
 # version (K5 with atomics, in an order that changes from run to run), so
@@ -768,6 +798,144 @@ def check_conv_bwd(cases, dev, gen):
     return totals
 
 
+def bf16_bounds(flops: float, nbytes: float):
+    """(bound ms, what bounds it) of a bf16 gather-GEMM call: the larger of
+    bytes over HBM's rate and flops over the bf16 tensor-core rate."""
+    ops, bb = flops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(ops, bb), "operations" if ops >= bb else "bytes"
+
+
+def check_bf16(what, got, ref):
+    """A bf16 kernel's output against its plain version's: within one bf16
+    ulp, plus float32 order noise near zero (BF16_RTOL, BF16_ATOL_REL).
+    Returns the max abs error."""
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    tol = BF16_RTOL * ref.abs() + BF16_ATOL_REL * float(ref.abs().max())
+    if not bool((err <= tol).all()):
+        raise AssertionError(f"{what}: max err {float(err.max())} over one "
+                             f"bf16 ulp")
+    return float(err.max())
+
+
+def check_gather_conv_bf16(config, cases, dev, gen):
+    """K1-bf16 at every conv shape of the bf16 model's encoder (bf16 tables
+    and weights): against the plain version within one bf16 ulp, then ms a
+    launch (events), kernel-only device ms (profiler, early in the
+    process), the plain version, index_select + a bf16 matmul, and the
+    bound (2-byte tables, 989 TFLOP/s).  Returns the max error and the sums
+    over a predict."""
+    from srfdet3d_torch.ops.gather_conv import gather_conv, gather_conv_plain
+    totals = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0,
+                  bound_ms=0.0, ops_bound_ms=0.0, bytes_bound_ms=0.0)
+    max_err = 0.0
+    for name, n, idx, cin, cout, per_predict in cases:
+        m, k = idx.shape
+        feats = torch.randn(n, cin, generator=gen).to(dev, torch.bfloat16)
+        w = (torch.randn(k, cin, cout, generator=gen) *
+             math.sqrt(2.0 / (k * cin))).to(dev, torch.bfloat16)
+        got = gather_conv(feats, idx, w)
+        ref = gather_conv_plain(feats, idx, w)
+        torch.cuda.synchronize()
+        err = check_bf16(f"gather_conv_bf16 {name}", got, ref)
+        if got.dtype != torch.bfloat16:
+            raise AssertionError(f"gather_conv_bf16 {name}: {got.dtype} out")
+        max_err = max(max_err, err)
+        table0 = torch.cat([feats, feats.new_zeros(1, cin)])
+        w2 = w.reshape(k * cin, cout)
+        flat = idx.reshape(-1).long()
+        ms = time_ms(lambda: gather_conv(feats, idx, w))
+        device_ms = kernel_device_ms(lambda: gather_conv(feats, idx, w), 1)
+        plain_ms = time_ms(lambda: gather_conv_plain(feats, idx, w))
+        lib_ms = time_ms(lambda: torch.index_select(table0, 0, flat)
+                         .view(m, k * cin) @ w2)
+        nnz = int((idx < n).sum())
+        flops = 2.0 * nnz * cin * cout
+        nbytes = 2.0 * (n * cin + k * cin * cout + m * cout) + 4.0 * m * k
+        bound, bound_by = bf16_bounds(flops, nbytes)
+        emit(dict(phase="gather_conv_bf16", config=config, conv=name, n=n,
+                  m=m, k=k, cin=cin, cout=cout,
+                  launches_per_predict=per_predict, max_abs_err=err, ms=ms,
+                  device_ms=device_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                  bound_ms=bound, bound_by=bound_by, nnz=nnz))
+        for key, val in (("ms", ms), ("device_ms", device_ms),
+                         ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                         ("bound_ms", bound)):
+            totals[key] += per_predict * val
+        key = "ops_bound_ms" if bound_by == "operations" else "bytes_bound_ms"
+        totals[key] += per_predict * bound
+    return max_err, totals
+
+
+def check_conv_bwd_bf16(cases, dev, gen):
+    """K4-bf16 at the strided and conv_out convs of the bf16 flagship's
+    train step (batch 2): dfeats and dW against scatter_bwd_plain in bf16
+    within one bf16 ulp, both bf16; then ms a launch (events, with the
+    rulebook preparation), kernel-only device ms, the plain version, the
+    reverse-rulebook gather + two bf16 cuBLAS products, and the bound
+    (2-byte tables, 989 TFLOP/s).  The subm convs' backward in bf16 is
+    K3's float32 kernel on upcasts, checked in float32 by check_conv_bwd.
+    Returns the sums over a step."""
+    from srfdet3d_torch.ops import gather_conv_bwd as gcb
+    totals = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0,
+                  bound_ms=0.0, ops_bound_ms=0.0, bytes_bound_ms=0.0,
+                  max_abs_err=0.0)
+    bf = torch.bfloat16
+    for name, n, idx, cin, cout, per_step in cases:
+        if name == "conv_input" or name.endswith("_subm"):
+            continue
+        m, k = idx.shape
+        feats = torch.randn(n, cin, generator=gen).to(dev, bf)
+        w = (torch.randn(k, cin, cout, generator=gen) *
+             math.sqrt(2.0 / (k * cin))).to(dev, bf)
+        g = torch.randn(m, cout, generator=gen).to(dev, bf)
+
+        def kern():
+            return gcb.strided_conv_bwd(feats, idx, w, g)
+
+        def plain():
+            return gcb.scatter_bwd_plain(feats, idx, w, g)
+        (got_f, got_w), (ref_f, ref_w) = kern(), plain()
+        torch.cuda.synchronize()
+        if got_f.dtype != bf or got_w.dtype != bf:
+            raise AssertionError(f"conv_bwd_bf16 {name}: {got_f.dtype}, "
+                                 f"{got_w.dtype} out")
+        err = max(check_bf16(f"conv_bwd_bf16 {name} dfeats", got_f, ref_f),
+                  check_bf16(f"conv_bwd_bf16 {name} dW", got_w, ref_w))
+        rev, _ = gcb.strided_prep(idx, n, False)
+        g0 = torch.cat([g, g.new_zeros(1, cout)])
+        flat_rb = rev.reshape(-1).long()
+        wt2 = w.transpose(1, 2).reshape(k * cout, cin)
+
+        def library():
+            gat = torch.index_select(g0, 0, flat_rb).view(n, k * cout)
+            return gat @ wt2, feats.t() @ gat
+        ms = time_ms(kern)
+        device_ms = kernel_device_ms(
+            kern, 3 + STRIDED_PREP_LAUNCHES,
+            names=GATHER_GEMM_KERNELS + STRIDED_PREP_KERNELS)
+        plain_ms = time_ms(plain)
+        lib_ms = time_ms(library)
+        nnz = int((idx < n).sum())
+        flops = 2 * 2.0 * nnz * cin * cout
+        nbytes = (2.0 * (2 * n * cin + m * cout + 2 * k * cin * cout) +
+                  4.0 * m * k)
+        bound, bound_by = bf16_bounds(flops, nbytes)
+        emit(dict(phase="conv_bwd_bf16", kernel="K4-bf16", conv=name, n=n,
+                  m=m, k=k, cin=cin, cout=cout, launches_per_step=per_step,
+                  max_abs_err=err, ms=ms, device_ms=device_ms,
+                  plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                  bound_by=bound_by, nnz=nnz))
+        totals["max_abs_err"] = max(totals["max_abs_err"], err)
+        for key, val in (("ms", ms), ("device_ms", device_ms),
+                         ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                         ("bound_ms", bound)):
+            totals[key] += per_step * val
+        key = "ops_bound_ms" if bound_by == "operations" else "bytes_bound_ms"
+        totals[key] += per_step * bound
+    return totals
+
+
 def roi_bwd_case(phase, sizes, rois, strides, c, dev, gen, patch=0,
                  fallback=-1, **extra):
     """K5 on the corners of `rois` (B', R, 4) over the levels `sizes`
@@ -1071,16 +1239,19 @@ def check_rulebook_lookup(config, cases):
 
 
 COUNTED = ("gather_conv", "eqmatch", "subm_bwd", "strided_bwd",
-           "roi_scatter", "rulebook_lookup")
+           "roi_scatter", "rulebook_lookup", "gather_conv_bf16",
+           "strided_bwd_bf16")
 
 
 def reset_counts():
     from srfdet3d_torch.ops import (eqmatch, gather_conv, gather_conv_bwd,
                                     roi_scatter, rulebook_lookup)
     gather_conv.launches = 0
+    gather_conv.bf16_launches = 0
     eqmatch.launches = 0
     gather_conv_bwd.subm_launches = 0
     gather_conv_bwd.strided_launches = 0
+    gather_conv_bwd.strided_bf16_launches = 0
     roi_scatter.launches = 0
     rulebook_lookup.launches = 0
     eqmatch.map_builds = 0
@@ -1102,7 +1273,9 @@ def read_counts():
                               gather_conv_bwd.subm_launches,
                               gather_conv_bwd.strided_launches,
                               roi_scatter.launches,
-                              rulebook_lookup.launches)))
+                              rulebook_lookup.launches,
+                              gather_conv.bf16_launches,
+                              gather_conv_bwd.strided_bf16_launches)))
 
 
 def all_finite(out) -> bool:
@@ -1111,9 +1284,10 @@ def all_finite(out) -> bool:
 
 def predict_launches(model):
     """Launches per predict the model's structure gives: every gathered
-    conv once (K1); on the bitmap backend one eq-match per subm stage (K2),
-    on the table backend one lookup per subm stage, per downsample and for
-    conv_out (K6); none on the pillar path, which has no sparse conv."""
+    conv once (K1; K1-bf16 in the bf16 model); on the bitmap backend one
+    eq-match per subm stage (K2), on the table backend one lookup per subm
+    stage, per downsample and for conv_out (K6); none on the pillar path,
+    which has no sparse conv."""
     from srfdet3d_torch.models.sparse_encoder import GatheredConvBN
     want = dict.fromkeys(COUNTED, 0)
     if model.cfg.middle.kind == "pillar_scatter":
@@ -1121,7 +1295,8 @@ def predict_launches(model):
     enc = model.pts_middle_encoder
     convs = sum(isinstance(mod, GatheredConvBN) for mod in enc.modules())
     stages = len(model.cfg.middle.encoder_channels)
-    want["gather_conv"] = convs
+    bf16 = model.dtype == torch.bfloat16
+    want["gather_conv_bf16" if bf16 else "gather_conv"] = convs
     if enc.use_bitmap:
         want["eqmatch"] = stages
     else:
@@ -1258,7 +1433,7 @@ def visible_pairs(phase, model, batch, smi):
               dropped_pairs=dropped, device=smi))
 
 
-def predict_parts(phase, model, batch, smi, runs: int = 3):
+def predict_parts(phase, model, batch, smi, runs: int = PARTS_RUNS):
     """Predict split at its layer boundaries, each part ended by a
     synchronize: median host ms and peak device memory of each part."""
     from srfdet3d_torch.models.head import decode_boxes
@@ -1332,7 +1507,11 @@ def train_launches(model):
     backward (K4) and one BEV RoIAlign backward per head iteration (K5);
     with the image branch one image RoIAlign backward per head iteration
     (K5: the pooled image table always needs its grad).  The pillar path
-    has no sparse conv: K5's alone."""
+    has no sparse conv: K5's alone.  In the bf16 model (compute_dtype)
+    the strided backward is K4-bf16, the subm one K3 on float32 upcasts,
+    and no RoIAlign backward is K5: its tables are bf16, whose cotangent
+    takes the plain route (JAX `roi_align.py:122`); the image branch alone
+    in bf16 hands the head float32 levels, so K5 stays."""
     from srfdet3d_torch.models.sparse_encoder import GatheredConvBN
     cfg = model.cfg
     lidar_bwd = not cfg.optim.freeze_lidar
@@ -1343,8 +1522,10 @@ def train_launches(model):
     n_subm = sum(c.subm for c in convs)
     iters = len(model.bbox_head.heads)
     want = predict_launches(model)
-    want.update(subm_bwd=n_subm, strided_bwd=len(convs) - n_subm,
-                roi_scatter=iters * (int(lidar_bwd) + int(cfg.use_img)))
+    f32 = model.dtype == torch.float32
+    want.update(subm_bwd=n_subm, roi_scatter=iters * f32 * (
+        int(lidar_bwd) + int(cfg.use_img)))
+    want["strided_bwd" if f32 else "strided_bwd_bf16"] = len(convs) - n_subm
     return want
 
 
@@ -1473,11 +1654,15 @@ def train_phase(phase, cfg, smi, warmup: int = 2, steps: int = 5,
         last = step()
         times.append((time.perf_counter() - t0) * 1e3)
     peak = torch.cuda.max_memory_allocated()
+    wide = [n for n, p in model.named_parameters()
+            if p.dtype != torch.float32]
+    if wide:
+        raise AssertionError(f"{phase}: parameters not float32: {wide[:4]}")
 
     busy = device_busy(step)
     parts = {}
     gt = (batch["gt_boxes"], batch["gt_labels"], batch["gt_mask"])
-    for _ in range(3):
+    for _ in range(PARTS_RUNS):
         model.train()
         for p in opt.params:
             p.grad = None
@@ -1745,6 +1930,108 @@ def tiny_end_to_end(cfg, patch: bool = True, prepare=None,
               rulebook=cfg.middle.rulebook,
               image_backbone=cfg.img.backbone if cfg.use_img else None,
               launches=counts, forward_max_abs_err=ferr, **worst))
+
+
+def bf16_config(cfg, model: bool = True):
+    """cfg in a bf16 mode: the whole model (compute_dtype), or the image
+    branch alone (img.compute_dtype)."""
+    import dataclasses
+    if model:
+        return cfg.replace(compute_dtype="bfloat16")
+    return cfg.replace(img=dataclasses.replace(cfg.img,
+                                               compute_dtype="bfloat16"))
+
+
+@torch.no_grad()
+def bf16_centre_gap(phase, cfg, batch, smi, bar_m: float = 0.5):
+    """The bf16 model against the float32 one on the same weights (seed 0)
+    and batch: every layer's box centres (metres) and logits apart on
+    average, the centres under JAX's bar (tests/test_bf16.py:27-28: a mean
+    below 0.5 m); the bf16 boxes float32 and finite."""
+    from srfdet3d_torch.models.detector import SRFDet
+    dev_batch = {k: v.cuda() for k, v in batch.items()}
+    out = {}
+    for name, c in (("f32", cfg), ("bf16", bf16_config(cfg))):
+        model = SRFDet(c, device="cuda", seed=0)
+        out[name] = model(dev_batch)
+        del model
+    (l32, b32), (l16, b16) = out["f32"], out["bf16"]
+    if b16.dtype != torch.float32 or l16.dtype != torch.bfloat16:
+        raise AssertionError(f"{phase}: dtypes {l16.dtype}, {b16.dtype}")
+    if not (bool(torch.isfinite(b16).all()) and
+            bool(torch.isfinite(l16.float()).all())):
+        raise AssertionError(f"{phase}: non-finite bf16 outputs")
+    gap = float((b16[..., :3] - b32[..., :3]).abs().mean())
+    if not gap < bar_m:
+        raise AssertionError(f"{phase}: mean centre gap {gap} m")
+    emit(dict(phase=phase, config=cfg.name, mean_centre_gap_m=gap,
+              max_centre_gap_m=float((b16[..., :3] - b32[..., :3]).abs()
+                                     .max()),
+              mean_logit_gap=float((l16.float() - l32).abs().mean()),
+              bar_m=bar_m, device=smi))
+
+
+@torch.no_grad()
+def tiny_bf16_end_to_end(cfg16, seed: int = 3):
+    """A tiny config in a bf16 mode: the kernels on the card (K1-bf16 in
+    the bf16 model) against the plain versions on the CPU, same weights
+    and points (tiny_end_to_end's).  The two sides round the same ops to
+    bf16 but sum in other orders, which flips an ulp here and there; the
+    card must sit closer to the CPU's bf16 outputs than those sit from the
+    CPU's float32 model, for the logits and the box centres (mean
+    absolute distances); boxes float32, outputs finite, launches as the
+    structure gives."""
+    from srfdet3d_torch.models.detector import SRFDet
+    rng = np.random.default_rng(0)
+    p, dim = cfg16.points_cap, cfg16.points_dim
+    lo, hi = np.array(cfg16.pc_range[:3]), np.array(cfg16.pc_range[3:])
+    pts = np.zeros((2, p, dim), np.float32)
+    pts[:, :p // 2, :3] = rng.uniform(lo + 1, hi - 1, (2, p // 2, 3))
+    pts[:, :p // 2, 3:] = rng.uniform(0, 1, (2, p // 2, dim - 3))
+    mask = np.zeros((2, p), bool)
+    mask[:, :p // 2] = True
+    batch = {"points": torch.from_numpy(pts),
+             "points_mask": torch.from_numpy(mask)}
+    if cfg16.use_img:
+        cams = lc_batch(cfg16, 2, seed=0)
+        batch.update(images=cams["images"], lidar2img=cams["lidar2img"])
+    cpu = SRFDet(cfg16, device="cpu", seed=seed)
+    img = (dataclasses.replace(cfg16.img, compute_dtype="") if cfg16.use_img
+           else cfg16.img)
+    cfg32 = cfg16.replace(compute_dtype="float32", img=img)
+    cpu32 = SRFDet(cfg32, device="cpu", seed=seed)
+    gpu = SRFDet(cfg16, device="cuda", seed=seed)
+    gpu.load_state_dict(cpu.state_dict())
+    cpu32.load_state_dict(cpu.state_dict())
+    reset_counts()
+    lg, bg = gpu(batch)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = predict_launches(gpu)
+    if counts != want:
+        raise AssertionError(f"tiny bf16 predict {cfg16.name} launched "
+                             f"{counts}, its structure gives {want}")
+    lc, bc = cpu(batch)
+    l32, b32 = cpu32(batch)
+    if bg.dtype != torch.float32 or lg.dtype != lc.dtype:
+        raise AssertionError(f"tiny bf16 predict: dtypes {lg.dtype}, "
+                             f"{bg.dtype}")
+    ratios = {}
+    for key, got, ref, f32 in (("logits", lg.float().cpu(), lc.float(), l32),
+                               ("centres", bg[..., :3].cpu(), bc[..., :3],
+                                b32[..., :3])):
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"tiny bf16 predict: non-finite {key}")
+        d_card = float((got - ref).abs().mean())
+        d_f32 = float((ref - f32).abs().mean())
+        ratios[key] = d_card / d_f32
+        if not d_card < d_f32:
+            raise AssertionError(f"tiny bf16 predict {cfg16.name}: {key} "
+                                 f"card-CPU {d_card} vs bf16-f32 {d_f32}")
+    emit(dict(phase="tiny_bf16_end_to_end", config=cfg16.name,
+              compute_dtype=cfg16.compute_dtype,
+              img_compute_dtype=cfg16.img.compute_dtype if cfg16.use_img
+              else None, launches=counts, card_over_bf16_gap=ratios))
 
 
 def table_backend(cfg):
@@ -2304,9 +2591,9 @@ SYNC_CALLS = ("cudaDeviceSynchronize", "cudaStreamSynchronize",
               "cudaEventSynchronize")
 # the raw tree of raw_tree_train: DATA_ROOTS["nus"]'s sizes
 RAW_NUS_ROOT = dict(n_train=4, n_val=2, points=34688, sweeps=10, boxes=35)
-FLAGSHIP_STEP_LAUNCHES = dict(gather_conv=21, eqmatch=4, subm_bwd=17,
-                              strided_bwd=4, roi_scatter=5,
-                              rulebook_lookup=0)
+FLAGSHIP_STEP_LAUNCHES = dict(dict.fromkeys(COUNTED, 0), gather_conv=21,
+                              eqmatch=4, subm_bwd=17, strided_bwd=4,
+                              roi_scatter=5)
 
 
 class point_route:
@@ -4071,7 +4358,8 @@ def kernel_entry(name, source, replaces, launches, t, max_err):
     # bound_ms), the bound of the earlier SIMT kernels and their kernel-only
     # device time
     for key in ("tc_bound_ms", "simt_bound_ms", "device_ms", "host_ms",
-                "prep_ms", "prep_device_ms", "builds", "lc_launches",
+                "prep_ms", "prep_device_ms", "builds", "bf16_launches",
+                "lc_launches",
                 "lc_train_launches", "data_launches", "convert_launches",
                 "learn_launches", "ddp_launches", "options_launches",
                 "img_geometry"):
@@ -4126,6 +4414,8 @@ def main() -> int:
         conv_cases, subm_cases = encoder_rulebooks(cfg, batch, dev)
         k1_err, k1 = check_gather_conv(cfg.name, conv_cases, dev, gen)
         k2 = check_eqmatch(cfg.name, subm_cases)
+        # K1-bf16 at the same 21 convs (the bf16 model's encoder)
+        k1b_err, k1b = check_gather_conv_bf16(cfg.name, conv_cases, dev, gen)
         eq_case = subm_cases[0]
         del conv_cases, subm_cases
         # KITTI's widths (conv_input Cin 4, 16/32/64, conv_out 64 -> 128),
@@ -4145,6 +4435,8 @@ def main() -> int:
         train_cases, _ = encoder_rulebooks(
             cfg, synthetic_batch(cfg, 2, seed=0), dev)
         bwd = check_conv_bwd(train_cases, dev, gen)
+        # K4-bf16 at the step's 4 strided and conv_out convs
+        k4b = check_conv_bwd_bf16(train_cases, dev, gen)
         k5, roi_case = check_roi_bwd(cfg, dev, gen)
         # K5 at the KITTI head (C 256) and the pillar head (strides 2-16)
         for c in (kcfg, pcfg):
@@ -4176,6 +4468,15 @@ def main() -> int:
                                    dict(none, gather_conv=21, eqmatch=4))
     k2["builds"] = builds["plan_map"]
     k1_launches, k2_launches = counts["gather_conv"], counts["eqmatch"]
+    torch.cuda.empty_cache()
+    # the bf16 model (compute_dtype="bfloat16"): K1-bf16 in its encoder;
+    # its boxes against the float32 model's on the same weights
+    bf16_launches = {}
+    counts, _ = predict_phase("flagship_bf16_predict", bf16_config(cfg),
+                              batch, smi,
+                              dict(none, gather_conv_bf16=21, eqmatch=4))
+    bf16_launches["flagship_bf16_predict"] = counts
+    bf16_centre_gap("flagship_bf16_vs_f32", cfg, batch, smi)
     torch.cuda.empty_cache()
     predict_phase("kitti_predict", kcfg, kbatch, smi,
                   dict(none, gather_conv=12, eqmatch=4))
@@ -4219,7 +4520,24 @@ def main() -> int:
                                   prepare=seed_dcn_offsets)
         lc_launches[phase] = counts
         torch.cuda.empty_cache()
+    # the image branch alone in bf16 (img.compute_dtype) on nuScenes LC:
+    # the launches of nusc_lc_predict
+    nusc_lc = CONFIGS["srfdet_voxel_nusc_LC"]()
+    counts, _ = predict_phase("nusc_lc_img_bf16_predict",
+                              bf16_config(nusc_lc, model=False),
+                              lc_batch(nusc_lc, 1, seed=0), smi,
+                              dict(none, gather_conv=21, eqmatch=4))
+    bf16_launches["nusc_lc_img_bf16_predict"] = counts
+    torch.cuda.empty_cache()
     per_step = train_phase("flagship_train", cfg, smi)
+    torch.cuda.empty_cache()
+    # the bf16 flagship step: K1-bf16 and K2 forward, K3 on float32 upcasts,
+    # K4-bf16, and no K5 (bf16 RoIAlign tables take the plain route)
+    step16 = train_phase("flagship_bf16_train", bf16_config(cfg), smi)
+    if step16 != dict(none, gather_conv_bf16=21, eqmatch=4, subm_bwd=17,
+                      strided_bwd_bf16=4):
+        raise AssertionError(f"flagship_bf16_train: structure {step16}")
+    bf16_launches["flagship_bf16_train"] = step16
     torch.cuda.empty_cache()
     train_phase("kitti_train", kcfg, smi, warmup=1, steps=3)
     torch.cuda.empty_cache()
@@ -4237,6 +4555,14 @@ def main() -> int:
             batch_size=c.optim.batch_size_per_device,
             prepare=seed_dcn_offsets)
         torch.cuda.empty_cache()
+    bf16_launches["nusc_lc_img_bf16_train"] = train_phase(
+        "nusc_lc_img_bf16_train", bf16_config(nusc_lc, model=False), smi,
+        warmup=1, steps=2, batch_size=nusc_lc.optim.batch_size_per_device)
+    if bf16_launches["nusc_lc_img_bf16_train"] != lc_train["nusc_lc_train"]:
+        raise AssertionError(f"nusc_lc_img_bf16_train launched "
+                             f"{bf16_launches['nusc_lc_img_bf16_train']}, "
+                             f"nusc_lc_train {lc_train['nusc_lc_train']}")
+    torch.cuda.empty_cache()
     # the runtime around the model: train and test from files on disk;
     # a reference-format checkpoint through the convert and test CLIs; the
     # flagship learning planted boxes
@@ -4276,12 +4602,18 @@ def main() -> int:
     for c, seed in zip(tiny_lc_configs(), TINY_LC_SEEDS):
         tiny_end_to_end(c, prepare=seed_dcn_offsets, seed=seed)
     tiny_end_to_end(all_options_tiny())
+    # both bf16 modes, card against CPU
+    tiny_bf16_end_to_end(bf16_config(tiny_test_config()))
+    tiny_bf16_end_to_end(bf16_config(tiny_lc_test_config("vovnet"),
+                                     model=False))
     tiny_train(*tiny_train_setup())
     tiny_train(*tiny_kitti_train_setup())
     for backbone, opts, model_seed, batch_seed, steps in TINY_LC_TRAIN:
         tiny_train(tiny_lc_test_config(backbone, **opts), model_seed,
                    batch_seed, steps, prepare=seed_dcn_offsets)
-    for phase, c, b in (("flagship", cfg, batch), ("kitti", kcfg, kbatch),
+    for phase, c, b in (("flagship", cfg, batch),
+                        ("flagship_bf16", bf16_config(cfg), batch),
+                        ("kitti", kcfg, kbatch),
                         ("kitti_table", table_backend(kcfg), kbatch),
                         ("flagship_table", table_backend(cfg), batch),
                         ("dvoxel_nusc", dcfg, synthetic_batch(dcfg, 1)),
@@ -4294,6 +4626,10 @@ def main() -> int:
         predict_busy(f"{phase}_busy", c, lc_batch(c, 1, seed=0), smi,
                      seed_dcn_offsets)
         torch.cuda.empty_cache()
+    predict_busy("nusc_lc_img_bf16_predict_busy",
+                 bf16_config(nusc_lc, model=False),
+                 lc_batch(nusc_lc, 1, seed=0), smi)
+    torch.cuda.empty_cache()
     k1.update(device["gather_conv"])
     k2.update(device["eqmatch"])
     k6.update(device["rulebook_lookup"])
@@ -4312,7 +4648,11 @@ def main() -> int:
     for entry, key in ((k1, "gather_conv"), (k2, "eqmatch"),
                        (bwd["subm"], "subm_bwd"),
                        (bwd["strided"], "strided_bwd"),
-                       (k5_step, "roi_scatter"), (k6, "rulebook_lookup")):
+                       (k5_step, "roi_scatter"), (k6, "rulebook_lookup"),
+                       (k1b, "gather_conv_bf16"),
+                       (k4b, "strided_bwd_bf16")):
+        entry["bf16_launches"] = {ph: c[key]
+                                  for ph, c in bf16_launches.items()}
         entry["lc_launches"] = {ph: c[key] for ph, c in lc_launches.items()}
         entry["lc_train_launches"] = {ph: c[key]
                                       for ph, c in lc_train.items()}
@@ -4347,7 +4687,16 @@ def main() -> int:
         kernel_entry("rulebook_lookup",
                      "srfdet3d_torch/csrc/rulebook_lookup.cu",
                      "srfdet3d_tpu/ops/pallas_rulebook.py:43", k6_launches,
-                     dict(k6, bound_by="bytes"), 0.0)]})
+                     dict(k6, bound_by="bytes"), 0.0),
+        kernel_entry("gather_conv_bf16", "srfdet3d_torch/csrc/gather_conv.cu",
+                     "srfdet3d_tpu/ops/pallas_onehot.py:67",
+                     bf16_launches["flagship_bf16_predict"][
+                         "gather_conv_bf16"], k1b, k1b_err),
+        kernel_entry("conv_bwd_strided_bf16",
+                     "srfdet3d_torch/csrc/gather_conv_bwd.cu",
+                     "srfdet3d_tpu/ops/pallas_onehot_bwd.py:33",
+                     bf16_launches["flagship_bf16_train"]["strided_bwd_bf16"],
+                     k4b, k4b["max_abs_err"])]})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -34,7 +34,12 @@ def set_backend_flags() -> None:
     predict's time and a workspace of many GB (PERF.md, "H100 port").
     A caller that turned on `torch.backends.cudnn.deterministic` keeps
     cuDNN's heuristic choice instead (no timing, whose pick can differ
-    from run to run): benchmark stays off while deterministic is on."""
+    from run to run): benchmark stays off while deterministic is on.
+    bfloat16 matmuls (the bf16 compute modes) sum in float32 and round
+    once, as the JAX package's dots do: no bf16 partial sums in cuBLAS's
+    split reductions."""
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.benchmark = not torch.backends.cudnn.deterministic

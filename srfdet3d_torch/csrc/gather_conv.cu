@@ -31,6 +31,17 @@
 // pass exist because Mosaic has no dynamic gather; here rows are loaded by
 // index, so none of them is needed.
 //
+// bfloat16 (the bf16 model's tables, JAX pallas_onehot.py:114-118, :275,
+// :317): gather_conv_bf16 takes bf16 feats and the transposed bf16 weights
+// Wt (K, Cout, Cin) and writes bf16 out.  The same gather-GEMM runs one bf16
+// mma.sync m16n8k16 a 16-deep step (a product of bf16 values is exact in
+// f32, so there is nothing to split), sums in f32 and rounds each output to
+// bf16 once: the TPU kernel's numbers (its one-hot gathers are exact, its
+// accumulator f32).  Cin must be a multiple of 8 (16-byte row copies; the
+// wrapper pads the 5 point features of conv_input to 8).  The bound at the
+// flagship's stages 2-3 moves to the bf16 rate, 989 TFLOP/s (~20 flops a
+// byte at 3.35 TB/s), six times the 3xTF32 rate.
+//
 // Interface: plain C, pointers from torch tensors, launched on the caller's
 // stream; returns the launch's CUDA error code (invalid value for K > 32).
 
@@ -48,6 +59,15 @@ int gather_conv_f32(const void* feats, const void* idx, const void* w,
   return (int)gather_gemm::launch((const float*)feats, (const int*)idx,
                                   (const float*)w, (float*)out, n, m, k, cin,
                                   cout, (cudaStream_t)stream);
+}
+
+int gather_conv_bf16(const void* feats, const void* idx, const void* wt,
+                     void* out, int n, long long m, int k, int cin, int cout,
+                     void* stream) {
+  return (int)gather_gemm::launch_bf16(
+      (const __nv_bfloat16*)feats, (const int*)idx,
+      (const __nv_bfloat16*)wt, (__nv_bfloat16*)out, n, m, k, cin, cout,
+      (cudaStream_t)stream);
 }
 
 }  // extern "C"

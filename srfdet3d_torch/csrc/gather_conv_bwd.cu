@@ -51,6 +51,22 @@
 // rows load by index and the reverse rulebook turns the scatter into a
 // gather.
 //
+// bfloat16 (the bf16 model, K4 only; JAX pallas_onehot_bwd.py:95-129,
+// :187, :196, :234-246): the dfeats gather-GEMM and the dW pass take bf16
+// feats, g and W and run bf16 mma.sync m16n8k16 with f32 accumulation; dW's
+// partials are f32, summed in chunk order and rounded to bf16 once, and each
+// dfeats element is rounded once.  (The subm backward, K3, has no bf16
+// variant: as on the TPU, pallas_onehot_bwd.py:428, its wrapper upcasts to
+// f32, runs the f32 kernel and casts the results back.)  The TPU kernel
+// rounds each offset's product (`ystack`) to bf16 before its one-hot scatter
+// (pallas_onehot_bwd.py:98); the JAX package's XLA path on the CPU keeps
+// them f32, and so does this gather, which has no such step: it computes
+// the XLA path's numbers, each dfeats element one rounding from the f32 sum.
+// Measured on the CPU (tests/test_torch_port_bf16_kernels.py, N 400, Cin
+// 16, Cout 32, K 27): the TPU kernel in interpret mode differs from the
+// XLA path by up to 2.4e-3 of the largest |dfeats| (dW 2.5e-3); the plain
+// version, which this kernel is held to on the card, within one bf16 ulp.
+//
 // Interface: plain C, pointers from torch tensors, launched on the caller's
 // stream; each entry returns the launch's CUDA error code.
 
@@ -69,7 +85,8 @@ constexpr int tile_of(int c) {
 
 // A dW tile of TM x TN over WM x WN warps of 32 x 32 accumulators (16
 // warps at 128 x 128); at least 4 warps, so that small tiles still compact
-// and load with 128 threads.
+// and load with 128 threads.  Sizes in elements of the tables' type (float
+// or bf16; a stage holds kDwBK hit rows of each operand, k-major).
 template <int TM, int TN>
 struct DwCfg {
   static constexpr int WM = TM >= 32 ? TM / 32 : 1;
@@ -77,27 +94,30 @@ struct DwCfg {
   static constexpr int kThreads = WM * WN * 32 < 128 ? 128 : WM * WN * 32;
   static constexpr int MT = TM / WM / 16, NT = TN / WN / 8;
   static constexpr int LDA = TM + 8, LDB = TN + 8;
-  static constexpr int A_FLOATS = kDwBK * LDA, B_FLOATS = kDwBK * LDB;
-  static constexpr int STAGE = A_FLOATS + B_FLOATS;
+  static constexpr int A_ELEMS = kDwBK * LDA, B_ELEMS = kDwBK * LDB;
+  static constexpr int STAGE = A_ELEMS + B_ELEMS;
   static_assert(MT >= 1 && NT >= 1 && TM % (16 * WM) == 0 &&
                     TN % (8 * WN) == 0,
                 "tile shape");
 };
 
 // Partial dW tile of one (row chunk, offset j, TM x TN tile): the sum over
-// the chunk's rows r that hit offset j of feats[r, ci] * g[rb[r, j], co].
-// Warps past WM x WN (small tiles) only compact and load.
-template <int TM, int TN>
+// the chunk's rows r that hit offset j of feats[r, ci] * g[rb[r, j], co],
+// in f32 (bf16 tables: bf16 MMAs, f32 partials).  Warps past WM x WN (small
+// tiles) only compact and load.
+template <typename E, int TM, int TN>
 __global__ void __launch_bounds__(DwCfg<TM, TN>::kThreads)
-dw_partial_kernel(const float* __restrict__ feats, const int* __restrict__ rb,
-                  const float* __restrict__ g, float* __restrict__ part,
+dw_partial_kernel(const E* __restrict__ feats, const int* __restrict__ rb,
+                  const E* __restrict__ g, float* __restrict__ part,
                   long long nrows, int mg, int k, int cin, int cout,
                   int chunk, int flip, int vec_a, int vec_b) {
   using C = DwCfg<TM, TN>;
+  constexpr bool kBf16 = sizeof(E) == 2;
   constexpr int WM = C::WM, WN = C::WN, T = C::kThreads;
   constexpr int MT = C::MT, NT = C::NT, LDA = C::LDA, LDB = C::LDB;
-  constexpr int A_FLOATS = C::A_FLOATS, STAGE = C::STAGE;
-  extern __shared__ __align__(16) float smem[];
+  constexpr int A_ELEMS = C::A_ELEMS, STAGE = C::STAGE;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  E* smem = reinterpret_cast<E*>(smem_raw);
   int* hit_r = reinterpret_cast<int*>(smem + kDwStages * STAGE);
   int* hit_g = hit_r + chunk;
   __shared__ int counts[kScan][T / 32];
@@ -147,34 +167,24 @@ dw_partial_kernel(const float* __restrict__ feats, const int* __restrict__ rb,
     __syncthreads();  // counts are reused; the lists are complete
   }
   const int steps = (hits + kDwBK - 1) / kDwBK;
-  const float* fchunk = feats + r_begin * cin;
+  const E* fchunk = feats + r_begin * cin;
 
   auto load = [&](int s, int buf) {
     const int h0 = s * kDwBK;
-    float* As = smem + buf * STAGE;
-    float* Bs = As + A_FLOATS;
-    if (vec_a) {
-      for (int e = tid; e < kDwBK * (TM / 4); e += T) {
-        const int kr = e / (TM / 4), c = (e % (TM / 4)) * 4;
+    E* As = smem + buf * STAGE;
+    E* Bs = As + A_ELEMS;
+    if constexpr (kBf16) {
+      // 16-byte copies of 8 channels (Cin, Cout % 8 == 0, aligned rows)
+      for (int e = tid; e < kDwBK * (TM / 8); e += T) {
+        const int kr = e / (TM / 8), c = (e % (TM / 8)) * 8;
         const int h = h0 + kr, cc = ci0 + c;
         const bool ok = h < hits && cc < cin;
         tc::cp_async16(As + kr * LDA + c,
                        ok ? fchunk + (long long)hit_r[h] * cin + cc : feats,
                        ok ? 16 : 0);
       }
-    } else {
-      for (int e = tid; e < kDwBK * TM; e += T) {
-        const int kr = e / TM, c = e % TM;
-        const int h = h0 + kr, cc = ci0 + c;
-        const bool ok = h < hits && cc < cin;
-        tc::cp_async4(As + kr * LDA + c,
-                      ok ? fchunk + (long long)hit_r[h] * cin + cc : feats,
-                      ok ? 4 : 0);
-      }
-    }
-    if (vec_b) {
-      for (int e = tid; e < kDwBK * (TN / 4); e += T) {
-        const int kr = e / (TN / 4), c = (e % (TN / 4)) * 4;
+      for (int e = tid; e < kDwBK * (TN / 8); e += T) {
+        const int kr = e / (TN / 8), c = (e % (TN / 8)) * 8;
         const int h = h0 + kr, cc = co0 + c;
         const bool ok = h < hits && cc < cout;
         tc::cp_async16(Bs + kr * LDB + c,
@@ -182,13 +192,43 @@ dw_partial_kernel(const float* __restrict__ feats, const int* __restrict__ rb,
                        ok ? 16 : 0);
       }
     } else {
-      for (int e = tid; e < kDwBK * TN; e += T) {
-        const int kr = e / TN, c = e % TN;
-        const int h = h0 + kr, cc = co0 + c;
-        const bool ok = h < hits && cc < cout;
-        tc::cp_async4(Bs + kr * LDB + c,
-                      ok ? g + (long long)hit_g[h] * cout + cc : g,
-                      ok ? 4 : 0);
+      if (vec_a) {
+        for (int e = tid; e < kDwBK * (TM / 4); e += T) {
+          const int kr = e / (TM / 4), c = (e % (TM / 4)) * 4;
+          const int h = h0 + kr, cc = ci0 + c;
+          const bool ok = h < hits && cc < cin;
+          tc::cp_async16(As + kr * LDA + c,
+                         ok ? fchunk + (long long)hit_r[h] * cin + cc : feats,
+                         ok ? 16 : 0);
+        }
+      } else {
+        for (int e = tid; e < kDwBK * TM; e += T) {
+          const int kr = e / TM, c = e % TM;
+          const int h = h0 + kr, cc = ci0 + c;
+          const bool ok = h < hits && cc < cin;
+          tc::cp_async4(As + kr * LDA + c,
+                        ok ? fchunk + (long long)hit_r[h] * cin + cc : feats,
+                        ok ? 4 : 0);
+        }
+      }
+      if (vec_b) {
+        for (int e = tid; e < kDwBK * (TN / 4); e += T) {
+          const int kr = e / (TN / 4), c = (e % (TN / 4)) * 4;
+          const int h = h0 + kr, cc = co0 + c;
+          const bool ok = h < hits && cc < cout;
+          tc::cp_async16(Bs + kr * LDB + c,
+                         ok ? g + (long long)hit_g[h] * cout + cc : g,
+                         ok ? 16 : 0);
+        }
+      } else {
+        for (int e = tid; e < kDwBK * TN; e += T) {
+          const int kr = e / TN, c = e % TN;
+          const int h = h0 + kr, cc = co0 + c;
+          const bool ok = h < hits && cc < cout;
+          tc::cp_async4(Bs + kr * LDB + c,
+                        ok ? g + (long long)hit_g[h] * cout + cc : g,
+                        ok ? 4 : 0);
+        }
       }
     }
   };
@@ -208,9 +248,13 @@ dw_partial_kernel(const float* __restrict__ feats, const int* __restrict__ rb,
     if (next < steps) load(next, next % kDwStages);
     tc::cp_commit();
     if (computes) {
-      const float* As = smem + (s % kDwStages) * STAGE;
-      tc::mma_stage<MT, NT, kDwBK, LDA, LDB, true>(As, As + A_FLOATS, acc,
-                                                   wm0, wn0, lane);
+      const E* As = smem + (s % kDwStages) * STAGE;
+      if constexpr (kBf16)
+        tc::mma_stage_bf16<MT, NT, kDwBK, LDA, LDB, true>(
+            As, As + A_ELEMS, acc, wm0, wn0, lane);
+      else
+        tc::mma_stage<MT, NT, kDwBK, LDA, LDB, true>(As, As + A_ELEMS, acc,
+                                                     wm0, wn0, lane);
     }
   }
   tc::cp_wait<0>();
@@ -222,14 +266,20 @@ dw_partial_kernel(const float* __restrict__ feats, const int* __restrict__ rb,
   }
 }
 
+// dW = the partials summed in chunk order, in f32 (rounded to bf16 once
+// for a bf16 dW)
+template <typename E>
 __global__ void dw_reduce_kernel(const float* __restrict__ part,
-                                 float* __restrict__ dw, int chunks,
+                                 E* __restrict__ dw, int chunks,
                                  long long per) {
   long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= per) return;
   float v = 0.f;
   for (int c = 0; c < chunks; ++c) v += part[(long long)c * per + e];
-  dw[e] = v;
+  if constexpr (sizeof(E) == 2)
+    dw[e] = __float2bfloat16_rn(v);
+  else
+    dw[e] = v;
 }
 
 // ---- the strided backward's preparation: reverse rulebook, row grouping
@@ -349,15 +399,15 @@ strided_prep_scatter(const unsigned char* __restrict__ key,
   }
 }
 
-template <int TM, int TN>
-cudaError_t launch_dw(const float* feats, const int* rb, const float* g,
+template <typename E, int TM, int TN>
+cudaError_t launch_dw(const E* feats, const int* rb, const E* g,
                       float* part, long long nrows, int mg, int k, int cin,
                       int cout, int chunk, int flip, int chunks,
                       cudaStream_t s) {
   using C = DwCfg<TM, TN>;
   const size_t smem =
-      sizeof(float) * kDwStages * C::STAGE + sizeof(int) * 2 * chunk;
-  auto fn = dw_partial_kernel<TM, TN>;
+      sizeof(E) * kDwStages * C::STAGE + sizeof(int) * 2 * chunk;
+  auto fn = dw_partial_kernel<E, TM, TN>;
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -368,6 +418,36 @@ cudaError_t launch_dw(const float* feats, const int* rb, const float* g,
   fn<<<grid, C::kThreads, smem, s>>>(feats, rb, g, part, nrows, mg, k, cin,
                                      cout, chunk, flip, vec_a, vec_b);
   return cudaGetLastError();
+}
+
+// the dW pass of either element type: the partials, then their sum
+template <typename E>
+int dw_pass(const E* f, const int* r, const E* gg, float* p, E* dw,
+            long long nrows, int mg, int k, int cin, int cout, int chunk,
+            int flip, cudaStream_t s) {
+  if (chunk < 1 || chunk > kMaxChunk || k < 1 || cin < 0 || cout < 0 ||
+      nrows < 0)
+    return (int)cudaErrorInvalidValue;
+  const int chunks = (int)((nrows + chunk - 1) / chunk);
+  const long long per = (long long)k * cin * cout;
+  if (per == 0) return (int)cudaSuccess;
+  if (chunks > 0) {
+    const int ti = tile_of(cin), to = tile_of(cout);
+    cudaError_t err = cudaErrorInvalidValue;
+#define SRF_DW(TI, TO)                                                      \
+  if (ti == TI && to == TO)                                                 \
+    err = launch_dw<E, TI, TO>(f, r, gg, p, nrows, mg, k, cin, cout, chunk, \
+                               flip, chunks, s);
+    SRF_DW(16, 16) SRF_DW(16, 32) SRF_DW(16, 64) SRF_DW(16, 128)
+    SRF_DW(32, 16) SRF_DW(32, 32) SRF_DW(32, 64) SRF_DW(32, 128)
+    SRF_DW(64, 16) SRF_DW(64, 32) SRF_DW(64, 64) SRF_DW(64, 128)
+    SRF_DW(128, 16) SRF_DW(128, 32) SRF_DW(128, 64) SRF_DW(128, 128)
+#undef SRF_DW
+    if (err != cudaSuccess) return (int)err;
+  }
+  dw_reduce_kernel<E><<<(unsigned)((per + 255) / 256), 256, 0, s>>>(
+      p, dw, chunks, per);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -396,6 +476,27 @@ int conv_bwd_dfeats_perm_f32(const void* g, const void* rb, const void* perm,
   return (int)gather_gemm::launch<true>(
       (const float*)g, (const int*)rb, (const float*)wt, (float*)dfeats, mg,
       nrows, k, cout, cin, (cudaStream_t)stream, (const int*)perm);
+}
+
+// the bf16 dfeats: g (M, Cout), w (K, Cin, Cout) the (flipped) weights
+// as they are (the bf16 gather-GEMM takes its B operand transposed),
+// dfeats (N, Cin); Cout % 8 == 0
+int conv_bwd_dfeats_bf16(const void* g, const void* rb, const void* w,
+                         void* dfeats, int mg, long long nrows, int k,
+                         int cout, int cin, void* stream) {
+  return (int)gather_gemm::launch_bf16(
+      (const __nv_bfloat16*)g, (const int*)rb, (const __nv_bfloat16*)w,
+      (__nv_bfloat16*)dfeats, mg, nrows, k, cout, cin, (cudaStream_t)stream);
+}
+
+int conv_bwd_dfeats_perm_bf16(const void* g, const void* rb, const void* perm,
+                              const void* w, void* dfeats, int mg,
+                              long long nrows, int k, int cout, int cin,
+                              void* stream) {
+  return (int)gather_gemm::launch_bf16<true>(
+      (const __nv_bfloat16*)g, (const int*)rb, (const __nv_bfloat16*)w,
+      (__nv_bfloat16*)dfeats, mg, nrows, k, cout, cin, (cudaStream_t)stream,
+      (const int*)perm);
 }
 
 // rev (N, K) int32: the reverse rulebook of idx (M, K) over N input rows,
@@ -439,34 +540,22 @@ int strided_group_i32(const void* rev, void* key, void* hist, void* perm,
 int conv_bwd_dw_f32(const void* feats, const void* rb, const void* g,
                     void* part, void* dw, long long nrows, int mg, int k,
                     int cin, int cout, int chunk, int flip, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const float* f = (const float*)feats;
-  const int* r = (const int*)rb;
-  const float* gg = (const float*)g;
-  float* p = (float*)part;
-  if (chunk < 1 || chunk > kMaxChunk || k < 1 || cin < 0 || cout < 0 ||
-      nrows < 0)
+  return dw_pass((const float*)feats, (const int*)rb, (const float*)g,
+                 (float*)part, (float*)dw, nrows, mg, k, cin, cout, chunk,
+                 flip, (cudaStream_t)stream);
+}
+
+// the same with bf16 feats, g and dW (f32 partials, dW rounded once);
+// Cin and Cout multiples of 8, feats and g 16-byte aligned
+int conv_bwd_dw_bf16(const void* feats, const void* rb, const void* g,
+                     void* part, void* dw, long long nrows, int mg, int k,
+                     int cin, int cout, int chunk, int flip, void* stream) {
+  if (cin % 8 != 0 || cout % 8 != 0 || !tc::aligned16(feats) ||
+      !tc::aligned16(g))
     return (int)cudaErrorInvalidValue;
-  const int chunks = (int)((nrows + chunk - 1) / chunk);
-  const long long per = (long long)k * cin * cout;
-  if (per == 0) return (int)cudaSuccess;
-  if (chunks > 0) {
-    const int ti = tile_of(cin), to = tile_of(cout);
-    cudaError_t err = cudaErrorInvalidValue;
-#define SRF_DW(TI, TO)                                                      \
-  if (ti == TI && to == TO)                                                 \
-    err = launch_dw<TI, TO>(f, r, gg, p, nrows, mg, k, cin, cout, chunk,   \
-                            flip, chunks, s);
-    SRF_DW(16, 16) SRF_DW(16, 32) SRF_DW(16, 64) SRF_DW(16, 128)
-    SRF_DW(32, 16) SRF_DW(32, 32) SRF_DW(32, 64) SRF_DW(32, 128)
-    SRF_DW(64, 16) SRF_DW(64, 32) SRF_DW(64, 64) SRF_DW(64, 128)
-    SRF_DW(128, 16) SRF_DW(128, 32) SRF_DW(128, 64) SRF_DW(128, 128)
-#undef SRF_DW
-    if (err != cudaSuccess) return (int)err;
-  }
-  dw_reduce_kernel<<<(unsigned)((per + 255) / 256), 256, 0, s>>>(
-      p, (float*)dw, chunks, per);
-  return (int)cudaGetLastError();
+  return dw_pass((const __nv_bfloat16*)feats, (const int*)rb,
+                 (const __nv_bfloat16*)g, (float*)part, (__nv_bfloat16*)dw,
+                 nrows, mg, k, cin, cout, chunk, flip, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -11,6 +11,15 @@ map read zero: `F.grid_sample(align_corners=False, padding_mode="zeros")`,
 which keeps only the (B*heads, head_dim, Q, points) result a level and
 not the gathered corners (at the flagship's width 43,054 queries a
 sample).
+
+In bfloat16 (`dtype`) everything computes in bfloat16, the coordinate
+arithmetic too, as in the JAX package (`deform_attn.py:113`, `:178-185`);
+the taps then come from `bilinear_taps`, the JAX package's own bilinear
+sample op for op (grid_sample computes its positions in float32):
+the raw pixel centres fed to the position embedding are x + 0.5, which
+bfloat16 holds exactly only below 128 (its spacing is 1 in [128, 256)), so
+on the flagship's 184-cell level the centres past 128 round to integers,
+in the JAX package and here alike.
 """
 
 from __future__ import annotations
@@ -22,12 +31,44 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import BatchNorm2d, dropout
+from .layers import BatchNorm2d, LayerNorm, Linear, dropout, softmax
+
+
+def bilinear_taps(value: torch.Tensor, loc: torch.Tensor) -> torch.Tensor:
+    """The JAX package's `_bilinear_sample` in the values' dtype, op for op
+    (`deform_attn.py:29-54`): value (N, C, H, W), loc (N, Q, P, 2)
+    normalized (x, y) -> (N, C, Q, P).  Each op rounds to the dtype, as a
+    bfloat16 program does; corners outside the map read zero.  The gather
+    reads a float32 copy of the values, so its backward sums in float32
+    (no bfloat16 scatter) and rounds once, through that copy's cast."""
+    n, c, h, w = value.shape
+    dt = value.dtype
+    x = loc[..., 0] * w - 0.5
+    y = loc[..., 1] * h - 0.5
+    x0, y0 = torch.floor(x), torch.floor(y)
+    lx, ly = x - x0, y - y0
+    flat = value.float().reshape(n, c, h * w)
+    q, p = loc.shape[1:3]
+
+    def tap(yy, xx):
+        ok = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+        idx = torch.where(ok, yy.long() * w + xx.long(), 0)
+        g = torch.gather(flat, 2, idx.reshape(n, 1, q * p).expand(n, c, -1))
+        g = torch.where(ok.reshape(n, 1, q * p), g, 0.0)
+        return g.reshape(n, c, q, p).to(dt)
+
+    one = torch.ones((), dtype=dt, device=value.device)
+    return (tap(y0, x0) * ((one - ly) * (one - lx))[:, None] +
+            tap(y0, x0 + 1) * ((one - ly) * lx)[:, None] +
+            tap(y0 + 1, x0) * (ly * (one - lx))[:, None] +
+            tap(y0 + 1, x0 + 1) * (ly * lx)[:, None])
 
 
 class MSDeformAttention(nn.Module):
     """queries (B, Q, C) attending to levels (B, H_l, W_l, C) at reference
     points (B, Q, 2), normalized [0, 1] (x, y)."""
+
+    dtype = torch.float32
 
     def __init__(self, embed_dim: int = 128, num_heads: int = 8,
                  num_levels: int = 4, num_points: int = 4):
@@ -35,12 +76,12 @@ class MSDeformAttention(nn.Module):
         self.num_heads, self.num_levels = num_heads, num_levels
         self.num_points = num_points
         c = embed_dim
-        self.value_proj = nn.Linear(c, c)
-        self.sampling_offsets = nn.Linear(
+        self.value_proj = Linear(c, c)
+        self.sampling_offsets = Linear(
             c, num_heads * num_levels * num_points * 2)
-        self.attention_weights = nn.Linear(
+        self.attention_weights = Linear(
             c, num_heads * num_levels * num_points)
-        self.output_proj = nn.Linear(c, c)
+        self.output_proj = Linear(c, c)
 
     @torch.no_grad()
     def init_weights(self) -> None:
@@ -65,7 +106,7 @@ class MSDeformAttention(nn.Module):
         nh, npt, nl = self.num_heads, self.num_points, len(levels)
         hd = c // nh
         off = self.sampling_offsets(query).view(b, q, nh, nl, npt, 2)
-        attn = torch.softmax(self.attention_weights(query).view(
+        attn = softmax(self.attention_weights(query).view(
             b, q, nh, nl * npt), -1).view(b, q, nh, nl, npt)
         out = query.new_zeros(b * nh, hd, q)
         for li, lv in enumerate(levels):
@@ -74,10 +115,13 @@ class MSDeformAttention(nn.Module):
             value = value.permute(0, 3, 4, 1, 2).reshape(b * nh, hd, h, w)
             loc = (reference_points[:, :, None, None, :] +
                    off[:, :, :, li] / off.new_tensor([w, h]))
-            grid = (2.0 * loc - 1.0).permute(0, 2, 1, 3, 4).reshape(
-                b * nh, q, npt, 2)
-            taps = F.grid_sample(value, grid, mode="bilinear",
-                                 padding_mode="zeros", align_corners=False)
+            loc = loc.permute(0, 2, 1, 3, 4).reshape(b * nh, q, npt, 2)
+            if value.dtype == torch.float32:
+                taps = F.grid_sample(value, 2.0 * loc - 1.0, mode="bilinear",
+                                     padding_mode="zeros",
+                                     align_corners=False)
+            else:
+                taps = bilinear_taps(value, loc)
             wgt = attn[:, :, :, li].permute(0, 2, 1, 3).reshape(
                 b * nh, 1, q, npt)
             out = out + (taps * wgt).sum(-1)              # (B*nh, hd, Q)
@@ -93,9 +137,9 @@ class PositionEmbeddingLearned(nn.Module):
 
     def __init__(self, num_pos_feats: int = 128):
         super().__init__()
-        self.fc1 = nn.Linear(2, num_pos_feats)
+        self.fc1 = Linear(2, num_pos_feats)
         self.bn = BatchNorm2d(num_pos_feats, eps=1e-5, momentum=0.1)
-        self.fc2 = nn.Linear(num_pos_feats, num_pos_feats)
+        self.fc2 = Linear(num_pos_feats, num_pos_feats)
 
     def forward(self, xy: torch.Tensor) -> torch.Tensor:
         x = self.fc1(xy)
@@ -110,10 +154,10 @@ class EncoderLayer(nn.Module):
     def __init__(self, c: int, ffn_dim: int, num_levels: int):
         super().__init__()
         self.attn = MSDeformAttention(c, num_levels=num_levels)
-        self.norm1 = nn.LayerNorm(c, eps=1e-5)
-        self.ffn1 = nn.Linear(c, ffn_dim)
-        self.ffn2 = nn.Linear(ffn_dim, c)
-        self.norm2 = nn.LayerNorm(c, eps=1e-5)
+        self.norm1 = LayerNorm(c, eps=1e-5)
+        self.ffn1 = Linear(c, ffn_dim)
+        self.ffn2 = Linear(ffn_dim, c)
+        self.norm2 = LayerNorm(c, eps=1e-5)
 
 
 class LidarBEVEncoder(nn.Module):
@@ -125,6 +169,7 @@ class LidarBEVEncoder(nn.Module):
     Reference points are the normalized pixel centres.  Dropout is 0.1,
     fixed, in train mode, from the generator the caller passes."""
 
+    dtype = torch.float32
     dropout_rate = 0.1
 
     def __init__(self, embed_dim: int = 128, num_levels: int = 4,
@@ -160,10 +205,10 @@ class LidarBEVEncoder(nn.Module):
                 torch.arange(w, device=dev, dtype=torch.float32) + 0.5,
                 indexing="ij")
             pix = torch.stack([xs, ys], -1).reshape(1, h * w, 2)
-            emb = self.pos[li](pix.expand(b, h * w, 2))
-            poss.append(emb + self.level_embed[li])
+            emb = self.pos[li](pix.expand(b, h * w, 2).to(self.dtype))
+            poss.append(emb + self.level_embed[li].to(self.dtype))
             refs.append(torch.stack([xs / w, ys / h], -1).reshape(1, h * w, 2)
-                        .expand(b, h * w, 2))
+                        .expand(b, h * w, 2).to(self.dtype))
         x = torch.cat([lv.reshape(b, -1, c) for lv in levels], 1)
         pos = torch.cat(poss, 1)
         ref = torch.cat(refs, 1)

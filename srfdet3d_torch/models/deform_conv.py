@@ -11,6 +11,14 @@ logits; it starts at zero, so the layer starts as a plain conv scaled by
 sigmoid(0) = 0.5.  The kernel is tap-major with Cin minor.  Each bilinear
 corner outside the input reads zero on its own.  The backward is autograd
 over the gathers and the product (held against JAX's autodiff).
+
+In bfloat16 (the layer's `dtype`) the offset conv runs in bfloat16 and its
+output is upcast; the base grid is built in the input's dtype, as the JAX
+package builds it: bfloat16 holds its integers exactly up to 256, and no
+shipped map passes that (Waymo LC's DCN stages see 40 x 60 and 20 x 30
+maps).  The bilinear weights are float32, so the sampled taps and the
+product promote to float32 against the bfloat16 kernel; the output is
+rounded to the input's dtype once.
 """
 
 from __future__ import annotations
@@ -18,6 +26,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+
+from .layers import Conv2d
 
 
 def modulated_deform_conv(x: torch.Tensor, weight: torch.Tensor,
@@ -58,27 +68,29 @@ def modulated_deform_conv(x: torch.Tensor, weight: torch.Tensor,
          tap(y0 + 1, x0) * (ly * (1 - lx))[..., None] +
          tap(y0 + 1, x0 + 1) * (ly * lx)[..., None])
     s = s * mask[..., None]
-    return s.reshape(b * ho * wo, kk * c).matmul(weight).reshape(
-        b, ho, wo, -1)
+    out = s.reshape(b * ho * wo, kk * c).matmul(weight.to(s.dtype))
+    return out.reshape(b, ho, wo, -1).to(dt)
 
 
 class ModulatedDeformConv(nn.Module):
     """DCNv2 layer on NCHW (deform_groups 1, no bias: a norm follows)."""
+
+    dtype = torch.float32
 
     def __init__(self, cin: int, cout: int, kernel: int = 3,
                  stride: int = 1, padding: int = 1):
         super().__init__()
         self.k, self.stride, self.padding = kernel, stride, padding
         kk = kernel * kernel
-        self.conv_offset = nn.Conv2d(cin, 3 * kk, kernel, stride, padding)
+        self.conv_offset = Conv2d(cin, 3 * kk, kernel, stride, padding)
         self.kernel = nn.Parameter(torch.zeros(kk * cin, cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         kk = self.k * self.k
-        off = self.conv_offset(x).permute(0, 2, 3, 1)   # (B, Ho, Wo, 3kk)
+        off = self.conv_offset(x).float().permute(0, 2, 3, 1)  # (B,Ho,Wo,3kk)
         offset = off[..., :2 * kk].reshape(off.shape[:-1] + (kk, 2))
         mask = torch.sigmoid(off[..., 2 * kk:])
         out = modulated_deform_conv(
-            x.permute(0, 2, 3, 1), self.kernel, offset, mask, self.k,
-            self.stride, self.padding)
+            x.permute(0, 2, 3, 1), self.kernel.to(self.dtype), offset, mask,
+            self.k, self.stride, self.padding)
         return out.permute(0, 3, 1, 2).contiguous()

@@ -29,6 +29,15 @@ first, then the head's), except that with `cfg.optim.freeze_lidar` the
 `pts_*` modules stay in eval mode and keep their BN statistics, and their
 features are detached (JAX `detector.py:191-203`), and that with
 `cfg.img.norm_eval` the image backbone stays in eval mode.
+
+Compute dtypes (JAX `detector.py:68-71`, `:152-186`): `cfg.compute_dtype`
+"bfloat16" runs every module in bfloat16 (`model.dtype`), and
+`cfg.img.compute_dtype` the image backbone and neck (`model.img_dtype`; ""
+inherits the model's dtype); any other string means float32.  The images
+are cast to the branch dtype before GridMask and the image features back
+to the model dtype before the head.  Parameters and BN statistics stay
+float32 (`layers.set_dtype`); boxes, losses, assignment and decode are
+float32 in every mode.
 """
 
 from __future__ import annotations
@@ -46,7 +55,7 @@ from .deform_conv import ModulatedDeformConv
 from .fpn import FPN
 from .grid_mask import grid_mask
 from .head import SRFDetHead, decode_boxes, focal_bias
-from .layers import MaskedBatchNorm
+from .layers import MaskedBatchNorm, set_dtype
 from .middle import PointPillarsScatter
 from .resnet import ResNet
 from .second import SECOND
@@ -107,19 +116,20 @@ def bev_geometry(cfg: SRFDetConfig):
     return d, sizes
 
 
+def compute_dtypes(cfg: SRFDetConfig) -> Tuple[torch.dtype, torch.dtype]:
+    """(the model's dtype, the image branch's): "bfloat16" is bfloat16 and
+    any other string float32, in both fields; an empty
+    `img.compute_dtype` inherits the model's."""
+    def of(name):
+        return torch.bfloat16 if name == "bfloat16" else torch.float32
+    model = of(cfg.compute_dtype)
+    img = cfg.img.compute_dtype if cfg.img is not None else ""
+    return model, (of(img) if img else model)
+
+
 def _check_supported(cfg: SRFDetConfig) -> None:
-    """The port runs every option of the JAX package's SRFDet but its
-    bfloat16 compute modes; an unknown VFE or middle kind is an error in
-    both."""
-    unsupported = []
-    if cfg.use_img and cfg.img.compute_dtype not in ("", "float32"):
-        unsupported.append(f"img.compute_dtype={cfg.img.compute_dtype}")
-    if cfg.compute_dtype != "float32":
-        unsupported.append(f"compute_dtype={cfg.compute_dtype}")
-    if unsupported:
-        raise NotImplementedError(
-            "srfdet3d_torch runs float32 models; not yet ported: "
-            + ", ".join(unsupported))
+    """The port runs every option of the JAX package's SRFDet; an unknown
+    VFE or middle kind is an error in both."""
     if cfg.vfe.kind not in ("hard_simple", "dynamic", "pillar"):
         raise ValueError(f"vfe.kind={cfg.vfe.kind}")
     if cfg.middle.kind not in ("sparse", "pillar_scatter"):
@@ -214,6 +224,11 @@ class SRFDet(nn.Module):
             with_dpg=hc.with_dpg, with_lidar_encoder=hc.with_lidar_encoder,
             remat=hc.remat, **img)
         self._init_weights(torch.Generator().manual_seed(seed))
+        dtype, self.img_dtype = compute_dtypes(cfg)
+        set_dtype(self, dtype)
+        if cfg.use_img:
+            set_dtype(self.img_backbone, self.img_dtype)
+            set_dtype(self.img_neck, self.img_dtype)
         self.to(dev)
         self.eval()
 
@@ -344,7 +359,7 @@ class SRFDet(nn.Module):
         stages = self.img_backbone(images)
         if train and self.cfg.optim.freeze_img:
             stages = tuple(s.detach() for s in stages)
-        return self.img_neck(stages)
+        return tuple(f.to(self.dtype) for f in self.img_neck(stages))
 
     def forward(self, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None):

@@ -32,6 +32,13 @@ levels before the proposals, `deform_attn.LidarBEVEncoder`), and `remat`
 `torch.utils.checkpoint`).  The JAX package's `unroll_train` and
 `unroll_predict` choose how XLA compiles its scan; the port runs the
 iterations eagerly, one module each, which is what both give.
+
+In bfloat16 (`dtype`, layers.set_dtype) the Linear layers, the attention,
+the DynamicConv and the LayerNorms compute in bfloat16 (JAX `head.py:75-98`,
+`:332-387`, `:484-570`); the RoIAlign's float32 weights promote its pooled
+features to float32, which promotes DynamicConv's first product, as in the
+JAX package.  The proposal boxes, the DPG's mixture of the learned
+proposals, `apply_deltas` and decode are float32 in every mode.
 """
 
 from __future__ import annotations
@@ -49,7 +56,8 @@ from ..geometry.boxes import boxes3d_to_corners3d, denormalize_bbox
 from ..geometry.iou import multiclass_nms_3d
 from ..ops.roi_align import multilevel_roi_align
 from .deform_attn import LidarBEVEncoder
-from .layers import ConvBNReLU, dropout
+from .layers import (Conv2d, ConvBNReLU, LayerNorm, Linear, dropout,
+                     softmax)
 
 _DEFAULT_SCALE_CLAMP = math.log(100000.0 / 16)
 
@@ -181,20 +189,23 @@ class MultiHeadAttention(nn.Module):
     def __init__(self, c: int, num_heads: int):
         super().__init__()
         self.num_heads = num_heads
-        self.q_proj = nn.Linear(c, c)
-        self.k_proj = nn.Linear(c, c)
-        self.v_proj = nn.Linear(c, c)
-        self.out_proj = nn.Linear(c, c)
+        self.q_proj = Linear(c, c)
+        self.k_proj = Linear(c, c)
+        self.v_proj = Linear(c, c)
+        self.out_proj = Linear(c, c)
 
     def forward(self, x: torch.Tensor, rate: float = 0.0,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         b, n, c = x.shape
         h = self.num_heads
         dh = c // h
-        q = self.q_proj(x).view(b, n, h, dh).transpose(1, 2) / math.sqrt(dh)
+        # flax divides by sqrt(depth) cast to the compute dtype
+        scale = math.sqrt(dh) if x.dtype == torch.float32 else \
+            torch.tensor(math.sqrt(dh), dtype=x.dtype).item()
+        q = self.q_proj(x).view(b, n, h, dh).transpose(1, 2) / scale
         k = self.k_proj(x).view(b, n, h, dh).transpose(1, 2)
         v = self.v_proj(x).view(b, n, h, dh).transpose(1, 2)
-        att = torch.softmax(q @ k.transpose(-1, -2), dim=-1)
+        att = softmax(q @ k.transpose(-1, -2), -1)
         att = dropout(att, rate, generator, (1, 1, n, n))
         out = (att @ v).transpose(1, 2).reshape(b, n, c)
         return self.out_proj(out)
@@ -207,20 +218,22 @@ class DynamicConv(nn.Module):
     def __init__(self, c: int, dynamic_dim: int, pooled_cells: int):
         super().__init__()
         self.c, self.d = c, dynamic_dim
-        self.dynamic_layer = nn.Linear(c, 2 * c * dynamic_dim)
-        self.norm1 = nn.LayerNorm(dynamic_dim, eps=1e-5)
-        self.norm2 = nn.LayerNorm(c, eps=1e-5)
-        self.out_layer = nn.Linear(pooled_cells * c, c)
-        self.norm3 = nn.LayerNorm(c, eps=1e-5)
+        self.dynamic_layer = Linear(c, 2 * c * dynamic_dim)
+        self.norm1 = LayerNorm(dynamic_dim, eps=1e-5)
+        self.norm2 = LayerNorm(c, eps=1e-5)
+        self.out_layer = Linear(pooled_cells * c, c)
+        self.norm3 = LayerNorm(c, eps=1e-5)
 
     def forward(self, prop_feats: torch.Tensor, roi_feats: torch.Tensor
                 ) -> torch.Tensor:
-        """prop_feats (N, C), roi_feats (N, S, C) -> (N, C)."""
+        """prop_feats (N, C), roi_feats (N, S, C) -> (N, C).  A float32
+        roi_feats promotes the first product (jnp.einsum's promotion)."""
         n, s, c = roi_feats.shape
         params = self.dynamic_layer(prop_feats)
         p1 = params[:, :c * self.d].view(n, c, self.d)
         p2 = params[:, c * self.d:].view(n, self.d, c)
-        f = F.relu(self.norm1(torch.bmm(roi_feats, p1)))
+        dt = torch.promote_types(roi_feats.dtype, p1.dtype)
+        f = F.relu(self.norm1(torch.bmm(roi_feats.to(dt), p1.to(dt))))
         f = F.relu(self.norm2(torch.bmm(f, p2)))
         return F.relu(self.norm3(self.out_layer(f.reshape(n, s * c))))
 
@@ -262,25 +275,25 @@ class SingleSRFDetHead(nn.Module):
         self.scale_clamp = scale_clamp
         self.img_strides = tuple(img_strides)
         if img_channels:
-            self.output_fused_proj = nn.Linear(img_channels + c, c)
+            self.output_fused_proj = Linear(img_channels + c, c)
         self.self_attn = MultiHeadAttention(c, num_attn_heads)
-        self.norm_attn = nn.LayerNorm(c, eps=1e-5)
+        self.norm_attn = LayerNorm(c, eps=1e-5)
         self.inst_interact = DynamicConv(c, dynamic_dim,
                                          pooler_resolution ** 2)
-        self.norm_inst = nn.LayerNorm(c, eps=1e-5)
-        self.ffn1 = nn.Linear(c, dim_feedforward)
-        self.ffn2 = nn.Linear(dim_feedforward, c)
-        self.norm_ffn = nn.LayerNorm(c, eps=1e-5)
-        self.cls_fcs = nn.ModuleList(nn.Linear(c, c, bias=False)
+        self.norm_inst = LayerNorm(c, eps=1e-5)
+        self.ffn1 = Linear(c, dim_feedforward)
+        self.ffn2 = Linear(dim_feedforward, c)
+        self.norm_ffn = LayerNorm(c, eps=1e-5)
+        self.cls_fcs = nn.ModuleList(Linear(c, c, bias=False)
                                      for _ in range(num_cls_convs))
-        self.cls_norms = nn.ModuleList(nn.LayerNorm(c, eps=1e-5)
+        self.cls_norms = nn.ModuleList(LayerNorm(c, eps=1e-5)
                                        for _ in range(num_cls_convs))
-        self.reg_fcs = nn.ModuleList(nn.Linear(c, c, bias=False)
+        self.reg_fcs = nn.ModuleList(Linear(c, c, bias=False)
                                      for _ in range(num_reg_convs))
-        self.reg_norms = nn.ModuleList(nn.LayerNorm(c, eps=1e-5)
+        self.reg_norms = nn.ModuleList(LayerNorm(c, eps=1e-5)
                                        for _ in range(num_reg_convs))
-        self.class_logits = nn.Linear(c, num_classes)
-        self.bboxes_delta = nn.Linear(c, code_size)
+        self.class_logits = Linear(c, num_classes)
+        self.bboxes_delta = Linear(c, code_size)
 
     def forward(self, point_feats: Sequence[torch.Tensor],
                 bboxes: torch.Tensor, prop_feats: torch.Tensor,
@@ -332,7 +345,10 @@ class SingleSRFDetHead(nn.Module):
     def apply_deltas(self, d: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """Center deltas scale with the box extents, log sizes add (clamped),
         sin/cos (and velocities) are replaced; centers come back
-        normalized and clipped to [0, 1]."""
+        normalized and clipped to [0, 1].  float32 in every mode: bfloat16
+        would quantize the normalized centres by ~4e-3 (JAX
+        `head.py:395-411`)."""
+        d, b = d.float(), b.float()
         ctr = b[..., 0:3] + d[..., 0:3] * torch.exp(b[..., 3:6])
         new_sizes = b[..., 3:6] + d[..., 3:6].clamp_max(self.scale_clamp)
         lo = b.new_tensor(self.pc_range[:3])
@@ -351,6 +367,8 @@ class SRFDetHead(nn.Module):
     proposals, no DPG; `with_lidar_encoder`: the deformable BEV encoder
     (`lidar_encoder`) over the LiDAR levels first; `remat`: each
     iteration recomputed in the backward pass."""
+
+    dtype = torch.float32
 
     def __init__(self, num_classes: int, feat_channels: int, num_levels: int,
                  dpg_cells: int, num_proposals: int = 900,
@@ -380,14 +398,14 @@ class SRFDetHead(nn.Module):
                 ConvBNReLU((l + 1) * c, (l + 1) * c, 3, 2, 1,
                            groups=(l + 1) * c)
                 for l in range(num_levels - 1))
-            self.dpg_fc1 = nn.Linear(dpg_cells, 1024)
-            self.dpg_fc2 = nn.Linear(1024, n_emb)
+            self.dpg_fc1 = Linear(dpg_cells, 1024)
+            self.dpg_fc2 = Linear(1024, n_emb)
         self.use_img = bool(img_channels)
         self.img_conv = None
         if self.use_img:
             if hidden_dim != img_channels:
                 self.img_conv = nn.ModuleList(
-                    nn.Conv2d(img_channels, hidden_dim, 3, 1, 1)
+                    Conv2d(img_channels, hidden_dim, 3, 1, 1)
                     for _ in range(img_levels))
         if self.use_img and with_dpg:
             h = hidden_dim
@@ -396,8 +414,8 @@ class SRFDetHead(nn.Module):
                            groups=(l + 1) * h)
                 for l in range(img_levels - 1))
             self.img_dpg_hw = tuple(img_dpg_hw)
-            self.dpg_fc1_img = nn.Linear(img_dpg_hw[0] * img_dpg_hw[1], 1500)
-            self.dpg_fc2_img = nn.Linear(1500, n_emb)
+            self.dpg_fc1_img = Linear(img_dpg_hw[0] * img_dpg_hw[1], 1500)
+            self.dpg_fc2_img = Linear(1500, n_emb)
         self.heads = nn.ModuleList(
             SingleSRFDetHead(num_classes, c, code_size=code_size,
                              pc_range=pc_range,
@@ -428,7 +446,7 @@ class SRFDetHead(nn.Module):
             boxes0 = self.init_proposal_boxes.expand(bs, n_p, self.code_size)
             prop = self.init_proposal_feats.expand(bs, n_p, -1)
             return torch.cat([torch.sigmoid(boxes0[..., :3]),
-                              boxes0[..., 3:]], -1), prop
+                              boxes0[..., 3:]], -1), prop.to(self.dtype)
         x = point_feats[0]
         for lvl, dw in enumerate(self.dpg_dw):
             x = torch.cat([point_feats[lvl + 1], dw(x)], 1)
@@ -443,14 +461,15 @@ class SRFDetHead(nn.Module):
             wimg = self.dpg_fc2_img(F.relu(self.dpg_fc1_img(
                 x.sum(1).reshape(bs, -1))))
             w = (w + wimg.view(bs, n_exp, n_p)) / 2.0
-        w = torch.softmax(w, dim=1)
+        # the mixture promotes to the float32 proposal parameters
+        w = softmax(w, 1).float()
         boxes0 = torch.einsum("ben,end->bnd", w, self.init_proposal_boxes
                               .view(n_exp, n_p, self.code_size))
         prop = torch.einsum("ben,enc->bnc", w, self.init_proposal_feats
                             .view(n_exp, n_p, -1))
         boxes = torch.cat([torch.sigmoid(boxes0[..., :3]), boxes0[..., 3:]],
                           -1)
-        return boxes, prop
+        return boxes, prop.to(self.dtype)
 
     def forward(self, point_feats: Sequence[torch.Tensor],
                 generator: Optional[torch.Generator] = None,

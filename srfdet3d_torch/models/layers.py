@@ -15,6 +15,15 @@ the global mean in a second; BatchNorm2d averages each rank's mean and
 mean of squares over the ranks (flax's fast variance), and its backward
 sums the gradient's two reductions over the ranks.  Without a group no
 collective is issued.
+
+Compute dtype (the JAX package's `compute_dtype`): every module has a
+`dtype`, float32 unless `set_dtype` sets it, with flax's meaning of a
+layer's `dtype=`.  Parameters and BN statistics stay float32; the input and
+the weight are cast to `dtype` at use, the op computes in it and returns
+it.  `Linear` and `Conv2d` add their bias in `dtype` after the product is
+rounded, as flax does; `LayerNorm` and the BatchNorms take float32
+statistics of the upcast input and round their output once.  In float32
+each layer is its torch counterpart, unchanged.
 """
 
 from __future__ import annotations
@@ -29,11 +38,66 @@ from torch import nn
 from ..parallel import mesh
 
 
+def set_dtype(module: nn.Module, dtype: torch.dtype) -> None:
+    """Set the compute dtype of `module` and of every module under it."""
+    for mod in module.modules():
+        mod.dtype = dtype
+
+
+class Linear(nn.Linear):
+    """flax nn.Dense: in `dtype` the input and the weight are cast, the
+    product is rounded to `dtype`, then the bias (cast) is added."""
+
+    dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        if dt == torch.float32:
+            return super().forward(x.to(dt))
+        y = F.linear(x.to(dt), self.weight.to(dt))
+        return y if self.bias is None else y + self.bias.to(dt)
+
+
+class Conv2d(nn.Conv2d):
+    """flax nn.Conv on NCHW, with Linear's rounding points."""
+
+    dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        if dt == torch.float32:
+            return super().forward(x.to(dt))
+        y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
+        return (y if self.bias is None
+                else y + self.bias.to(dt)[:, None, None])
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax nn.LayerNorm: float32 statistics and normalization of the
+    upcast input, the output rounded to `dtype`."""
+
+    dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.float()).to(self.dtype)
+
+
+def softmax(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """jax.nn.softmax along `dim`: torch's in float32; in a narrower dtype
+    its rounding points, x - max, the exp, the (float32-accumulated) sum
+    and the quotient each rounded to x's dtype."""
+    if x.dtype == torch.float32:
+        return torch.softmax(x, dim)
+    e = torch.exp(x - x.amax(dim, keepdim=True))
+    return e / e.sum(dim, keepdim=True)
+
+
 def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator],
             shape: Optional[Sequence[int]] = None) -> torch.Tensor:
     """flax's nn.Dropout: keep with probability 1 - rate, scale kept values
-    by 1 / (1 - rate).  `shape` draws a mask that broadcasts over x."""
+    by 1 / (1 - rate).  `shape` draws a mask that broadcasts over x.  The
+    draws are float32 whatever x's dtype; a bfloat16 x is scaled in it."""
     if rate == 0.0:
         return x
     if generator is None:
@@ -46,7 +110,10 @@ def dropout(x: torch.Tensor, rate: float,
 
 class MaskedBatchNorm(nn.Module):
     """BatchNorm over all leading axes of (..., C) with an optional validity
-    mask (...,): train-mode statistics are taken over mask==True rows."""
+    mask (...,): train-mode statistics are taken over mask==True rows, in
+    float32 from the upcast input; the output is `dtype`."""
+
+    dtype = torch.float32
 
     def __init__(self, channels: int, momentum: float = 0.01,
                  eps: float = 1e-3):
@@ -66,7 +133,7 @@ class MaskedBatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         y = (xf - mean) * torch.rsqrt(var + self.eps)
-        return (y * self.weight + self.bias).to(x.dtype)
+        return (y * self.weight + self.bias).to(self.dtype)
 
     @staticmethod
     def _batch_stats(xf: torch.Tensor, mask: Optional[torch.Tensor]):
@@ -99,9 +166,15 @@ class MaskedBatchNorm(nn.Module):
 class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm2d whose train-mode update stores the BIASED batch variance
     in running_var, as flax's nn.BatchNorm does (torch's stores the
-    unbiased one).  Normalization itself is torch's."""
+    unbiased one).  Normalization itself is torch's, which takes a bfloat16
+    input beside the float32 parameters, computes in float32 and returns
+    the input's dtype; the batch statistics are float32, of the upcast
+    input."""
+
+    dtype = torch.float32
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
         if not self.training:
             return super().forward(x)
         if mesh.active():
@@ -111,7 +184,8 @@ class BatchNorm2d(nn.BatchNorm2d):
             y = F.batch_norm(x, None, None, self.weight, self.bias, True,
                              0.0, self.eps)
             with torch.no_grad():
-                var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+                var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+                                           unbiased=False)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(1 - m).add_(m * mean)
@@ -128,11 +202,13 @@ class _SyncedBatchNorm2d(torch.autograd.Function):
     those statistics.  The backward sums the two per-channel reductions of
     the incoming gradient over the ranks in one collective (the
     statistics' gradient, reference SyncBN), and keeps only x and the
-    statistics for it."""
+    statistics for it.  A bfloat16 x takes float32 statistics and
+    gradient sums; its dx is rounded to bfloat16 once."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, eps):
-        var_l, mean_l = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+        var_l, mean_l = torch.var_mean(x.float(), dim=(0, 2, 3),
+                                       unbiased=False)
         stats = torch.stack([mean_l, var_l + mean_l * mean_l])
         dist.all_reduce(stats)
         mean, mean2 = stats / mesh.world()
@@ -147,14 +223,15 @@ class _SyncedBatchNorm2d(torch.autograd.Function):
     def backward(ctx, dy, _dmean, _dvar):
         x, weight, mean, invstd = ctx.saved_tensors
         shape = (1, -1, 1, 1)
-        xhat = (x - mean.view(shape)) * invstd.view(shape)
+        dy = dy.float()
+        xhat = (x.float() - mean.view(shape)) * invstd.view(shape)
         local = torch.stack([dy.sum((0, 2, 3)), (dy * xhat).sum((0, 2, 3))])
         sums = local.clone()
         dist.all_reduce(sums)
         n = x.numel() // x.shape[1] * mesh.world()
         dx = (weight * invstd).view(shape) * (
             dy - (sums[0] / n).view(shape) - xhat * (sums[1] / n).view(shape))
-        return dx, local[1], local[0], None
+        return dx.to(x.dtype), local[1], local[0], None
 
 
 class ConvBNReLU(nn.Module):
@@ -169,8 +246,8 @@ class ConvBNReLU(nn.Module):
                  momentum: float = 0.01):
         super().__init__()
         self.relu = relu
-        self.conv = nn.Conv2d(cin, cout, kernel, stride, padding,
-                              groups=groups, bias=bias)
+        self.conv = Conv2d(cin, cout, kernel, stride, padding,
+                           groups=groups, bias=bias)
         self.bn = (BatchNorm2d(cout, eps=eps, momentum=momentum) if bn
                    else nn.Identity())
 

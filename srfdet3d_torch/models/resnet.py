@@ -19,7 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .deform_conv import ModulatedDeformConv
-from .layers import BatchNorm2d, conv_bn
+from .layers import BatchNorm2d, Conv2d, conv_bn
 
 RESNET_DEPTHS = {
     18: ("basic", (2, 2, 2, 2)),
@@ -78,7 +78,7 @@ class ResNet(nn.Module):
         super().__init__()
         kind, layers = RESNET_DEPTHS[depth]
         block = Bottleneck if kind == "bottleneck" else BasicBlock
-        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = BatchNorm2d(64, eps=1e-5, momentum=0.1)
         self.layers = nn.ModuleList()
         cin, planes = 64, 64

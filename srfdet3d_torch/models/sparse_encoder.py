@@ -53,7 +53,11 @@ def _pad3(p):
 class GatheredConvBN(nn.Module):
     """Gather-GEMM conv + masked BN + optional ReLU over a rulebook.  The
     kernel keeps the JAX layout (K, Cin, Cout); `subm` marks a submanifold
-    rulebook, whose backward is the symmetric one."""
+    rulebook, whose backward is the symmetric one.  In bfloat16 the
+    kernel is cast at use (JAX `w.astype(self.dtype)`), so its grad comes
+    back rounded to bfloat16 through the cast."""
+
+    dtype = torch.float32
 
     def __init__(self, cin: int, cout: int, num_offsets: int,
                  relu: bool = True, subm: bool = False):
@@ -64,7 +68,8 @@ class GatheredConvBN(nn.Module):
         self.subm = subm
 
     def forward(self, feats, gidx, mask):
-        out = gathered_conv_apply_batched(feats, gidx, self.kernel,
+        out = gathered_conv_apply_batched(feats, gidx,
+                                          self.kernel.to(self.dtype),
                                           subm=self.subm)
         out = self.bn(out, mask)
         if self.relu:
@@ -180,7 +185,10 @@ def _bitmap_supported(shape, pads: List) -> bool:
 
 class SparseEncoder(nn.Module):
     """Sparse encoder of either layout; submodules carry the JAX names
-    (conv_input, down{i}, subm{i}_{j} or bb{i}_{j}_conv{1,2}, conv_out)."""
+    (conv_input, down{i}, subm{i}_{j} or bb{i}_{j}_conv{1,2}, conv_out).
+    The voxel features are cast to `dtype` on entry."""
+
+    dtype = torch.float32
 
     def __init__(self, in_channels: int, sparse_shape: Tuple[int, int, int],
                  base_channels: int = 16, output_channels: int = 128,
@@ -243,7 +251,7 @@ class SparseEncoder(nn.Module):
         rb = backend(voxel_coords, voxel_mask, self.sparse_shape)
         mask = voxel_mask
         gidx = rb.subm()
-        feats = self.conv_input(voxel_feats.float(), gidx, mask)
+        feats = self.conv_input(voxel_feats.to(self.dtype), gidx, mask)
         ds = 0
         for kind, name, pad in self.plan:
             if kind == "down":

@@ -14,7 +14,10 @@
   gather-back concat between layers.
 
 Points and voxels are flat over the batch; invalid points carry the slot id
-`v_cap` and are dropped by the segment reductions.
+`v_cap` and are dropped by the segment reductions.  The decorations are
+float32; the Linear and BN layers run in the module's `dtype`
+(layers.set_dtype), and so do the pooled features of the PFN and the
+dynamic VFE.  HardSimpleVFE's means stay float32: the encoder casts them.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from torch import nn
 from ..config import VoxelizationSpec
 from ..ops.scatter import segment_max, segment_mean
 from ..ops.voxelize import VoxelizedPoints
-from .layers import MaskedBatchNorm
+from .layers import Linear, MaskedBatchNorm
 
 # width of the centroid-aware MLP (the JAX module's centroid_pos_emb_dims,
 # which no shipped config changes)
@@ -66,7 +69,7 @@ class PFNLayer(nn.Module):
         super().__init__()
         self.last_layer = last_layer
         units = cout if last_layer else cout // 2
-        self.linear = nn.Linear(cin, units, bias=False)
+        self.linear = Linear(cin, units, bias=False)
         self.bn = MaskedBatchNorm(units)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, idx: torch.Tensor,
@@ -154,7 +157,7 @@ class DynamicVFELayer(nn.Module):
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
-        self.linear = nn.Linear(cin, cout, bias=False)
+        self.linear = Linear(cin, cout, bias=False)
         self.bn = MaskedBatchNorm(cout)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -180,9 +183,9 @@ class DynamicVFE(nn.Module):
         if with_cluster_center:
             if self.with_centroid_aware:
                 e = _CENTROID_EMB
-                self.centroid_fc1 = nn.Linear(3, e, bias=False)
+                self.centroid_fc1 = Linear(3, e, bias=False)
                 self.centroid_bn1 = MaskedBatchNorm(e)
-                self.centroid_fc2 = nn.Linear(e, e, bias=False)
+                self.centroid_fc2 = Linear(e, e, bias=False)
                 self.centroid_bn2 = MaskedBatchNorm(e)
                 cin += e
             else:

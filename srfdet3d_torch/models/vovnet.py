@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import conv_bn
+from .layers import Conv2d, conv_bn
 
 # the public VoVNetV2 architecture constants
 VOVNET_SPECS = {
@@ -52,7 +52,7 @@ class ESE(nn.Module):
 
     def __init__(self, channels: int):
         super().__init__()
-        self.fc = nn.Conv2d(channels, channels, 1)
+        self.fc = Conv2d(channels, channels, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s = self.fc(x.mean((2, 3), keepdim=True))

@@ -25,6 +25,14 @@ Each wrapper runs its plain version for tensors on the CPU and the kernel,
 or raises, for tensors on the card.  The plain versions are the JAX
 package's CPU formulas: the symmetric gather (`ops/sparse_conv.py:753-765`)
 and the autodiff gather + scatter-add (`:689-703`).
+
+feats, W and g are float32, or all bfloat16 (the bf16 model).  In bfloat16
+K4 runs its bf16 kernels (f32 accumulators and partials, each result
+rounded to bfloat16 once); K3, as the TPU kernel's wrapper does
+(`pallas_onehot_bwd.py:428`), upcasts feats, g and W to float32, runs the
+float32 kernel and casts dfeats and dW back.  The plain versions sum in
+float32 and round once, as the JAX package's `preferred_element_type=
+float32` and `.astype` do.
 """
 
 from __future__ import annotations
@@ -35,10 +43,13 @@ from typing import Optional, Tuple
 import torch
 
 from . import cuda_build
+from .gather_conv import check_dtypes, pad_channels
 
-# kernel launches since the last reset, one per backward (chip_smoke.py)
+# kernel launches since the last reset, one per backward (chip_smoke.py);
+# a bf16 subm backward counts as K3's (the float32 kernel on upcasts)
 subm_launches = 0
 strided_launches = 0
+strided_bf16_launches = 0
 
 # rows of the input a dW block compacts and sums before its partial is
 # written (the kernel takes at most 4096)
@@ -54,6 +65,12 @@ _SIGNATURES = {
     # feats, rb, g, part, dW, N, M, K, Cin, Cout, chunk, flip, stream
     "conv_bwd_dw_f32": [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I,
                         _P],
+    # the bf16 entries: dfeats take W (K, Cin, Cout) as it is
+    "conv_bwd_dfeats_bf16": [_P, _P, _P, _P, _I, _LL, _I, _I, _I, _P],
+    "conv_bwd_dfeats_perm_bf16": [_P, _P, _P, _P, _P, _I, _LL, _I, _I, _I,
+                                  _P],
+    "conv_bwd_dw_bf16": [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I,
+                         _P],
     # idx, rev, M, N, K, stream
     "strided_reverse_i32": [_P, _P, _LL, _I, _I, _P],
     # rev, key, hist, perm, N, M, K, stream
@@ -146,7 +163,8 @@ def gather_bwd_plain(feats: torch.Tensor, rb: torch.Tensor,
                      weights: torch.Tensor, g: torch.Tensor, flip: bool,
                      need_dfeats: bool = True) -> Grads:
     """Plain version of the kernel: the gather formula over rulebook rb
-    (N, K) into g (M, Cout), offsets flipped for a subm rulebook."""
+    (N, K) into g (M, Cout), offsets flipped for a subm rulebook; float32
+    sums, rounded once to feats' / W's dtype."""
     n, cin = feats.shape
     k = rb.shape[1]
     cout = weights.shape[2]
@@ -159,7 +177,9 @@ def gather_bwd_plain(feats: torch.Tensor, rb: torch.Tensor,
         dfeats = gat @ w_bwd.float()
     dw = (feats.float().t() @ gat).reshape(cin, k, cout).transpose(0, 1)
     dw = dw.flip(0) if flip else dw
-    return dfeats, dw.contiguous()
+    if dfeats is not None:
+        dfeats = dfeats.to(feats.dtype)
+    return dfeats, dw.contiguous().to(weights.dtype)
 
 
 def grouped_bwd_plain(feats: torch.Tensor, rev: torch.Tensor,
@@ -179,7 +199,8 @@ def scatter_bwd_plain(feats: torch.Tensor, idx: torch.Tensor,
                       weights: torch.Tensor, g: torch.Tensor,
                       need_dfeats: bool = True) -> Grads:
     """Plain version for any rulebook (M, K): the forward's autodiff, a
-    re-gather for dW and a scatter-add for dfeats."""
+    re-gather for dW and a scatter-add for dfeats, both in float32 (no
+    bfloat16 atomics) and rounded once to feats' / W's dtype."""
     n, cin = feats.shape
     m, k = idx.shape
     cout = weights.shape[2]
@@ -194,8 +215,8 @@ def scatter_bwd_plain(feats: torch.Tensor, idx: torch.Tensor,
         dfeats = torch.zeros(n + 1, cin, dtype=torch.float32,
                              device=feats.device)
         dfeats.index_add_(0, flat, contrib.reshape(m * k, cin))
-        dfeats = dfeats[:n]
-    return dfeats, dw
+        dfeats = dfeats[:n].to(feats.dtype)
+    return dfeats, dw.to(weights.dtype)
 
 
 def _check(name, feats, rb, weights, g):
@@ -206,9 +227,7 @@ def _check(name, feats, rb, weights, g):
             raise ValueError(f"{name}: {what} is not on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {what} must be contiguous")
-    for what, t in (("feats", feats), ("W", weights), ("g", g)):
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name}: the kernel takes float32 {what}")
+    check_dtypes(name, feats, weights, g)
     if rb.dtype != torch.int32:
         raise ValueError(f"{name}: the rulebook must be int32")
     n, cin = feats.shape
@@ -230,39 +249,53 @@ def _kernel_bwd(feats: torch.Tensor, rb: torch.Tensor,
                 need_dfeats: bool, name: str,
                 perm: Optional[torch.Tensor] = None) -> Grads:
     """Launch the dfeats gather (if asked; its tile rows through perm
-    where given) and the two dW passes."""
+    where given) and the two dW passes, float32 or bfloat16.  The float32
+    dfeats gather takes the (flipped) weights transposed, (K, Cout, Cin);
+    the bf16 one takes them as they are, and its Cin and Cout are padded
+    with zeros to multiples of 8 where they are not (its 16-byte row
+    copies), the results cut back."""
     _check(name, feats, rb, weights, g)
+    bf16 = feats.dtype == torch.bfloat16
+    kind = "bf16" if bf16 else "f32"
     n, cin = feats.shape
     k = rb.shape[1]
     mg, cout = g.shape
     dev = feats.device
     lib = cuda_build.load_library("gather_conv_bwd", _SIGNATURES)
+    fp, gp = (pad_channels(feats, 1), pad_channels(g, 1)) if bf16 \
+        else (feats, g)
+    cin_k, cout_k = fp.shape[1], gp.shape[1]
     chunks = (n + DW_CHUNK - 1) // DW_CHUNK
-    part = torch.empty(max(chunks, 1) * k * cin * cout, dtype=torch.float32,
-                       device=dev)
-    dw = torch.empty(k, cin, cout, dtype=torch.float32, device=dev)
+    part = torch.empty(max(chunks, 1) * k * cin_k * cout_k,
+                       dtype=torch.float32, device=dev)
+    dw = torch.empty(k, cin_k, cout_k, dtype=feats.dtype, device=dev)
     dfeats = None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if need_dfeats:
             w = weights.flip(0) if flip else weights
-            wt = w.transpose(1, 2).contiguous()             # (K, Cout, Cin)
-            dfeats = torch.empty(n, cin, dtype=torch.float32, device=dev)
+            w = (pad_channels(pad_channels(w, 2), 1) if bf16    # (K, Cin, Cout)
+                 else w.transpose(1, 2).contiguous())        # (K, Cout, Cin)
+            dfeats = torch.empty(n, cin_k, dtype=feats.dtype, device=dev)
             if perm is None:
-                rc = lib.conv_bwd_dfeats_f32(g.data_ptr(), rb.data_ptr(),
-                                             wt.data_ptr(), dfeats.data_ptr(),
-                                             mg, n, k, cout, cin, stream)
+                rc = getattr(lib, f"conv_bwd_dfeats_{kind}")(
+                    gp.data_ptr(), rb.data_ptr(), w.data_ptr(),
+                    dfeats.data_ptr(), mg, n, k, cout_k, cin_k, stream)
             else:
-                rc = lib.conv_bwd_dfeats_perm_f32(
-                    g.data_ptr(), rb.data_ptr(), perm.data_ptr(),
-                    wt.data_ptr(), dfeats.data_ptr(), mg, n, k, cout, cin,
-                    stream)
+                rc = getattr(lib, f"conv_bwd_dfeats_perm_{kind}")(
+                    gp.data_ptr(), rb.data_ptr(), perm.data_ptr(),
+                    w.data_ptr(), dfeats.data_ptr(), mg, n, k, cout_k,
+                    cin_k, stream)
             cuda_build.check(lib, rc, f"{name} dfeats")
-        rc = lib.conv_bwd_dw_f32(feats.data_ptr(), rb.data_ptr(),
-                                 g.data_ptr(), part.data_ptr(),
-                                 dw.data_ptr(), n, mg, k, cin, cout,
-                                 DW_CHUNK, int(flip), stream)
+            if cin_k != cin:
+                dfeats = dfeats[:, :cin].contiguous()
+        rc = getattr(lib, f"conv_bwd_dw_{kind}")(
+            fp.data_ptr(), rb.data_ptr(), gp.data_ptr(), part.data_ptr(),
+            dw.data_ptr(), n, mg, k, cin_k, cout_k, DW_CHUNK, int(flip),
+            stream)
     cuda_build.check(lib, rc, f"{name} dW")
+    if (cin_k, cout_k) != (cin, cout):
+        dw = dw[:, :cin, :cout].contiguous()
     return dfeats, dw
 
 
@@ -278,7 +311,14 @@ def subm_conv_bwd(feats: torch.Tensor, idx: torch.Tensor,
                   weights: torch.Tensor, g: torch.Tensor,
                   need_dfeats: bool = True) -> Grads:
     """K3: backward of a subm conv (idx (N, K) symmetric, M == N).
-    Returns (dfeats (N, Cin) or None, dW (K, Cin, Cout))."""
+    Returns (dfeats (N, Cin) or None, dW (K, Cin, Cout)).  bfloat16 inputs
+    run the float32 kernel (or plain version) on their upcasts; the results
+    come back rounded to bfloat16."""
+    dtype = check_dtypes("subm_conv_bwd", feats, weights, g)
+    if dtype != torch.float32:
+        dfeats, dw = subm_conv_bwd(feats.float(), idx, weights.float(),
+                                   g.float(), need_dfeats)
+        return (None if dfeats is None else dfeats.to(dtype)), dw.to(dtype)
     if not _on_card("subm_conv_bwd", feats):
         return gather_bwd_plain(feats, idx, weights, g, True, need_dfeats)
     global subm_launches
@@ -293,15 +333,20 @@ def strided_conv_bwd(feats: torch.Tensor, idx: torch.Tensor,
                      need_dfeats: bool = True) -> Grads:
     """K4: backward of a strided or conv_out conv, idx (M, K) over N input
     rows, through its reverse rulebook (dfeats over the grouped rows).
-    Returns (dfeats (N, Cin) or None, dW (K, Cin, Cout))."""
+    Returns (dfeats (N, Cin) or None, dW (K, Cin, Cout)), float32 or
+    bfloat16 as the inputs."""
+    check_dtypes("strided_conv_bwd", feats, weights, g)
     if not _on_card("strided_conv_bwd", feats):
         return scatter_bwd_plain(feats, idx, weights, g, need_dfeats)
-    global strided_launches
+    global strided_launches, strided_bf16_launches
     if idx.device != feats.device or g.shape[0] != idx.shape[0]:
         raise ValueError(f"strided_conv_bwd: idx {tuple(idx.shape)} on "
                          f"{idx.device}, g {tuple(g.shape)}")
     rev, perm = strided_prep(idx, feats.shape[0], need_dfeats)
     out = _kernel_bwd(feats, rev, weights, g, False, need_dfeats,
                       "strided_conv_bwd", perm)
-    strided_launches += 1
+    if feats.dtype == torch.float32:
+        strided_launches += 1
+    else:
+        strided_bf16_launches += 1
     return out

@@ -22,6 +22,12 @@ The backward (`CornerPool`) gives the feature table its cotangent through
 the roi_scatter kernel (K5, ops/roi_scatter.py) and the corner weights
 theirs, which flow on to the RoIs: the sample positions, and so the boxes
 they come from, carry gradient, as in the JAX package.
+
+A bfloat16 table (the bfloat16 model) times the float32 weights promotes:
+the pooled features are float32, as in the JAX package.  Its cotangent
+takes the JAX package's route for a non-float32 cotangent
+(`roi_align.py:116-140`): not K5 but the plain scatter, summed in float32
+(index_add_ on a float32 table) and rounded to bfloat16 once.
 """
 
 from __future__ import annotations
@@ -30,7 +36,8 @@ from typing import NamedTuple, Sequence
 
 import torch
 
-from .roi_scatter import expand_axes, roi_scatter, sample_grads
+from .roi_scatter import (expand_axes, roi_scatter, roi_scatter_plain,
+                          sample_grads)
 
 
 def _level_geometry(shapes, rois, strides, finest_scale):
@@ -136,7 +143,8 @@ class CornerPool(torch.autograd.Function):
                 sr: int):
         r, _, n_s, _ = idx.shape
         c = table.shape[1]
-        acc = table.new_zeros(r, n_s, n_s, c)
+        acc = table.new_zeros(r, n_s, n_s, c, dtype=torch.promote_types(
+            table.dtype, wgt.dtype))
         for q in range(4):
             acc += table[idx[:, q]] * wgt[:, q, ..., None]
         pooled = acc.reshape(r, out_size, sr, out_size, sr, c).mean((2, 4))
@@ -150,9 +158,13 @@ class CornerPool(torch.autograd.Function):
         table, idx, wgt, drop, cells, cw, level = ctx.saved_tensors
         gp = gp.contiguous()
         dtable = dwgt = None
-        if ctx.needs_input_grad[0]:
+        if ctx.needs_input_grad[0] and table.dtype == torch.float32:
             dtable = roi_scatter(gp, cells, cw, level, drop, table.shape[0],
                                  ctx.sr)
+        elif ctx.needs_input_grad[0]:
+            dtable = roi_scatter_plain(
+                gp.float(), *expand_axes(cells, cw, level), drop,
+                table.shape[0], ctx.sr).to(table.dtype)
         if ctx.needs_input_grad[2]:
             gs = sample_grads(gp, drop, ctx.sr)                # (R, S, S, C)
             dwgt = torch.stack([(table[idx[:, q]] * gs).sum(-1)

@@ -38,7 +38,10 @@ class GatheredConv(torch.autograd.Function):
     is K3 for a subm rulebook (symmetric, M == N) and K4 otherwise, as the
     JAX package's `_onehot_conv_subm` / `_onehot_conv` custom VJPs pick
     them.  The kernels' outputs carry no graph of their own, so this
-    Function is what gives the encoder's weights their gradients."""
+    Function is what gives the encoder's weights their gradients.  feats
+    and weights share one dtype, float32 or bfloat16 (the bf16 model casts
+    its float32 kernels before this Function, so dW comes back rounded to
+    bfloat16 and reaches the parameter through the cast, as in JAX)."""
 
     @staticmethod
     def forward(ctx, feats, idx, weights, subm: bool):

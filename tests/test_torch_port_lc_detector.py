@@ -134,8 +134,9 @@ def test_lc_image_roi_patch_refused(patch):
     ported: now the model builds with each, every head iteration carries
     its capacity rule, a predict with fallback -1 equals the pairs route's
     bit for bit and one with fallback 0 differs (test_torch_port_options_
-    roi.py holds the rules against JAX).  What is still refused on this
-    config is the image branch in bfloat16."""
+    roi.py holds the rules against JAX).  The image branch in bfloat16,
+    refused on this config until it was ported, now builds with the rule
+    and predicts (`test_torch_port_bf16*.py` hold it against JAX)."""
     base, img, head = CASES["vovnet_2cam"]
     inputs = {k: torch.from_numpy(v) for k, v in _camera_inputs(2).items()}
     pts, mask = np.zeros((2, 2048, 5), np.float32), np.zeros((2, 2048), bool)
@@ -162,5 +163,10 @@ def test_lc_image_roi_patch_refused(patch):
     assert not torch.equal(outs[0][0], outs[None][0])
     bf16 = _lc(*PORT, base, dict(img, compute_dtype="bfloat16"), **head,
                **{patch: 2})
-    with pytest.raises(NotImplementedError, match="img.compute_dtype"):
-        SRFDet(bf16, device="cpu")
+    model = SRFDet(bf16, device="cpu", seed=1)
+    assert model.img_dtype == torch.bfloat16
+    with torch.no_grad():
+        logits, boxes = model(batch)
+    assert logits.dtype == torch.float32 and boxes.dtype == torch.float32
+    assert torch.isfinite(logits).all() and torch.isfinite(boxes).all()
+    assert not torch.equal(logits, outs[None][0])

@@ -6,9 +6,10 @@ the head without its DPG (`with_dpg=False`) against JAX, at
 check_predict's tolerances (the encoder under the DPG:
 test_torch_port_options_train.py); `head.remat` grads bit-equal to the plain
 step's with dropout on (head and encoder) and the same generator, and the
-generator left where the plain step leaves it; the one refusal left (the
-bfloat16 compute modes); one CPU run of the train CLI with
-`loss.assigner=hungarian head.with_lidar_encoder=true`."""
+generator left where the plain step leaves it; the bfloat16 compute modes,
+refused until they were ported, each building and predicting; one CPU run
+of the train CLI with `loss.assigner=hungarian
+head.with_lidar_encoder=true`."""
 
 import dataclasses
 
@@ -76,17 +77,26 @@ def test_remat_grads_bit_equal():
 
 @pytest.mark.parametrize("where", ["model", "image branch"])
 def test_bfloat16_is_refused(where):
-    """The bfloat16 compute modes are the one refusal left."""
-    cfg = tconfigs.tiny_test_config()
+    """The bfloat16 compute modes were the last refusal; now each builds
+    and runs a tiny predict: the model's whole forward in bf16, or a tiny
+    LC model's image branch in bf16 under a float32 model (its features
+    cast back before the head); boxes float32, outputs finite
+    (`test_torch_port_bf16*.py` hold them against JAX)."""
+    import chip_smoke
     if where == "model":
-        cfg = cfg.replace(compute_dtype="bfloat16")
-        match = "compute_dtype=bfloat16"
+        cfg = tconfigs.tiny_test_config(compute_dtype="bfloat16")
+        expect = (torch.bfloat16, torch.bfloat16)
     else:
-        cfg = cfg.replace(use_img=True, img=dataclasses.replace(
-            ImgBranchConfig(), compute_dtype="bfloat16"))
-        match = "img.compute_dtype=bfloat16"
-    with pytest.raises(NotImplementedError, match=match):
-        SRFDet(cfg, device="cpu")
+        cfg = tconfigs.tiny_lc_test_config("vovnet", compute_dtype="bfloat16")
+        expect = (torch.float32, torch.bfloat16)
+    model = SRFDet(cfg, device="cpu", seed=0)
+    assert (model.dtype, model.img_dtype) == expect
+    batch = (chip_smoke.synthetic_batch(cfg, 1) if where == "model"
+             else chip_smoke.train_batch(cfg, 1, seed=0))
+    out = model.predict(batch)
+    assert out["boxes"].dtype == torch.float32
+    assert torch.isfinite(out["boxes"]).all()
+    assert torch.isfinite(out["scores"]).all()
 
 
 def test_train_cli_with_hungarian_and_encoder(tmp_path):

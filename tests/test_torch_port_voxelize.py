@@ -181,11 +181,11 @@ def test_entry_points_default_to_cuda():
     for cli in (train_cli, test_cli):
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main(["tiny", "--synthetic"])
-    # the image branch in bfloat16 is not ported (float32 is)
+    # the image branch in bfloat16, ported now, asks for the card too
     bf16 = dataclasses.replace(ImgBranchConfig(), compute_dtype="bfloat16")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="CUDA"):
         SRFDet(dataclasses.replace(tiny_test_config(), use_img=True,
-                                   img=bf16), device="cpu")
+                                   img=bf16))
 
 
 def test_backend_flags_keep_a_deterministic_choice():

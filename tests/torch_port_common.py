@@ -33,6 +33,14 @@ from srfdet3d_torch.utils.jax_params import (jax_param_names, jax_state_dict,
 
 T = torch.from_numpy
 
+# One intra-op thread for torch in every test process that imports this
+# module (under pytest-xdist every worker collects, and so imports, every
+# test module): the suite runs six processes on the same cores, where
+# torch's OpenMP threads spin against each other and the JAX compiles
+# (six port files on an 8-core host: 459 s under -n 6 with the default
+# threads, 100 s with one); the tiny models gain nothing from more.
+torch.set_num_threads(1)
+
 
 def random_variables(shapes, seed):
     """Seeded numpy weights for every leaf of a JAX variable tree."""
@@ -72,12 +80,12 @@ def param_count(tree) -> int:
                for s in jax.tree_util.tree_leaves(tree["params"]))
 
 
-def jax_train_step(jcfg, batch_size, batch_seed, weight_seed, total=100):
-    """JAX side of one train step (dropout as configured, rng key 0): the
-    batch (numpy), the weights, the losses, the grads, the parameters after
-    one AdamW update, the new BN statistics and the grads' global norm."""
-    batch = {k: np.array(v) for k, v in graft._synthetic_batch(
-        jcfg, batch_size, with_gt=True, seed=batch_seed).items()}
+def jax_step_program(jcfg, batch, weight_seed, total=100):
+    """One JAX train step on numpy `batch` (dropout as configured, rng key
+    0), lowered and not compiled: (weights, the lowered step, its args).
+    Compiled and run it returns the losses' sum, the losses, the grads,
+    the parameters after one AdamW update, the new BN statistics and the
+    grads' global norm."""
     model = JSRFDet(jcfg)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     shapes = jax.eval_shape(lambda r, b: model.init(r, b, train=False),
@@ -95,7 +103,6 @@ def jax_train_step(jcfg, batch_size, batch_seed, weight_seed, total=100):
                           decoder_num_heads=jcfg.head.num_heads)
         return sum(losses.values()), (losses, upd["batch_stats"])
 
-    @jax.jit
     def step(params, batch_stats):
         (total_loss, (losses, new_bs)), grads = jax.value_and_grad(
             loss_fn, has_aux=True)(params, batch_stats)
@@ -103,8 +110,70 @@ def jax_train_step(jcfg, batch_size, batch_seed, weight_seed, total=100):
         return (total_loss, losses, grads, optax.apply_updates(params, upd),
                 new_bs, optax.global_norm(grads))
 
-    out = jax.device_get(step(variables["params"], variables["batch_stats"]))
-    return batch, variables, out
+    args = (variables["params"], variables["batch_stats"])
+    return variables, jax.jit(step).lower(*args), args
+
+
+def jax_train_step(jcfg, batch_size, batch_seed, weight_seed, total=100):
+    """JAX side of one train step on the synthetic scene (seed
+    batch_seed): the batch (numpy), the weights and jax_step_program's
+    outputs."""
+    batch = {k: np.array(v) for k, v in graft._synthetic_batch(
+        jcfg, batch_size, with_gt=True, seed=batch_seed).items()}
+    variables, lowered, args = jax_step_program(jcfg, batch, weight_seed,
+                                                total)
+    return batch, variables, jax.device_get(lowered.compile()(*args))
+
+
+def jax_bf16_steps(jcfg16, jcfg32, batch, weight_seed):
+    """The JAX step in a bf16 mode, compiled twice (EXACT_BF16, and with
+    XLA's default excess precision), and in float32, on the same weights
+    and batch: (weights, {"exact", "default", "f32": outputs})."""
+    variables, lowered, args = jax_step_program(jcfg16, batch, weight_seed)
+    outs = {"exact": lowered.compile(compiler_options=EXACT_BF16)(*args),
+            "default": lowered.compile()(*args)}
+    _, lowered32, _ = jax_step_program(jcfg32, batch, weight_seed)
+    outs["f32"] = lowered32.compile()(*args)
+    return variables, jax.device_get(outs)
+
+
+def check_bf16_grads(port, tcfg, outs, ulp=2.0 ** -7):
+    """The port's grads after a bf16 step (float32, bf16 values where the
+    leaf computes in bf16) against jax_bf16_steps' outputs.  The JAX
+    package's bf16 grads are defined only up to how XLA compiles them: its
+    two bf16 programs differ from each other about as much as from float32
+    (ill-conditioned tiny steps; bf16 reductions in the backward that one
+    compile accumulates in bf16 and the other in float32).  So every leaf's
+    mean |port - JAX exact| must stay within that spread, the larger of its
+    mean |JAX exact - JAX f32| and |JAX exact - JAX default|, plus one bf16
+    ulp of the leaf's mean |grad|; and over the tree, the port must sit
+    closer to JAX's exact bf16 grads than those sit from float32 (the
+    attention key biases, zero up to rounding, left out).  Frozen leaves
+    get no grad.  Returns (the tree's ratio, the worst leaf's
+    distance over its bound)."""
+    hc = tcfg.head
+    g = {k: jax_state_dict({"params": o[2]}, hc.num_heads, hc.num_cls_convs)
+         for k, o in outs.items()}
+    num = den = worst = 0.0
+    for name, p in port.named_parameters():
+        if not p.requires_grad:
+            assert p.grad is None, name
+            continue
+        assert p.grad is not None and p.grad.dtype == torch.float32, name
+        if name.endswith("k_proj.bias"):
+            continue   # zero up to rounding: softmax ignores a key shift
+        ref = g["exact"][name]
+        d_port = np.abs(p.grad.numpy() - ref)
+        d_f32 = np.abs(ref - g["f32"][name])
+        num, den = num + float(d_port.sum()), den + float(d_f32.sum())
+        spread = max(float(d_f32.mean()),
+                     float(np.abs(ref - g["default"][name]).mean()))
+        bound = spread + ulp * float(np.abs(ref).mean())
+        assert float(d_port.mean()) <= bound, (name, float(d_port.mean()),
+                                               bound)
+        worst = max(worst, float(d_port.mean()) / bound)
+    assert num < den, num / den
+    return num / den, worst
 
 
 def check_train_step(tcfg, batch, variables, out, total=100,
@@ -317,6 +386,78 @@ def check_predict(jcfg, tcfg, batch_size=2, points_seed=0, weight_seed=12,
                                rtol=1e-4, atol=1e-4)
     assert t_out["valid"].sum() > 0
     return t_out
+
+
+# XLA's default lets a fusion keep a bfloat16 intermediate in float32
+# ("excess precision"), so a jitted bf16 program rounds at fewer places
+# than its ops' dtypes say, and where depends on the fusion.  The bf16
+# references compile with it off: every op's output is rounded to its dtype,
+# the rounding points the JAX package's modules write down (flax's dtype=),
+# which the port follows.  (On the tiny LiDAR predict the port's bf16
+# logits equal this program's bit for bit; against the default-compiled one
+# they sit 0.87 as far as that program sits from float32.)
+EXACT_BF16 = {"xla_allow_excess_precision": False}
+
+
+def bf16_predict_ratios(jcfg32, cases, batch_size=2, points_seed=0,
+                        weight_seed=12, extra=None, tcfg32=None):
+    """The port's forward in a bfloat16 mode against the JAX package's in
+    the same mode and in float32, on the same points and seeded weights
+    (class biases zeroed).  cases: (JAX config, port config) pairs of the
+    bf16 modes, each against the one float32 JAX program of jcfg32.  For
+    the logits and the box centres of every layer: the mean |port - JAX
+    bf16| over the mean |JAX bf16 - JAX f32|.  A ratio well below 1 says
+    the port rounds where the JAX package rounds.  With `tcfg32` the
+    float32 reference is the port's float32 model instead of a JAX
+    compile (one compile fewer, where another test holds that model to
+    JAX's float32 at 1e-4, far inside bf16's distances).  Also asserts that both
+    sides' boxes are float32 and the port's outputs finite.  Returns, a
+    case, (ratios, the port model, its (logits, boxes))."""
+    pts, mask = uniform_points(cases[0][1], batch_size, points_seed)
+    jbatch = {"points": jnp.asarray(pts), "points_mask": jnp.asarray(mask),
+              **{k: jnp.asarray(v) for k, v in (extra or {}).items()}}
+    shapes = init_shapes(jcfg32, tuple(
+        (k, v.shape, v.dtype.name) for k, v in sorted(jbatch.items())))
+    variables = random_variables(shapes, weight_seed)
+    head = variables["params"]["bbox_head"]["head_series"]["single_head"]
+    head["class_logits"]["bias"][:] = 0.0
+    batch = {"points": T(pts), "points_mask": T(mask),
+             **{k: T(v) for k, v in (extra or {}).items()}}
+
+    def jax_outputs(jcfg):
+        model = JSRFDet(jcfg)
+        logits, boxes = jax.device_get(jax.jit(
+            lambda v, b: model.apply(v, b, train=False),
+            compiler_options=EXACT_BF16)(variables, jbatch))
+        assert boxes.dtype == np.float32
+        return np.asarray(logits, np.float32), boxes[..., :3]
+
+    if tcfg32 is None:
+        ref32 = jax_outputs(jcfg32)
+    else:
+        port32 = SRFDet(tcfg32, device="cpu")
+        load_jax_params(port32, variables)
+        with torch.no_grad():
+            logits, boxes = port32(batch)
+        ref32 = (logits.numpy(), boxes[..., :3].numpy())
+    results = []
+    for jcfg16, tcfg16 in cases:
+        ref16 = jax_outputs(jcfg16)
+        port = SRFDet(tcfg16, device="cpu")
+        load_jax_params(port, variables)
+        with torch.no_grad():
+            logits, boxes = port(batch)
+        assert boxes.dtype == torch.float32
+        got = (logits.float().numpy(), boxes[..., :3].numpy())
+        assert all(np.isfinite(g).all() for g in got)
+        ratios = {}
+        for i, key in enumerate(("logits", "centres")):
+            d_port = np.abs(got[i] - ref16[i]).mean()
+            d_ref = np.abs(ref16[i] - ref32[i]).mean()
+            assert d_ref > 0, key
+            ratios[key] = float(d_port / d_ref)
+        results.append((ratios, port, (logits, boxes)))
+    return results
 
 
 def check_bridge(tcfg, shapes, n_params=None, branch="pts_voxel_encoder"):
