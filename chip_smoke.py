@@ -147,8 +147,13 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    path into a fresh model B: B's weights A's bit for bit, B's predict on
    the card A's (valid masks and labels identical, boxes and scores
    within 1e-6), launches equal to the structure; the .pth's MB, the
-   convert's and the load's seconds; then flagship_learn: the flagship at
-   full width trained on two planted nuScenes keyframes (LEARN_ROOT: no
+   convert's and the load's seconds; flagship_learn, run by the learn
+   worker (`python3 chip_smoke.py --learn-worker <dir> <start>`, a
+   process of its own, two torch threads) from the end of
+   data_step_profile to the end of the tiny train steps, beside the
+   checks of raw_tree_train, convert_roundtrip, the ddp_* phases, the
+   options and the tiny phases (their times are not the port's numbers;
+   its lines come out when it ends): the flagship at full width trained on two planted nuScenes keyframes (LEARN_ROOT: no
    sweeps, one box of each class a frame, 400 points planted in each)
    through the port's dataset (the test pipeline's transforms), loader and
    train_step for LEARN_STEPS steps at batch 2 with the config's AdamW at
@@ -159,7 +164,24 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    top-scored box within 1 m BEV of a planted centre; step p50, peak GB,
    launches a step and a frame equal to the structure; the phase runs
    under deterministic cuDNN (deterministic_cudnn: no benchmark timing),
-   restored after; then data
+   restored after; the predict exports (tools/export.py),
+   flagship_export (the flagship, weights passed in) and
+   kitti_table_export (srfdet_voxel_kitti_L on the table backend,
+   weights baked), run by the export worker (`python3 chip_smoke.py
+   --export-worker <dir> <start>`, a process of its own, one torch
+   thread): started with the learn worker, it exports each predict (no
+   launch while it traces), saves it, loads it through the op library
+   and checks its graph (the srfdet:: ops of its backend, one
+   while_loop, no host read); after the tiny train steps and the learn
+   worker's end, alone on the card, it calls each artifact on its
+   predict phase's batch: the launches of the live predict (K1 21 and K2
+   4; K1 12 and K6 8, with the lookup walk's hash builds), outputs within
+   tests/test_export.py's bar of the live predict's (scores and boxes
+   rtol 1e-5 / atol 1e-6, labels and valid equal) under deterministic
+   cuDNN, with the live-vs-live and artifact-vs-live spreads; each line
+   has export s, load s, file MB, the artifact's p50 beside eager
+   predict's over EXPORT_RUNS alternating calls, the seconds waited for
+   the worker to be ready and the seconds of its card half; and data
    parallelism (srfdet3d_torch/parallel): ddp_flagship_train, the
    flagship at full width (dropout off) on two ranks that share the card
    over gloo (host-staged collectives; NCCL refuses two ranks on one
@@ -241,8 +263,9 @@ parameter of every train phase stays float32.
    convert_launches, its launches in each round-trip predict,
    learn_launches, its launches a flagship_learn step, ddp_launches,
    each ddp_flagship_train rank's launches a step, and options_launches,
-   its launches in each option phase's predict or train step, and
-   bf16_launches, its launches in each bf16 phase; K1-bf16
+   its launches in each option phase's predict or train step,
+   export_launches, its launches in each export phase's artifact call,
+   and bf16_launches, its launches in each bf16 phase; K1-bf16
    (gather_conv_bf16) and K4-bf16 (conv_bwd_strided_bf16) are entries of
    their own.
 
@@ -344,35 +367,12 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
 
 
 def synthetic_batch(cfg, b: int = 1, seed: int = 0, with_gt: bool = False):
-    """The JAX package's synthetic scene (__graft_entry__._synthetic_batch):
-    half of points_cap real, uniform in pc_range, seeded; with_gt adds
-    gt_cap GT boxes of which the first 8 are valid."""
-    rng = np.random.default_rng(seed)
-    p = cfg.points_cap
-    pts = np.zeros((b, p, cfg.points_dim), np.float32)
-    n = p // 2
-    lo, hi = cfg.pc_range[:3], cfg.pc_range[3:6]
-    for d in range(3):
-        pts[:, :n, d] = rng.uniform(lo[d], hi[d], (b, n))
-    pts[:, :n, 3:] = rng.uniform(0, 1, (b, n, cfg.points_dim - 3))
-    mask = np.zeros((b, p), bool)
-    mask[:, :n] = True
-    batch = {"points": pts, "points_mask": mask}
-    if with_gt:
-        g = cfg.gt_cap
-        gt = np.zeros((b, g, 9 if cfg.head.code_size == 10 else 7),
-                      np.float32)
-        gt[..., 0] = rng.uniform(lo[0] * 0.8, hi[0] * 0.8, (b, g))
-        gt[..., 1] = rng.uniform(lo[1] * 0.8, hi[1] * 0.8, (b, g))
-        gt[..., 2] = rng.uniform(lo[2] * 0.5, hi[2] * 0.5, (b, g))
-        gt[..., 3:6] = rng.uniform(0.5, 4.0, (b, g, 3))
-        gt[..., 6] = rng.uniform(-np.pi, np.pi, (b, g))
-        batch["gt_labels"] = rng.integers(0, cfg.num_classes,
-                                          (b, g)).astype(np.int32)
-        gmask = np.zeros((b, g), bool)
-        gmask[:, :min(8, g)] = True
-        batch["gt_boxes"], batch["gt_mask"] = gt, gmask
-    return {k: torch.from_numpy(v) for k, v in batch.items()}
+    """The JAX package's synthetic scene (__graft_entry__._synthetic_batch),
+    through the port's copy (tools/export.synthetic_batch): half of
+    points_cap real, uniform in pc_range, seeded; with_gt adds gt_cap GT
+    boxes of which the first 8 are valid."""
+    from srfdet3d_torch.tools.export import synthetic_batch as port_batch
+    return port_batch(cfg, b, with_gt=with_gt, seed=seed)
 
 
 def camera_rig(cfg, b: int = 1, seed: int = 0) -> np.ndarray:
@@ -1481,6 +1481,288 @@ def predict_parts(phase, model, batch, smi, runs: int = PARTS_RUNS):
               rulebook=model.cfg.middle.rulebook, device=smi,
               p50_ms={k: statistics.median(v) for k, v in ms.items()},
               peak_mem_bytes=peak))
+
+
+# predicts and artifact calls an export phase times, alternating, after
+# one untimed call of each
+EXPORT_RUNS = 5
+# the artifact's outputs against the live predict's (tests/test_export.py's
+# bar): scores and boxes allclose, labels and valid equal
+EXPORT_RTOL, EXPORT_ATOL = 1e-5, 1e-6
+EXPORT_OPS = {"bitmap": ("srfdet.gather_conv.default",
+                         "srfdet.eqmatch_rulebook.default"),
+              "table": ("srfdet.gather_conv.default",
+                        "srfdet.key_hash.default",
+                        "srfdet.rulebook_lookup.default")}
+# the exported predicts: (phase, config, on the table backend, baked, the
+# live predict's launches)
+EXPORT_CASES = (
+    ("flagship_export", "srfdet_voxel_nusc_L", False, False,
+     dict(gather_conv=21, eqmatch=4)),
+    ("kitti_table_export", "srfdet_voxel_kitti_L", True, True,
+     dict(gather_conv=12, rulebook_lookup=8)))
+# seconds the export worker may take from its start to its end
+EXPORT_TIMEOUT = 900
+
+
+def output_spread(a, b):
+    """Largest |a - b| of the float outputs, and whether the integer ones
+    are equal."""
+    return dict(scores=float((a["scores"] - b["scores"]).abs().max()),
+                boxes=float((a["boxes"] - b["boxes"]).abs().max()),
+                labels_equal=bool(torch.equal(a["labels"], b["labels"])),
+                valid_equal=bool(torch.equal(a["valid"], b["valid"])))
+
+
+def prepare_export(phase, name, table, bake, work):
+    """The host half of an export phase: the config's seeded model on the
+    card, its predict exported (tools/export.py) with no launch while it
+    traces, saved, loaded through the op library, its graph holding the
+    srfdet:: ops of its backend, one while_loop and no host read."""
+    from srfdet3d_torch.configs import CONFIGS
+    from srfdet3d_torch.models.detector import SRFDet
+    from srfdet3d_torch.tools import export
+    cfg = CONFIGS[name]()
+    cfg = table_backend(cfg) if table else cfg
+    model = SRFDet(cfg, device="cuda", seed=0)
+    path = os.path.join(work, f"{phase}.pt2")
+    reset_counts()
+    t0 = time.perf_counter()
+    export.export_predict(cfg, path, model=model, bake_params=bake)
+    export_s = time.perf_counter() - t0
+    if read_counts() != dict.fromkeys(COUNTED, 0) or any(
+            read_builds().values()):
+        raise AssertionError(f"{phase}: the export launched "
+                             f"{read_counts()}, built {read_builds()}")
+    t0 = time.perf_counter()
+    prog = export.load_artifact(path)
+    load_s = time.perf_counter() - t0
+    targets = {str(n.target) for n in prog.graph.nodes
+               if n.op == "call_function"}
+    backend = "bitmap" if model.pts_middle_encoder.use_bitmap else "table"
+    missing = [op for op in EXPORT_OPS[backend] if op not in targets]
+    if missing or "while_loop" not in targets or \
+            "aten._local_scalar_dense.default" in targets:
+        raise AssertionError(f"{phase}: graph lacks {missing} or the "
+                             f"while_loop, or holds a host read")
+    return dict(phase=phase, cfg=cfg, model=model, bake=bake,
+                run=prog.module(), export_s=export_s, load_s=load_s,
+                file_mb=os.path.getsize(path) / 1e6)
+
+
+def check_export(prep, expect, smi):
+    """The card half: the artifact called on the predict phase's batch
+    (with the live model's state when its weights are passed in) launches
+    `expect` with the live predict's preparations, and its outputs meet
+    the bar against the live predict's, both under deterministic cuDNN
+    (the live-vs-live and artifact-vs-live spreads are kept); then its
+    p50 beside eager predict's over EXPORT_RUNS alternating calls, after
+    one untimed call of each.
+    Returns the phase's record."""
+    phase, cfg, model, run = (prep["phase"], prep["cfg"], prep["model"],
+                              prep["run"])
+    batch = {k: v.cuda() for k, v in synthetic_batch(cfg, 1, seed=0).items()}
+    args = (batch,) if prep["bake"] else (model.state_dict(), batch)
+    with deterministic_cudnn():
+        live = model.predict(batch)
+        again = model.predict(batch)
+        torch.cuda.synchronize()
+        reset_counts()
+        got = run(*args)
+        torch.cuda.synchronize()
+        counts, builds = read_counts(), read_builds()
+    want = dict(dict.fromkeys(COUNTED, 0), **expect)
+    if counts != want or counts != predict_launches(model) or \
+            builds != predict_builds(model):
+        raise AssertionError(f"{phase}: the artifact launched {counts} and "
+                             f"built {builds}; the live predict launches "
+                             f"{want} and builds {predict_builds(model)}")
+    spreads = dict(live_vs_live=output_spread(again, live),
+                   artifact_vs_live=output_spread(got, live))
+    ok = set(got) == set(live) and all(
+        torch.equal(got[k], live[k]) for k in ("labels", "valid")) and all(
+        torch.allclose(got[k], live[k], rtol=EXPORT_RTOL, atol=EXPORT_ATOL)
+        for k in ("scores", "boxes"))
+    if not ok:
+        raise AssertionError(f"{phase}: the artifact's outputs miss the bar "
+                             f"against the live predict: {spreads}")
+    eager, artifact = [], []
+    pairs = ((lambda: model.predict(batch), eager),
+             (lambda: run(*args), artifact))
+    # one untimed call each first: cuDNN times its algorithms on the
+    # first call with benchmark on (above it ran deterministic)
+    for fn, _ in pairs:
+        fn()
+    for _ in range(EXPORT_RUNS):
+        for fn, times in pairs:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return dict(phase=phase, config=cfg.name, rulebook=cfg.middle.rulebook,
+                bake_params=prep["bake"], launches=counts, builds=builds,
+                export_s=prep["export_s"], load_s=prep["load_s"],
+                file_mb=prep["file_mb"],
+                artifact_p50_ms=statistics.median(artifact),
+                eager_p50_ms=statistics.median(eager), runs=EXPORT_RUNS,
+                artifact_ms=artifact, eager_ms=eager,
+                valid_boxes=int(got["valid"].sum()), **spreads, device=smi)
+
+
+def export_worker(work: str) -> int:
+    """`python3 chip_smoke.py --export-worker <dir> <start>`: the export
+    phases in a process of their own.  It prepares every EXPORT_CASES
+    artifact (prepare_export: host work, one torch thread), writes
+    <dir>/ready, waits for <dir>/go, then runs each card half
+    (check_export) and writes the records to <dir>/export.json."""
+    from srfdet3d_torch import set_backend_flags
+    torch.set_num_threads(1)
+    set_backend_flags()
+    smi = nvidia_smi()
+    preps = [prepare_export(phase, name, table, bake, work)
+             for phase, name, table, bake, _ in EXPORT_CASES]
+    open(os.path.join(work, "ready"), "w").close()
+    go = os.path.join(work, "go")
+    while not os.path.exists(go):
+        time.sleep(0.2)
+    records = [check_export(prep, case[4], smi)
+               for prep, case in zip(preps, EXPORT_CASES)]
+    write_json(os.path.join(work, "export.json"), records)
+    return 0
+
+
+def learn_worker(work: str) -> int:
+    """`python3 chip_smoke.py --learn-worker <dir> <start>`: flagship_learn
+    in a process of its own (two torch threads), its data root and
+    checkpoints under <dir>; its lines go to its log, its launches a step
+    to <dir>/learn.json."""
+    from srfdet3d_torch import set_backend_flags
+    torch.set_num_threads(2)
+    set_backend_flags()
+    launches = flagship_learn(nvidia_smi(), work)
+    write_json(os.path.join(work, "learn.json"), launches)
+    return 0
+
+
+def write_json(path: str, obj) -> None:
+    with open(path + ".tmp", "w") as f:
+        json.dump(obj, f)
+    os.replace(path + ".tmp", path)
+
+
+class PhaseWorker:
+    """`python3 chip_smoke.py <flag> <dir> <start>` in a session of its
+    own, its output in <dir>/worker.log; <start> is this script's start on
+    the monotonic clock, which every process of the host shares, so the
+    worker's lines carry t_s on this process's scale.  close() kills it if
+    it still runs and removes its directory; it also runs at exit."""
+
+    def __init__(self, flag: str, timeout: float):
+        import atexit
+        self.flag, self.timeout = flag, timeout
+        self.work = tempfile.mkdtemp(prefix=f"srfdet_{flag.strip('-')}_")
+        self.log = os.path.join(self.work, "worker.log")
+        self.t0 = time.perf_counter()
+        with open(self.log, "w") as f:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), flag, self.work,
+                 repr(_START)], stdout=f, stderr=subprocess.STDOUT,
+                start_new_session=True)
+        atexit.register(self.close)
+
+    def _fail(self, why: str):
+        self.close_proc()
+        self.relay()
+        with open(self.log) as f:
+            tail = f.read()[-3000:]
+        raise AssertionError(f"the {self.flag} process {why}:\n{tail}")
+
+    def _poll(self) -> None:
+        """Raise if the worker exited with an error or outran its time."""
+        if self.proc.poll() is not None:
+            self._fail(f"exited {self.proc.returncode}")
+        if time.perf_counter() - self.t0 > self.timeout:
+            self._fail(f"ran past {self.timeout} s")
+
+    def wait(self) -> None:
+        """Wait for the worker to end; raise with its log if it fails or
+        outruns its time."""
+        try:
+            self.proc.wait(timeout=max(
+                self.timeout - (time.perf_counter() - self.t0), 1.0))
+        except subprocess.TimeoutExpired:
+            self._fail(f"ran past {self.timeout} s")
+        if self.proc.returncode != 0:
+            self._fail(f"exited {self.proc.returncode}")
+
+    def relay(self) -> None:
+        """The worker's JSON lines to this process's output, the rest of
+        its log to standard error."""
+        with open(self.log) as f:
+            for line in f:
+                out = sys.stdout if line.startswith("{") else sys.stderr
+                out.write(line)
+        sys.stdout.flush()
+
+    def close_proc(self):
+        import signal
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait()
+
+    def close(self):
+        import shutil
+        self.close_proc()
+        shutil.rmtree(self.work, ignore_errors=True)
+
+
+class ExportWorker(PhaseWorker):
+    """The export worker (export_worker).  Started with flagship_learn's
+    worker, it spends its minutes of host time (the traces, the saves, the
+    loads) beside the phases that run while the flagship learns; checks()
+    then lets it run its card half while this process waits, so no other
+    phase shares the card with it."""
+
+    def __init__(self):
+        super().__init__("--export-worker", EXPORT_TIMEOUT)
+
+    def checks(self):
+        """Wait until the worker has prepared its artifacts, let it run
+        the card halves, and return (its records, the seconds waited for
+        it to be ready, the seconds of its card halves); raise with its
+        log if it fails or outruns EXPORT_TIMEOUT."""
+        t0 = time.perf_counter()
+        ready = os.path.join(self.work, "ready")
+        while not os.path.exists(ready):
+            self._poll()
+            time.sleep(0.2)
+        t1 = time.perf_counter()
+        open(os.path.join(self.work, "go"), "w").close()
+        self.wait()
+        with open(os.path.join(self.work, "export.json")) as f:
+            records = json.load(f)
+        return records, t1 - t0, time.perf_counter() - t1
+
+
+class LearnWorker(PhaseWorker):
+    """flagship_learn's worker (learn_worker): it trains while this
+    process runs the checks from raw_tree_train to the tiny train steps;
+    result() waits for it, relays its lines and returns its launches a
+    step."""
+
+    def __init__(self):
+        super().__init__("--learn-worker", LEARN_TIMEOUT)
+
+    def result(self):
+        t0 = time.perf_counter()
+        self.wait()
+        self.relay()
+        with open(os.path.join(self.work, "learn.json")) as f:
+            launches = json.load(f)
+        emit(dict(phase="learn_worker", wait_s=time.perf_counter() - t0,
+                  worker_s=time.perf_counter() - self.t0))
+        return launches
 
 
 def predict_busy(phase, cfg, batch, smi, prepare=None):
@@ -3160,6 +3442,8 @@ LEARN_ROOT = dict(n_train=2, n_val=0, points=34688, sweeps=0, boxes=10,
                   per_box=400, db_per_class=0, seed=3)
 LEARN_STEPS = 400
 LEARN_OPTIONS = ("optim.lr=0.001", "optim.warmup_iters=20")
+# seconds the learn worker may take from its start to its end
+LEARN_TIMEOUT = 700
 
 
 def learn_eval(name, root, ckpt, tag, tmp):
@@ -4362,7 +4646,7 @@ def kernel_entry(name, source, replaces, launches, t, max_err):
                 "lc_launches",
                 "lc_train_launches", "data_launches", "convert_launches",
                 "learn_launches", "ddp_launches", "options_launches",
-                "img_geometry"):
+                "export_launches", "img_geometry"):
         if key in t:
             entry[key] = t[key]
     return entry
@@ -4570,13 +4854,20 @@ def main() -> int:
         data_launches, roots = data_phases(smi, tmp)
         free_cache()
         # the host side: the point routes, the step from files profiled
-        # three ways, a raw tree through create_data into the train CLI
+        # three ways
         data_route(smi, roots, host_build_s, host_built)
         data_step_profile(smi, roots, tmp)
+        free_cache()
+        # from here to the tiny train steps the phases are checks whose
+        # times are not kept as the port's: flagship_learn trains beside
+        # them in a process of its own (learn_worker), and the export
+        # worker traces, saves and loads the flagship's predict (weights
+        # passed in) and KITTI's on the table backend (baked)
+        learner = LearnWorker()
+        exporter = ExportWorker()
         raw_tree_train(smi, tmp)
         free_cache()
         convert_launches = convert_roundtrip(smi, tmp)
-        learn_launches = flagship_learn(smi, tmp)
         free_cache()
         # data parallelism: two ranks against one process, an NCCL group
         # of one, and the launchers
@@ -4611,6 +4902,21 @@ def main() -> int:
     for backbone, opts, model_seed, batch_seed, steps in TINY_LC_TRAIN:
         tiny_train(tiny_lc_test_config(backbone, **opts), model_seed,
                    batch_seed, steps, prepare=seed_dcn_offsets)
+    learn_launches = learner.result()
+    learner.close()
+    free_cache()
+    # each artifact on the card alone: the live predict's launches
+    records, ready_wait_s, card_s = exporter.checks()
+    exporter.close()
+    export_launches = {}
+    for rec in records:
+        emit(dict(rec, ready_wait_s=ready_wait_s, card_s=card_s))
+        export_launches[rec["phase"]] = rec["launches"]
+    if records[1]["builds"]["key_hash"] != k6["builds"]:
+        raise AssertionError(f"kitti_table_export built "
+                             f"{records[1]['builds']} hash tables, "
+                             f"the lookup walk {k6['builds']}")
+    free_cache()
     for phase, c, b in (("flagship", cfg, batch),
                         ("flagship_bf16", bf16_config(cfg), batch),
                         ("kitti", kcfg, kbatch),
@@ -4665,6 +4971,8 @@ def main() -> int:
                                  for rank, c in ddp_launches.items()}
         entry["options_launches"] = {ph: c[key]
                                      for ph, c in options_launches.items()}
+        entry["export_launches"] = {ph: c[key]
+                                    for ph, c in export_launches.items()}
     emit({"kernels": [
         kernel_entry("gather_conv", "srfdet3d_torch/csrc/gather_conv.cu",
                      "srfdet3d_tpu/ops/pallas_onehot.py:67", k1_launches,
@@ -4706,4 +5014,9 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ddp-worker"]:
         sys.exit(ddp_worker(sys.argv[2]))
+    workers = {"--export-worker": export_worker,
+               "--learn-worker": learn_worker}
+    if sys.argv[1:2] and sys.argv[1] in workers:
+        _START = float(sys.argv[3])
+        sys.exit(workers[sys.argv[1]](sys.argv[2]))
     sys.exit(main())

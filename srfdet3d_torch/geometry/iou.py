@@ -4,12 +4,18 @@ The intersection of two rotated rectangles is a Green's-theorem boundary
 integral: box A's edges clipped to box B plus B's edges clipped to A, each
 clipped in closed form (Liang-Barsky), with a separating-axis gate for boxes
 that merely touch.  NMS is the fixed point of "keep i iff no higher-scored
-kept box overlaps i", which equals exact greedy NMS.
+kept box overlaps i", which equals exact greedy NMS; it runs as the
+`while_loop` operator (called directly, with its loop-invariant tensors
+passed in: the public `torch._higher_order_ops.while_loop` compiles its
+body with dynamo on every eager call), so `torch.export` traces it.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch._higher_order_ops.while_loop import while_loop_op
 
 _EPS = 1e-8
 
@@ -119,16 +125,31 @@ def iou_3d(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     return inter / (vol1 + vol2 - inter).clamp_min(_EPS)
 
 
-# fixed-point sweeps of the last rotated_nms_bev call (a host-side count)
+# fixed-point sweeps of the last eager rotated_nms_bev call (a host-side
+# count; a traced call leaves it as it was)
 last_nms_sweeps = 0
+
+
+def _nms_sweeping(keep, changed, it, sup, svalid, n: int):
+    return changed & (it < n)
+
+
+def _nms_sweep(keep, changed, it, sup, svalid, n: int):
+    """One sweep: keep i iff i is valid and no kept j above it suppresses
+    it; `changed` says whether the keep set moved."""
+    new_keep = svalid & ~(sup & keep[..., None, :]).any(-1)
+    return new_keep, (new_keep != keep).any(), it + 1
 
 
 def rotated_nms_bev(boxes_bev: torch.Tensor, scores: torch.Tensor,
                     iou_thr: float, valid: torch.Tensor | None = None
                     ) -> torch.Tensor:
     """Greedy rotated NMS over the last axis: boxes (..., N, 5), scores
-    (..., N) -> keep mask (..., N).  Each sweep of the fixed point is one
-    host sync; it stops when the keep set no longer changes."""
+    (..., N) -> keep mask (..., N).  The fixed point is a `while_loop`
+    over (keep, changed, sweeps) that stops when the keep set no longer
+    changes, or after N sweeps, as the JAX package's `lax.while_loop`
+    (`geometry/iou.py`): a traced program holds it as one loop node; in
+    eager each sweep reads its predicate on the host."""
     global last_nms_sweeps
     if valid is None:
         valid = scores > -torch.inf
@@ -141,17 +162,14 @@ def rotated_nms_bev(boxes_bev: torch.Tensor, scores: torch.Tensor,
     lower = torch.ones(n, n, dtype=torch.bool, device=ious.device).tril(-1)
     # sup[i, j]: kept j would suppress i
     sup = (ious > iou_thr) & lower & svalid[..., None, :]
-    keep = svalid
-    sweeps = 0
-    for _ in range(n):
-        sweeps += 1
-        suppressed = (sup & keep[..., None, :]).any(-1)
-        new_keep = svalid & ~suppressed
-        changed = bool((new_keep != keep).any())
-        keep = new_keep
-        if not changed:
-            break
-    last_nms_sweeps = sweeps
+    start = (svalid, torch.ones((), dtype=torch.bool, device=sup.device),
+             torch.zeros((), dtype=torch.int64, device=sup.device))
+    keep, _, sweeps = while_loop_op(
+        functools.partial(_nms_sweeping, n=n),
+        functools.partial(_nms_sweep, n=n), start, (sup, svalid))
+    if not (torch.compiler.is_exporting() or
+            torch.compiler.is_compiling()):
+        last_nms_sweeps = int(sweeps)
     inv = torch.argsort(order, dim=-1)
     return torch.gather(keep, -1, inv)
 

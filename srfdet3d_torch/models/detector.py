@@ -382,7 +382,13 @@ class SRFDet(nn.Module):
     def predict(self, batch: Dict[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
         """Inference + decode (reference simple_test, srfdet.py:309-335)."""
-        pred_logits, pred_boxes = self(batch)
+        return self.decode(self(batch))
+
+    def decode(self, preds) -> Dict[str, torch.Tensor]:
+        """The forward's (pred_logits, pred_boxes) -> the last layer's
+        boxes after the config's test_cfg (score threshold, rotated NMS,
+        top max_per_img); it reads no parameter."""
+        pred_logits, pred_boxes = preds
         t = self.cfg.test
         return decode_boxes(pred_logits[-1], pred_boxes[-1],
                             use_nms=t.use_nms, nms_thr=t.nms_thr,

@@ -44,6 +44,7 @@ proposals, `apply_deltas` and decode are float32 in every mode.
 from __future__ import annotations
 
 import math
+import struct
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -60,6 +61,15 @@ from .layers import (Conv2d, ConvBNReLU, LayerNorm, Linear, dropout,
                      softmax)
 
 _DEFAULT_SCALE_CLAMP = math.log(100000.0 / 16)
+
+
+def round_to_bf16(value: float) -> float:
+    """`value` rounded as torch rounds a Python float to bfloat16 (to
+    float32, then to nearest even on the top 16 bits), computed on the
+    host, so a traced program holds a constant and no host read."""
+    bits = struct.unpack("<I", struct.pack("<f", value))[0]
+    bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+    return struct.unpack("<f", struct.pack("<I", bits))[0]
 
 
 def focal_bias(prior_prob: float) -> float:
@@ -201,7 +211,7 @@ class MultiHeadAttention(nn.Module):
         dh = c // h
         # flax divides by sqrt(depth) cast to the compute dtype
         scale = math.sqrt(dh) if x.dtype == torch.float32 else \
-            torch.tensor(math.sqrt(dh), dtype=x.dtype).item()
+            round_to_bf16(math.sqrt(dh))
         q = self.q_proj(x).view(b, n, h, dh).transpose(1, 2) / scale
         k = self.k_proj(x).view(b, n, h, dh).transpose(1, 2)
         v = self.v_proj(x).view(b, n, h, dh).transpose(1, 2)

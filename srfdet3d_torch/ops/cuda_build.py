@@ -21,6 +21,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
@@ -107,6 +109,13 @@ def load_library(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
             getattr(lib, fn).restype = ctypes.c_int
         _loaded[name] = lib
     return lib
+
+
+def check_device(what: str, device: torch.device) -> None:
+    """Raise unless `device` is the CPU (the plain versions) or a card
+    (the kernels): no other device has a route."""
+    if device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"{what}: no kernel for {device}")
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

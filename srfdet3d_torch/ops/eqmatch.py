@@ -20,19 +20,27 @@ b * P + p, or the miss slot B * P: the JAX package's `plan_table`.  The
 kernel builds it on each call (a fill and a scatter), then runs one thread
 per (query, plan column (dy, dx)): one map load and one column load answer
 3 taps.  The plain version below does the same arithmetic in PyTorch.
+
+The wrappers call the registered ops `srfdet::eqmatch_rulebook` (the plan
+map and the query in one call) and `srfdet::plan_map`: their CPU
+implementations are the plain versions, their CUDA ones the launches, and
+their fakes give the output shapes to `torch.export`.  A ColumnSet goes in
+as its four tensors (strided column views too), its shape and its row
+capacity.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 
 from . import cuda_build
 
-# query-kernel launches since the last reset (chip_smoke.py reads them);
-# the plan map that each call builds first is counted apart
+# query-kernel launches since the last reset, counted by the op's CUDA
+# implementation in eager and in an exported program alike (chip_smoke.py
+# reads them); the plan map that each call builds first is counted apart
 launches = 0
 map_builds = 0
 
@@ -155,22 +163,55 @@ def _columns(cs, dev: torch.device):
     return args
 
 
+def _column_set(ccoords, cmask, cstart, bits, shape, row_cap):
+    """The ColumnSet of an op's arguments, for the plain versions."""
+    from .bitmap_rulebook import ColumnSet  # it imports this module
+    return ColumnSet(ccoords, cmask, cstart, bits, tuple(shape), row_cap)
+
+
 def plan_map(cs) -> torch.Tensor:
     """The plan map of a ColumnSet: the fill and scatter kernels for
-    tensors on the card, the plain version for tensors on the CPU.  The
-    eq-match wrapper builds its own; this one serves checks and timing."""
-    dev = cs.cmask.device
-    if dev.type == "cpu":
-        return plan_map_plain(cs)
-    if dev.type != "cuda":
-        raise RuntimeError(f"plan_map: no kernel for {dev}")
-    b, p = cs.cmask.shape
-    _, h, w = cs.shape
-    (cc, s_cc), (cm, s_cm), _, _ = _columns(cs, dev)
+    tensors on the card, the plain version for tensors on the CPU, through
+    the op `srfdet::plan_map`.  The eq-match wrapper builds its own; this
+    one serves checks and timing."""
+    cuda_build.check_device("plan_map", cs.cmask.device)
+    return plan_map_op(cs.ccoords, cs.cmask, list(cs.shape))
+
+
+@torch.library.custom_op("srfdet::plan_map", mutates_args=(),
+                         device_types="cpu")
+def plan_map_op(ccoords: torch.Tensor, cmask: torch.Tensor,
+                shape: List[int]) -> torch.Tensor:
+    """The op's CPU implementation: the plain version."""
+    return plan_map_plain(_column_set(ccoords, cmask, None, None, shape, 0))
+
+
+@plan_map_op.register_fake
+def _plan_map_fake(ccoords, cmask, shape):
+    _, h, w = shape
+    return cmask.new_empty(cmask.shape[0] * h * w, dtype=torch.int32)
+
+
+@plan_map_op.register_kernel("cuda")
+def _plan_map_cuda(ccoords: torch.Tensor, cmask: torch.Tensor,
+                   shape: List[int]) -> torch.Tensor:
+    """The op's CUDA implementation: the fill and scatter kernels."""
+    dev = cmask.device
+    b, p = cmask.shape
+    _, h, w = shape
+    if b * p >= 2 ** 31 or b * h * w >= 2 ** 31:
+        raise ValueError("plan_map: slots and cells must fit int32")
+    for name, t, dtype in (("ccoords", ccoords, torch.int64),
+                           ("cmask", cmask, torch.bool)):
+        if t.dtype != dtype or t.device != dev:
+            raise ValueError(f"plan_map: {name} must be {dtype} on {dev}")
+    s_cc = _sample_stride(ccoords, (b, p, 2), 2, "ccoords")
+    s_cm = _sample_stride(cmask, (b, p), 1, "cmask")
     pmap = torch.empty(b * h * w, dtype=torch.int32, device=dev)
     lib = _kernels()
     with torch.cuda.device(dev):
-        rc = lib.plan_map(cc, cm, s_cc, s_cm, b, p, h, w, pmap.data_ptr(),
+        rc = lib.plan_map(ccoords.data_ptr(), cmask.data_ptr(), s_cc, s_cm,
+                          b, p, h, w, pmap.data_ptr(),
                           torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(lib, rc, "plan_map")
     return pmap
@@ -183,14 +224,46 @@ def eqmatch_rulebook(cs, coords: torch.Tensor, valid: torch.Tensor,
     """The column-query rulebook (B, Q, 27) int32 of a ColumnSet `cs` at
     queries coords (B, Q, 3) int64 zyx and valid (B, Q) bool: the plan map
     and the query kernel, in one call, for tensors on the card, the plain
-    version for tensors on the CPU."""
-    dev = coords.device
-    if dev.type == "cpu":
-        return column_query_plain(cs, plan_map_plain(cs), coords, valid,
-                                  scale, offset)
-    if dev.type != "cuda":
-        raise RuntimeError(f"eqmatch_rulebook: no kernel for {dev}")
+    version for tensors on the CPU, through the op
+    `srfdet::eqmatch_rulebook` (the ColumnSet goes in as its four tensors,
+    its shape and row capacity)."""
+    cuda_build.check_device("eqmatch_rulebook", coords.device)
+    return eqmatch_rulebook_op(cs.ccoords, cs.cmask, cs.bits, cs.cstart,
+                               coords, valid, list(cs.shape), cs.row_cap,
+                               scale, list(offset))
+
+
+@torch.library.custom_op("srfdet::eqmatch_rulebook", mutates_args=(),
+                         device_types="cpu")
+def eqmatch_rulebook_op(ccoords: torch.Tensor, cmask: torch.Tensor,
+                        bits: torch.Tensor, cstart: torch.Tensor,
+                        coords: torch.Tensor, valid: torch.Tensor,
+                        shape: List[int], row_cap: int, scale: int,
+                        offset: List[int]) -> torch.Tensor:
+    """The op's CPU implementation: the plain version."""
+    cs = _column_set(ccoords, cmask, cstart, bits, shape, row_cap)
+    return column_query_plain(cs, plan_map_plain(cs), coords, valid, scale,
+                              tuple(offset))
+
+
+@eqmatch_rulebook_op.register_fake
+def _eqmatch_rulebook_fake(ccoords, cmask, bits, cstart, coords, valid,
+                           shape, row_cap, scale, offset):
+    b, q, _ = coords.shape
+    return coords.new_empty(b, q, 27, dtype=torch.int32)
+
+
+@eqmatch_rulebook_op.register_kernel("cuda")
+def _eqmatch_rulebook_cuda(ccoords: torch.Tensor, cmask: torch.Tensor,
+                           bits: torch.Tensor, cstart: torch.Tensor,
+                           coords: torch.Tensor, valid: torch.Tensor,
+                           shape: List[int], row_cap: int, scale: int,
+                           offset: List[int]) -> torch.Tensor:
+    """The op's CUDA implementation: checks the arguments, builds the plan
+    map, launches the query kernel and counts both."""
     global launches, map_builds
+    cs = _column_set(ccoords, cmask, cstart, bits, shape, row_cap)
+    dev = coords.device
     b, q, _ = coords.shape
     p = cs.cmask.shape[1]
     _, h, w = cs.shape
@@ -204,7 +277,8 @@ def eqmatch_rulebook(cs, coords: torch.Tensor, valid: torch.Tensor,
         raise ValueError("eqmatch_rulebook: queries and columns must share B")
     if b * cs.row_cap >= 2 ** 31 or b * q >= 2 ** 31:
         raise ValueError("eqmatch_rulebook: rows and queries must fit int32")
-    (cc, s_cc), (cm, s_cm), (bits, s_bits), (cst, s_st) = _columns(cs, dev)
+    (cc, s_cc), (cm, s_cm), (bits_p, s_bits), (cst, s_st) = \
+        _columns(cs, dev)
     coords, valid = coords.contiguous(), valid.contiguous()
     out = torch.empty(b, q, 27, dtype=torch.int32, device=dev)
     if out.numel() == 0:
@@ -214,9 +288,9 @@ def eqmatch_rulebook(cs, coords: torch.Tensor, valid: torch.Tensor,
     lib = _kernels()
     with torch.cuda.device(dev):
         rc = lib.eqmatch_rulebook(
-            cc, cm, s_cc, s_cm, bits, cst, s_bits, s_st, coords.data_ptr(),
-            valid.data_ptr(), q, b, p, h, w, cs.row_cap, scale, oz, oy, ox,
-            pmap.data_ptr(), out.data_ptr(),
+            cc, cm, s_cc, s_cm, bits_p, cst, s_bits, s_st,
+            coords.data_ptr(), valid.data_ptr(), q, b, p, h, w, cs.row_cap,
+            scale, oz, oy, ox, pmap.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(lib, rc, "eqmatch_rulebook")
     map_builds += 1

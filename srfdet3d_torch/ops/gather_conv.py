@@ -14,6 +14,11 @@ kernel; the bf16 model, JAX `pallas_onehot.py:114-118`): the bf16 output is
 the float32 sum of the exact bf16 products, rounded once, in the kernel
 and in the plain version alike (JAX's `preferred_element_type=float32`,
 then `.astype`).
+
+The wrapper calls the registered op `srfdet::gather_conv` (one op for both
+dtypes): its CPU implementation is the plain version, its CUDA one the
+launch, and its fake gives the (M, Cout) output to `torch.export`, so an
+exported program keeps the kernel as one node.
 """
 
 from __future__ import annotations
@@ -25,7 +30,8 @@ import torch
 from . import cuda_build
 
 # kernel launches since the last reset, the float32 kernel's and the bf16
-# kernel's (chip_smoke.py reads them)
+# kernel's, counted by the op's CUDA implementation, in eager and in an
+# exported program alike (chip_smoke.py reads them)
 launches = 0
 bf16_launches = 0
 
@@ -75,15 +81,35 @@ def gather_conv_plain(feats: torch.Tensor, idx: torch.Tensor,
 def gather_conv(feats: torch.Tensor, idx: torch.Tensor,
                 weights: torch.Tensor) -> torch.Tensor:
     """The gather-GEMM: the CUDA kernel for tensors on the card, the plain
-    version for tensors on the CPU.  feats and W: float32 (the 3xTF32
-    kernel) or bfloat16 (the bf16 kernel), one dtype for both; the output
-    has it."""
-    dtype = check_dtypes("gather_conv", feats, weights)
-    if feats.device.type == "cpu":
-        return gather_conv_plain(feats, idx, weights)
-    if feats.device.type != "cuda":
-        raise RuntimeError(f"gather_conv: no kernel for {feats.device}")
+    version for tensors on the CPU, through the op `srfdet::gather_conv`
+    (so a traced program calls it as one node).  feats and W: float32 (the
+    3xTF32 kernel) or bfloat16 (the bf16 kernel), one dtype for both; the
+    output has it."""
+    check_dtypes("gather_conv", feats, weights)
+    cuda_build.check_device("gather_conv", feats.device)
+    return gather_conv_op(feats, idx, weights)
+
+
+@torch.library.custom_op("srfdet::gather_conv", mutates_args=(),
+                         device_types="cpu")
+def gather_conv_op(feats: torch.Tensor, idx: torch.Tensor,
+                   weights: torch.Tensor) -> torch.Tensor:
+    """The op's CPU implementation: the plain version."""
+    return gather_conv_plain(feats, idx, weights)
+
+
+@gather_conv_op.register_fake
+def _gather_conv_fake(feats, idx, weights):
+    return feats.new_empty(idx.shape[0], weights.shape[2])
+
+
+@gather_conv_op.register_kernel("cuda")
+def _gather_conv_cuda(feats: torch.Tensor, idx: torch.Tensor,
+                      weights: torch.Tensor) -> torch.Tensor:
+    """The op's CUDA implementation: checks the arguments, launches the
+    float32 or the bf16 kernel and counts the launch."""
     global launches, bf16_launches
+    dtype = check_dtypes("gather_conv", feats, weights)
     n, cin = feats.shape
     m, k = idx.shape
     dev = feats.device

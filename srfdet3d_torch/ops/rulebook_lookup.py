@@ -16,7 +16,15 @@ rows = arange(N) the two agree.
 On the card the lookup probes an open-addressing hash table of the keys
 (`KeyHash`, built by `key_hash`), which a key table builds once and all its
 lookups share; a lookup given none builds its own.  On the CPU the plain
-version searches the sorted keys (searchsorted) and no table is built.
+version searches the sorted keys (searchsorted); the CPU's table is built
+by the plain version of the build (`key_hash_plain`) and is only probed
+by the tests.
+
+The wrappers call the registered ops `srfdet::key_hash` (the table, its
+size a static argument from the keys' count) and `srfdet::rulebook_lookup`
+(keys, rows, queries, the table, the sentinel): their CPU implementations
+are the plain versions, their CUDA ones the launches, and their fakes give
+the output shapes to `torch.export`.
 """
 
 from __future__ import annotations
@@ -29,8 +37,9 @@ import torch
 
 from . import cuda_build
 
-# lookup-kernel launches and hash-table builds since the last reset
-# (chip_smoke.py reads them)
+# lookup-kernel launches and hash-table builds since the last reset,
+# counted by the ops' CUDA implementations in eager and in an exported
+# program alike (chip_smoke.py reads them)
 launches = 0
 builds = 0
 
@@ -47,13 +56,15 @@ _lib = None
 # a slot packs key << ROW_BITS | row into one int64 word
 ROW_BITS = 24
 KEY_LIMIT = 1 << (64 - ROW_BITS)
+# Fibonacci hashing's multiplier 0x9E3779B97F4A7C15, as a signed int64
+_GOLDEN = 0x9E3779B97F4A7C15 - (1 << 64)
 
 
 @dataclasses.dataclass
 class KeyHash:
     """An open-addressing table of the first occurrence of each key in
     [0, sentinel): 2 ** log2_slots int64 words key << ROW_BITS | row, -1
-    where empty, probed by buckets of 4 slots."""
+    where empty, probed by buckets of 4 slots; built on every device."""
     table: torch.Tensor
     log2_slots: int
     n_keys: int
@@ -82,6 +93,45 @@ def rulebook_lookup_plain(keys: torch.Tensor, rows: torch.Tensor,
     return out.to(torch.int32).reshape(queries.shape)
 
 
+def _home(keys: torch.Tensor, log2_slots: int) -> torch.Tensor:
+    """The first slot of each key's home bucket, as the kernels hash it:
+    the top log2_slots - 2 bits of key * 0x9E3779B97F4A7C15 (mod 2^64),
+    times 4 (buckets of 4 slots)."""
+    bits = log2_slots - 2
+    h = keys * _GOLDEN                      # wraps mod 2^64, as uint64 does
+    return ((h >> (64 - bits)) & ((1 << bits) - 1)) << 2
+
+
+def key_hash_plain(keys: torch.Tensor, rows: torch.Tensor, sentinel: int,
+                   log2_slots: int) -> torch.Tensor:
+    """Plain version of the table build: the first of each run of equal
+    keys in [0, sentinel), as key << ROW_BITS | row, by linear probing from
+    its home bucket's first slot; -1 where empty.  Keys probe in rounds,
+    and where several reach one empty slot the earliest key takes it.  The
+    card's atomic inserts may place keys in other slots of their probe
+    runs; every probe finds the same row in either table."""
+    slots = 1 << log2_slots
+    table = torch.full((slots,), -1, dtype=torch.int64, device=keys.device)
+    first = torch.ones_like(keys, dtype=torch.bool)
+    first[1:] = keys[1:] != keys[:-1]
+    sel = first & (keys >= 0) & (keys < sentinel)
+    key = keys[sel]
+    word = (key << ROW_BITS) | rows[sel].to(torch.int64)
+    pos = _home(key, log2_slots)
+    pending = torch.arange(key.numel(), device=keys.device)
+    while pending.numel():
+        at = pos[pending]
+        empty = table[at] == -1
+        claim = torch.full((slots,), key.numel(), dtype=torch.int64,
+                           device=keys.device)
+        claim.scatter_reduce_(0, at[empty], pending[empty], "amin")
+        won = empty & (claim[at] == pending)
+        table[at[won]] = word[pending[won]]
+        pending = pending[~won]
+        pos[pending] = (pos[pending] + 1) & (slots - 1)
+    return table
+
+
 def _kernels():
     global _lib
     if _lib is None:
@@ -89,38 +139,65 @@ def _kernels():
     return _lib
 
 
-def key_hash(keys: torch.Tensor, rows: torch.Tensor,
-             sentinel: int) -> Optional[KeyHash]:
-    """The hash table of sorted keys and their rows, built on the card for
-    tensors there; None for tensors on the CPU, whose lookups search the
-    sorted keys."""
-    dev = keys.device
-    if dev.type == "cpu":
-        return None
-    if dev.type != "cuda":
-        raise RuntimeError(f"key_hash: no kernel for {dev}")
-    global builds
+def _check_hash_args(keys: torch.Tensor, rows: torch.Tensor,
+                     sentinel: int) -> None:
     n = keys.numel()
     if keys.dtype != torch.int64 or keys.dim() != 1 or \
             not keys.is_contiguous():
         raise ValueError("key_hash: keys must be 1-D contiguous int64")
     if rows.dtype != torch.int32 or rows.shape != (n,) or \
-            rows.device != dev or not rows.is_contiguous():
+            rows.device != keys.device or not rows.is_contiguous():
         raise ValueError(f"key_hash: rows must be ({n},) contiguous int32 "
-                         f"on {dev}")
+                         f"on {keys.device}")
     if n >= 1 << ROW_BITS or not 0 <= sentinel < KEY_LIMIT - 1:
         raise ValueError(f"key_hash: a slot holds rows below 2^{ROW_BITS} "
                          f"and keys below 2^{64 - ROW_BITS} - 1")
-    log2 = hash_slots_log2(n)
-    table = torch.empty(1 << log2, dtype=torch.int64, device=dev)
+
+
+def key_hash(keys: torch.Tensor, rows: torch.Tensor,
+             sentinel: int) -> KeyHash:
+    """The hash table of sorted keys and their rows: built on the card for
+    tensors there, by the plain version for tensors on the CPU, through
+    the op `srfdet::key_hash`.  Its size follows from the keys' count
+    alone (`hash_slots_log2`), so a traced program has it static."""
+    cuda_build.check_device("key_hash", keys.device)
+    log2 = hash_slots_log2(keys.numel())
+    table = key_hash_op(keys, rows, int(sentinel), log2)
+    return KeyHash(table, log2, keys.numel(), int(sentinel))
+
+
+@torch.library.custom_op("srfdet::key_hash", mutates_args=(),
+                         device_types="cpu")
+def key_hash_op(keys: torch.Tensor, rows: torch.Tensor, sentinel: int,
+                log2_slots: int) -> torch.Tensor:
+    """The op's CPU implementation: the plain version."""
+    _check_hash_args(keys, rows, sentinel)
+    return key_hash_plain(keys, rows, sentinel, log2_slots)
+
+
+@key_hash_op.register_fake
+def _key_hash_fake(keys, rows, sentinel, log2_slots):
+    return keys.new_empty(1 << log2_slots)
+
+
+@key_hash_op.register_kernel("cuda")
+def _key_hash_cuda(keys: torch.Tensor, rows: torch.Tensor, sentinel: int,
+                   log2_slots: int) -> torch.Tensor:
+    """The op's CUDA implementation: the fill and insert kernels; counts
+    the build."""
+    global builds
+    _check_hash_args(keys, rows, sentinel)
+    dev = keys.device
+    table = torch.empty(1 << log2_slots, dtype=torch.int64, device=dev)
     lib = _kernels()
     with torch.cuda.device(dev):
-        rc = lib.key_hash_build(keys.data_ptr(), rows.data_ptr(), n,
-                                int(sentinel), table.data_ptr(), log2,
+        rc = lib.key_hash_build(keys.data_ptr(), rows.data_ptr(),
+                                keys.numel(), sentinel, table.data_ptr(),
+                                log2_slots,
                                 torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(lib, rc, "key_hash")
     builds += 1
-    return KeyHash(table, log2, n, int(sentinel))
+    return table
 
 
 def rulebook_lookup(keys: torch.Tensor, rows: torch.Tensor,
@@ -128,33 +205,61 @@ def rulebook_lookup(keys: torch.Tensor, rows: torch.Tensor,
                     hashed: Optional[KeyHash] = None) -> torch.Tensor:
     """The row of each query's key: the hash-table kernel for tensors on
     the card (probing `hashed`, the table of these keys, or one built
-    here), the plain version for tensors on the CPU."""
-    if keys.device.type == "cpu":
-        return rulebook_lookup_plain(keys, rows, queries, sentinel)
-    if keys.device.type != "cuda":
-        raise RuntimeError(f"rulebook_lookup: no kernel for {keys.device}")
+    here), the plain version for tensors on the CPU, through the op
+    `srfdet::rulebook_lookup`."""
+    cuda_build.check_device("rulebook_lookup", keys.device)
+    if hashed is None:
+        hashed = key_hash(keys, rows, sentinel)
+    elif (hashed.n_keys != keys.numel() or
+          hashed.sentinel != int(sentinel) or
+          hashed.table.device != keys.device or
+          hashed.table.shape != (1 << hashed.log2_slots,)):
+        raise ValueError("rulebook_lookup: the hash table is not these "
+                         "keys'")
+    return rulebook_lookup_op(keys, rows, queries, hashed.table,
+                              int(sentinel))
+
+
+@torch.library.custom_op("srfdet::rulebook_lookup", mutates_args=(),
+                         device_types="cpu")
+def rulebook_lookup_op(keys: torch.Tensor, rows: torch.Tensor,
+                       queries: torch.Tensor, table: torch.Tensor,
+                       sentinel: int) -> torch.Tensor:
+    """The op's CPU implementation: the plain version, which searches the
+    sorted keys (the table is the CUDA implementation's)."""
+    return rulebook_lookup_plain(keys, rows, queries, sentinel)
+
+
+@rulebook_lookup_op.register_fake
+def _rulebook_lookup_fake(keys, rows, queries, table, sentinel):
+    return queries.new_empty(queries.shape, dtype=torch.int32)
+
+
+@rulebook_lookup_op.register_kernel("cuda")
+def _rulebook_lookup_cuda(keys: torch.Tensor, rows: torch.Tensor,
+                          queries: torch.Tensor, table: torch.Tensor,
+                          sentinel: int) -> torch.Tensor:
+    """The op's CUDA implementation: checks the arguments, launches the
+    probe kernel on `table` and counts the launch."""
     global launches
     dev = keys.device
-    n = keys.numel()
+    slots = table.numel()
     if queries.dtype != torch.int64 or queries.dim() != 2 or \
             queries.device != dev or not queries.is_contiguous():
         raise ValueError(f"rulebook_lookup: queries must be (M, K) "
                          f"contiguous int64 on {dev}")
-    if hashed is None:
-        hashed = key_hash(keys, rows, sentinel)
-    elif (hashed.n_keys != n or hashed.sentinel != int(sentinel) or
-          hashed.table.device != dev or
-          hashed.table.shape != (1 << hashed.log2_slots,)):
-        raise ValueError("rulebook_lookup: the hash table is not these "
-                         "keys'")
+    if table.dtype != torch.int64 or table.device != dev or \
+            table.dim() != 1 or slots < 8 or slots & (slots - 1):
+        raise ValueError("rulebook_lookup: the hash table must be a 1-D "
+                         "int64 power-of-two table on the keys' device")
     out = torch.empty(queries.shape, dtype=torch.int32, device=dev)
     if out.numel() == 0:
         return out
     lib = _kernels()
     with torch.cuda.device(dev):
-        rc = lib.rulebook_lookup(hashed.table.data_ptr(), hashed.log2_slots,
+        rc = lib.rulebook_lookup(table.data_ptr(), slots.bit_length() - 1,
                                  queries.data_ptr(), queries.numel(),
-                                 int(sentinel), n, out.data_ptr(),
+                                 sentinel, keys.numel(), out.data_ptr(),
                                  torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(lib, rc, "rulebook_lookup")
     launches += 1

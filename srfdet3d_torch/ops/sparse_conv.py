@@ -165,12 +165,13 @@ def generate_output_sites(coords: torch.Tensor, mask: torch.Tensor, shape,
 class KeyTable:
     """The sample-folded sorted keys of one stage's sites and the global
     feature row of each key; queries at or above `sentinel` are invalid.
-    On the card `hashed` is the hash table of the keys (None on the CPU)."""
+    `hashed` is the hash table of the keys (on the CPU built by the plain
+    version, which only the card's lookups probe)."""
     keys: torch.Tensor      # (B * V,) int64 ascending
     rows: torch.Tensor      # (B * V,) int32
     cells: int              # cells of one sample's grid
     sentinel: int           # B * (cells + 1)
-    hashed: Optional[KeyHash]
+    hashed: KeyHash
 
 
 def make_key_table(coords: torch.Tensor, mask: torch.Tensor, shape,
@@ -179,7 +180,8 @@ def make_key_table(coords: torch.Tensor, mask: torch.Tensor, shape,
     (one stable sort; its permutation gives each key's row).  Sites that
     are already in key order per sample, with the masked rows at each
     sample's tail (what generate_output_sites emits), skip the sort.  On
-    the card the keys are hashed here, once for all the table's lookups."""
+    every device the keys are hashed here, once for all the table's
+    lookups."""
     b, v = mask.shape
     cells = math.prod(shape)
     shift = cells + 1

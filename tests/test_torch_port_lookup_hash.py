@@ -9,7 +9,9 @@ slot of its home bucket of 4 (the top bits of key * 0x9E3779B97F4A7C15),
 a probe reading a bucket a round until the equal key or an empty slot.
 A numpy (uint64) model of that build and probe is held against the
 plain version (`rulebook_lookup_plain`, searchsorted, which the wrapper
-runs on the CPU) and the Pallas kernel in interpret mode: chains of keys
+runs on the CPU) and the Pallas kernel in interpret mode, and the model's
+probe of the table that the plain build (`key_hash_plain`, the CPU's
+key_hash) makes is held against the plain version too: chains of keys
 that share a home slot and wrap around the table's end, a table at its
 load limit, permuted rows, invalid queries, and B = 2 key tables with each
 sample's padding keys.  The model inserts in random orders too: the rows
@@ -100,6 +102,12 @@ def _check(keys, rows, queries, sentinel, seed=0):
     np.testing.assert_array_equal(
         rl.rulebook_lookup(T(keys), T(rows), T(queries), sentinel).numpy(),
         ref.numpy())
+    # the table the plain build makes on the CPU (key_hash's CPU route)
+    # answers every probe as the plain version does
+    plain = rl.key_hash(T(keys), T(rows), sentinel)
+    np.testing.assert_array_equal(
+        _probe((plain.table.numpy(), plain.log2_slots), queries, sentinel,
+               n)[0], ref.numpy())
     return ref.numpy(), table, longest
 
 
@@ -198,7 +206,8 @@ def test_two_sample_key_table_with_padding_keys():
         coords[s, :len(o)] = np.stack([z[o], yx[o] // w, yx[o] % w], -1)
         mask[s, :len(o)] = True
     table = tsc.make_key_table(T(coords), T(mask), shape)
-    assert table.hashed is None                      # none on the CPU
+    hashed = table.hashed              # on the CPU, the plain build's
+    assert hashed.log2_slots == rl.hash_slots_log2(b * v)
     keys, rows = table.keys.numpy(), table.rows.numpy()
     pads = np.arange(b) * (cells + 1) + cells
     assert all((keys == p).sum() > 1 for p in pads)
@@ -213,6 +222,9 @@ def test_two_sample_key_table_with_padding_keys():
                   table.sentinel).reshape(-1, 27)
     queries = np.concatenate([gq, np.tile(pads, (1, 27 // b + 1))[:, :27]])
     ref, _, _ = _check(keys, rows, queries, table.sentinel)
+    np.testing.assert_array_equal(
+        _probe((hashed.table.numpy(), hashed.log2_slots), queries,
+               table.sentinel, len(keys))[0], ref)
     np.testing.assert_array_equal(ref[:-1].reshape(sub.shape), sub.numpy())
     first = [rows[np.flatnonzero(keys == p)[0]] for p in pads]
     assert list(ref[-1, :b]) == first

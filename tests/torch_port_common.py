@@ -801,3 +801,31 @@ def meta_state_shapes(tcfg):
         port = SRFDet(tcfg, device="meta")
     return {k: tuple(v.shape) for k, v in port.state_dict().items()
             if not k.endswith("num_batches_tracked")}
+
+
+def check_artifact_outputs(got, want, rtol=1e-5, atol=1e-6):
+    """An exported predict's outputs against the live predict's (the JAX
+    export test's bar): the same keys, labels and valid equal, scores and
+    boxes within rtol 1e-5 and atol 1e-6, and no autograd graph."""
+    assert set(got) == set(want)
+    for k in ("labels", "valid"):
+        assert torch.equal(got[k], want[k]), k
+    for k in ("scores", "boxes"):
+        torch.testing.assert_close(got[k], want[k], rtol=rtol, atol=atol)
+    assert not any(v.requires_grad for v in got.values())
+
+
+def graph_targets(prog):
+    """The call targets of an ExportedProgram's graph, as strings."""
+    return [str(n.target) for n in prog.graph.nodes
+            if n.op == "call_function"]
+
+
+def detecting_port(tcfg, seed=0):
+    """A seeded port model whose class biases are zeroed: scores spread
+    over (0, 1), so decoding keeps boxes."""
+    port = SRFDet(tcfg, device="cpu", seed=seed)
+    with torch.no_grad():
+        for single in port.bbox_head.heads:
+            single.class_logits.bias.zero_()
+    return port
