@@ -232,10 +232,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    (*_predict_busy: device busy time and share);
 The bfloat16 compute modes run among these phases: after K1's flagship
 check, K1-bf16 at the same 21 convs on bf16 tables and weights
-(gather_conv_bf16 lines), after K3 / K4's, K4-bf16 at the step's 4
-strided and conv_out convs (conv_bwd_bf16), each within one bf16 ulp of
-its plain version (BF16_RTOL) with ms, device ms, plain, library
-(index_select and bf16 products) and the bound at the bf16 rate
+(gather_conv_bf16 lines, with the CUDA kernels one call launches: the
+gather-GEMM alone where Cin % 8 == 0), after K3 / K4's, K4-bf16 at the
+step's 4 strided and conv_out convs (conv_bwd_bf16, with the device ms of
+the preparation, the dfeats gather and the dW pass apart), each within
+one bf16 ulp of its plain version (BF16_RTOL) with ms, device ms, plain,
+library (index_select and bf16 products) and the bound at the bf16 rate
 (PEAK_BF16, 2-byte tables); after flagship_predict, flagship_bf16_predict
 (compute_dtype="bfloat16": K1-bf16 21, K2 4) and flagship_bf16_vs_f32
 (the bf16 model's box centres against the float32 model's on the same
@@ -303,11 +305,15 @@ PEAK_BF16 = 989e12
 # once, so they differ by at most one bf16 ulp (2^-7 relative), plus float32
 # summation-order noise near zero (2^-14 of the largest output)
 BF16_RTOL, BF16_ATOL_REL = 2.0 ** -7, 2.0 ** -14
-# the gather-GEMM kernels' own device code, by name in a profiler trace;
-# the strided backward (K4) also runs its preparation kernels (reverse
-# rulebook, row grouping: 5 launches), K5 its one kernel
-GATHER_GEMM_KERNELS = ("gather_gemm::kernel", "dw_partial_kernel",
-                       "dw_reduce_kernel")
+# the gather-GEMM kernels' own device code, by name in a profiler trace:
+# the forward and dfeats gathers (float32 3xTF32, bf16 wgmma) and the dW
+# passes (float32, bf16 wgmma) with their chunk-order sum; the strided
+# backward (K4) also runs its preparation kernels (reverse rulebook, row
+# grouping: 5 launches), K5 its one kernel
+DFEATS_KERNELS = ("gather_gemm::kernel", "sm90::gather_kernel")
+DW_KERNELS = ("dw_partial_kernel", "dw_wgmma_kernel", "dw_reduce_kernel",
+              "dw_reduce_bf16_kernel")
+GATHER_GEMM_KERNELS = DFEATS_KERNELS + DW_KERNELS
 STRIDED_PREP_KERNELS = ("strided_prep",)
 STRIDED_PREP_LAUNCHES = 5
 ROI_SCATTER_KERNELS = ("roi_scatter_kernel",)
@@ -532,6 +538,38 @@ def kernel_device_ms(fn, per_call: int, iters: int = 5, tries: int = 3,
     raise AssertionError(f"kernel_device_ms: no profiler session of {tries} "
                          f"saw {per_call * iters} launches of {names} "
                          f"(last: {seen})")
+
+
+def kernels_per_call(fn, iters: int = 3, tries: int = 3,
+                     names=GATHER_GEMM_KERNELS) -> float:
+    """The CUDA kernels of any name that one call of fn launches, from a
+    torch.profiler session (the card's spin at its start left out).  As in
+    kernel_device_ms, a session counts only if it saw one launch of the
+    named kernels a call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(SPIN_CYCLES)
+            torch.cuda.synchronize()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        named = every = 0
+        for e in prof.key_averages():
+            if getattr(e, "device_type", None) != DeviceType.CUDA or \
+                    "spin_kernel" in e.key:
+                continue
+            every += e.count
+            if any(name in e.key for name in names):
+                named += e.count
+        if named == iters:
+            return every / iters
+    raise AssertionError(f"kernels_per_call: no profiler session of {tries} "
+                         f"saw {iters} launches of {names} (last: {named})")
 
 
 def bounds(flops: float, nbytes: float):
@@ -822,7 +860,9 @@ def check_gather_conv_bf16(config, cases, dev, gen):
     """K1-bf16 at every conv shape of the bf16 model's encoder (bf16 tables
     and weights): against the plain version within one bf16 ulp, then ms a
     launch (events), kernel-only device ms (profiler, early in the
-    process), the plain version, index_select + a bf16 matmul, and the
+    process), the CUDA kernels one wrapper call launches (profiler; a call
+    with Cin % 8 == 0 must launch the gather-GEMM alone: no pad, no weight
+    transpose), the plain version, index_select + a bf16 matmul, and the
     bound (2-byte tables, 989 TFLOP/s).  Returns the max error and the sums
     over a predict."""
     from srfdet3d_torch.ops.gather_conv import gather_conv, gather_conv_plain
@@ -846,6 +886,11 @@ def check_gather_conv_bf16(config, cases, dev, gen):
         flat = idx.reshape(-1).long()
         ms = time_ms(lambda: gather_conv(feats, idx, w))
         device_ms = kernel_device_ms(lambda: gather_conv(feats, idx, w), 1)
+        kernels = kernels_per_call(lambda: gather_conv(feats, idx, w))
+        if cin % 8 == 0 and kernels != 1:
+            raise AssertionError(f"gather_conv_bf16 {name}: a call launched "
+                                 f"{kernels} kernels, not the gather-GEMM "
+                                 f"alone")
         plain_ms = time_ms(lambda: gather_conv_plain(feats, idx, w))
         lib_ms = time_ms(lambda: torch.index_select(table0, 0, flat)
                          .view(m, k * cin) @ w2)
@@ -856,8 +901,9 @@ def check_gather_conv_bf16(config, cases, dev, gen):
         emit(dict(phase="gather_conv_bf16", config=config, conv=name, n=n,
                   m=m, k=k, cin=cin, cout=cout,
                   launches_per_predict=per_predict, max_abs_err=err, ms=ms,
-                  device_ms=device_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                  bound_ms=bound, bound_by=bound_by, nnz=nnz))
+                  device_ms=device_ms, kernels_per_call=kernels,
+                  plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                  bound_by=bound_by, nnz=nnz))
         for key, val in (("ms", ms), ("device_ms", device_ms),
                          ("plain_ms", plain_ms), ("library_ms", lib_ms),
                          ("bound_ms", bound)):
@@ -871,9 +917,11 @@ def check_conv_bwd_bf16(cases, dev, gen):
     """K4-bf16 at the strided and conv_out convs of the bf16 flagship's
     train step (batch 2): dfeats and dW against scatter_bwd_plain in bf16
     within one bf16 ulp, both bf16; then ms a launch (events, with the
-    rulebook preparation), kernel-only device ms, the plain version, the
-    reverse-rulebook gather + two bf16 cuBLAS products, and the bound
-    (2-byte tables, 989 TFLOP/s).  The subm convs' backward in bf16 is
+    rulebook preparation), kernel-only device ms, split as
+    conv_bwd_device splits K4's (the preparation's, the dfeats gather's and
+    the dW pass's kernels), the plain version, the reverse-rulebook gather
+    + two bf16 cuBLAS products, and the bound (2-byte tables, 989
+    TFLOP/s).  The subm convs' backward in bf16 is
     K3's float32 kernel on upcasts, checked in float32 by check_conv_bwd.
     Returns the sums over a step."""
     from srfdet3d_torch.ops import gather_conv_bwd as gcb
@@ -914,6 +962,13 @@ def check_conv_bwd_bf16(cases, dev, gen):
         device_ms = kernel_device_ms(
             kern, 3 + STRIDED_PREP_LAUNCHES,
             names=GATHER_GEMM_KERNELS + STRIDED_PREP_KERNELS)
+        split = dict(
+            prep_device_ms=kernel_device_ms(
+                lambda: gcb.strided_prep(idx, n), STRIDED_PREP_LAUNCHES,
+                names=STRIDED_PREP_KERNELS),
+            dfeats_device_ms=kernel_device_ms(kern, 1,
+                                              names=DFEATS_KERNELS),
+            dw_device_ms=kernel_device_ms(kern, 2, names=DW_KERNELS))
         plain_ms = time_ms(plain)
         lib_ms = time_ms(library)
         nnz = int((idx < n).sum())
@@ -923,7 +978,7 @@ def check_conv_bwd_bf16(cases, dev, gen):
         bound, bound_by = bf16_bounds(flops, nbytes)
         emit(dict(phase="conv_bwd_bf16", kernel="K4-bf16", conv=name, n=n,
                   m=m, k=k, cin=cin, cout=cout, launches_per_step=per_step,
-                  max_abs_err=err, ms=ms, device_ms=device_ms,
+                  max_abs_err=err, ms=ms, device_ms=device_ms, **split,
                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
                   bound_by=bound_by, nnz=nnz))
         totals["max_abs_err"] = max(totals["max_abs_err"], err)
@@ -2396,8 +2451,8 @@ def kernel_device_times(cfg, kcfg, batch, kbatch, roi_args, dev, gen):
                     names=STRIDED_PREP_KERNELS)
                 # its dfeats gather-GEMM and its dW passes apart
                 for what, part, count in (
-                        ("dfeats", GATHER_GEMM_KERNELS[:1], int(need)),
-                        ("dw", GATHER_GEMM_KERNELS[1:], 2)):
+                        ("dfeats", DFEATS_KERNELS, int(need)),
+                        ("dw", DW_KERNELS, 2)):
                     if count:
                         line[f"{what}_device_ms"] = kernel_device_ms(
                             lambda: bwd(feats, idx, w, g, need), count,

@@ -32,20 +32,22 @@
 // index, so none of them is needed.
 //
 // bfloat16 (the bf16 model's tables, JAX pallas_onehot.py:114-118, :275,
-// :317): gather_conv_bf16 takes bf16 feats and the transposed bf16 weights
-// Wt (K, Cout, Cin) and writes bf16 out.  The same gather-GEMM runs one bf16
-// mma.sync m16n8k16 a 16-deep step (a product of bf16 values is exact in
-// f32, so there is nothing to split), sums in f32 and rounds each output to
-// bf16 once: the TPU kernel's numbers (its one-hot gathers are exact, its
-// accumulator f32).  Cin must be a multiple of 8 (16-byte row copies; the
-// wrapper pads the 5 point features of conv_input to 8).  The bound at the
-// flagship's stages 2-3 moves to the bf16 rate, 989 TFLOP/s (~20 flops a
-// byte at 3.35 TB/s), six times the 3xTF32 rate.
+// :317): gather_conv_bf16 takes bf16 feats and the bf16 weights W (K, Cin,
+// Cout) as they are and writes bf16 out: f32 sums of the exact bf16
+// products, each output rounded to bf16 once, the TPU kernel's numbers
+// (its one-hot gathers are exact, its accumulator f32).  Its device code
+// is gather_gemm_sm90.cuh's: wgmma from shared memory fed by an mbarrier
+// ring of cp.async row gathers (several offsets a step at Cin 16-32) and
+// TMA weight boxes read MN-major in place; what bounds each shape and what
+// the design does about it are in that header.  Any Cin
+// (rows not 16-byte aligned are copied by ordinary loads); Cout a multiple
+// of 8 (the weights' tensor map).
 //
 // Interface: plain C, pointers from torch tensors, launched on the caller's
 // stream; returns the launch's CUDA error code (invalid value for K > 32).
 
 #include "gather_gemm.cuh"
+#include "gather_gemm_sm90.cuh"
 
 extern "C" {
 
@@ -61,12 +63,12 @@ int gather_conv_f32(const void* feats, const void* idx, const void* w,
                                   cout, (cudaStream_t)stream);
 }
 
-int gather_conv_bf16(const void* feats, const void* idx, const void* wt,
+int gather_conv_bf16(const void* feats, const void* idx, const void* w,
                      void* out, int n, long long m, int k, int cin, int cout,
                      void* stream) {
-  return (int)gather_gemm::launch_bf16(
-      (const __nv_bfloat16*)feats, (const int*)idx,
-      (const __nv_bfloat16*)wt, (__nv_bfloat16*)out, n, m, k, cin, cout,
+  return (int)sm90::launch_gather<true>(
+      (const sm90::bf16*)feats, (const int*)idx, nullptr,
+      (const sm90::bf16*)w, (sm90::bf16*)out, n, m, k, cin, cout,
       (cudaStream_t)stream);
 }
 

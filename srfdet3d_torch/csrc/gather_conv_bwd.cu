@@ -52,25 +52,46 @@
 // gather.
 //
 // bfloat16 (the bf16 model, K4 only; JAX pallas_onehot_bwd.py:95-129,
-// :187, :196, :234-246): the dfeats gather-GEMM and the dW pass take bf16
-// feats, g and W and run bf16 mma.sync m16n8k16 with f32 accumulation; dW's
-// partials are f32, summed in chunk order and rounded to bf16 once, and each
-// dfeats element is rounded once.  (The subm backward, K3, has no bf16
-// variant: as on the TPU, pallas_onehot_bwd.py:428, its wrapper upcasts to
-// f32, runs the f32 kernel and casts the results back.)  The TPU kernel
-// rounds each offset's product (`ystack`) to bf16 before its one-hot scatter
-// (pallas_onehot_bwd.py:98); the JAX package's XLA path on the CPU keeps
-// them f32, and so does this gather, which has no such step: it computes
-// the XLA path's numbers, each dfeats element one rounding from the f32 sum.
-// Measured on the CPU (tests/test_torch_port_bf16_kernels.py, N 400, Cin
-// 16, Cout 32, K 27): the TPU kernel in interpret mode differs from the
-// XLA path by up to 2.4e-3 of the largest |dfeats| (dW 2.5e-3); the plain
-// version, which this kernel is held to on the card, within one bf16 ulp.
+// :187, :196, :234-246): K4-bf16 takes bf16 feats, g and W, sums in f32 and
+// rounds each dfeats and dW element to bf16 once.  (The subm backward, K3,
+// has no bf16 variant: as on the TPU, pallas_onehot_bwd.py:428, its
+// wrapper upcasts to f32, runs the f32 kernel and casts the results back.)
+//   - dfeats is gather_gemm_sm90.cuh's wgmma gather-GEMM over the grouped
+//     reverse rulebook, through the row map, with W (K, Cin, Cout) read as
+//     it is as a K-major B (Cout is the reduction).
+//   - dW (dw_wgmma_kernel): the f32 pass's compaction of each (row chunk,
+//     offset)'s hit rows and its partials (f32, no atomics), with wgmma
+//     m64nNk16 for the product: the hit rows are the reduction, and both
+//     operands are staged as they are loaded, MN-major (A: the feature
+//     rows' Cin tile, one 64-channel atom a consumer warpgroup; B: the
+//     gathered g rows' Cout tile), 64 hit rows a stage through a 4-deep
+//     ring of cp.async copies with full / empty mbarriers (one producer
+//     warpgroup); the partials are summed in a fixed order by 8 threads an
+//     element (dw_reduce_bf16_kernel).
+//   What bounds dW at the flagship's strided convs is not the product
+//   (bench/probe_gather_gemm.py's no_mma variant is within 4% of it) but
+//   its compaction scan and partials (scan_only, which keeps both, takes
+//   60-80% of the pass): a block per (chunk, offset) read a 32-byte
+//   sector of the strided reverse-rulebook column for each 4-byte entry.
+//   So a block scans 4 neighbouring offsets at once (K >= 8), one sector
+//   serving them all, and sums them one after another through its ring
+//   (one offset a block: +51% at down0, +12% at down2); the wrapper
+//   doubles the chunk where the partials' bytes (chunks x K x Cin x Cout
+//   floats, written and read back) lead (PERF.md §6).
+// The TPU kernel rounds each offset's product (`ystack`) to bf16 before its
+// one-hot scatter (pallas_onehot_bwd.py:98); the JAX package's XLA path on
+// the CPU keeps them f32, and so does this gather, which has no such step:
+// it computes the XLA path's numbers.  Measured on the CPU
+// (tests/test_torch_port_bf16_kernels.py, N 400, Cin 16, Cout 32, K 27):
+// the TPU kernel in interpret mode differs from the XLA path by up to
+// 2.4e-3 of the largest |dfeats| (dW 2.5e-3); the plain version, which
+// this kernel is held to on the card, within one bf16 ulp.
 //
 // Interface: plain C, pointers from torch tensors, launched on the caller's
 // stream; each entry returns the launch's CUDA error code.
 
 #include "gather_gemm.cuh"
+#include "gather_gemm_sm90.cuh"
 
 namespace {
 
@@ -85,8 +106,7 @@ constexpr int tile_of(int c) {
 
 // A dW tile of TM x TN over WM x WN warps of 32 x 32 accumulators (16
 // warps at 128 x 128); at least 4 warps, so that small tiles still compact
-// and load with 128 threads.  Sizes in elements of the tables' type (float
-// or bf16; a stage holds kDwBK hit rows of each operand, k-major).
+// and load with 128 threads.
 template <int TM, int TN>
 struct DwCfg {
   static constexpr int WM = TM >= 32 ? TM / 32 : 1;
@@ -94,30 +114,27 @@ struct DwCfg {
   static constexpr int kThreads = WM * WN * 32 < 128 ? 128 : WM * WN * 32;
   static constexpr int MT = TM / WM / 16, NT = TN / WN / 8;
   static constexpr int LDA = TM + 8, LDB = TN + 8;
-  static constexpr int A_ELEMS = kDwBK * LDA, B_ELEMS = kDwBK * LDB;
-  static constexpr int STAGE = A_ELEMS + B_ELEMS;
+  static constexpr int A_FLOATS = kDwBK * LDA, B_FLOATS = kDwBK * LDB;
+  static constexpr int STAGE = A_FLOATS + B_FLOATS;
   static_assert(MT >= 1 && NT >= 1 && TM % (16 * WM) == 0 &&
                     TN % (8 * WN) == 0,
                 "tile shape");
 };
 
 // Partial dW tile of one (row chunk, offset j, TM x TN tile): the sum over
-// the chunk's rows r that hit offset j of feats[r, ci] * g[rb[r, j], co],
-// in f32 (bf16 tables: bf16 MMAs, f32 partials).  Warps past WM x WN (small
-// tiles) only compact and load.
-template <typename E, int TM, int TN>
+// the chunk's rows r that hit offset j of feats[r, ci] * g[rb[r, j], co].
+// Warps past WM x WN (small tiles) only compact and load.
+template <int TM, int TN>
 __global__ void __launch_bounds__(DwCfg<TM, TN>::kThreads)
-dw_partial_kernel(const E* __restrict__ feats, const int* __restrict__ rb,
-                  const E* __restrict__ g, float* __restrict__ part,
+dw_partial_kernel(const float* __restrict__ feats, const int* __restrict__ rb,
+                  const float* __restrict__ g, float* __restrict__ part,
                   long long nrows, int mg, int k, int cin, int cout,
                   int chunk, int flip, int vec_a, int vec_b) {
   using C = DwCfg<TM, TN>;
-  constexpr bool kBf16 = sizeof(E) == 2;
   constexpr int WM = C::WM, WN = C::WN, T = C::kThreads;
   constexpr int MT = C::MT, NT = C::NT, LDA = C::LDA, LDB = C::LDB;
-  constexpr int A_ELEMS = C::A_ELEMS, STAGE = C::STAGE;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  E* smem = reinterpret_cast<E*>(smem_raw);
+  constexpr int A_FLOATS = C::A_FLOATS, STAGE = C::STAGE;
+  extern __shared__ __align__(16) float smem[];
   int* hit_r = reinterpret_cast<int*>(smem + kDwStages * STAGE);
   int* hit_g = hit_r + chunk;
   __shared__ int counts[kScan][T / 32];
@@ -167,24 +184,34 @@ dw_partial_kernel(const E* __restrict__ feats, const int* __restrict__ rb,
     __syncthreads();  // counts are reused; the lists are complete
   }
   const int steps = (hits + kDwBK - 1) / kDwBK;
-  const E* fchunk = feats + r_begin * cin;
+  const float* fchunk = feats + r_begin * cin;
 
   auto load = [&](int s, int buf) {
     const int h0 = s * kDwBK;
-    E* As = smem + buf * STAGE;
-    E* Bs = As + A_ELEMS;
-    if constexpr (kBf16) {
-      // 16-byte copies of 8 channels (Cin, Cout % 8 == 0, aligned rows)
-      for (int e = tid; e < kDwBK * (TM / 8); e += T) {
-        const int kr = e / (TM / 8), c = (e % (TM / 8)) * 8;
+    float* As = smem + buf * STAGE;
+    float* Bs = As + A_FLOATS;
+    if (vec_a) {
+      for (int e = tid; e < kDwBK * (TM / 4); e += T) {
+        const int kr = e / (TM / 4), c = (e % (TM / 4)) * 4;
         const int h = h0 + kr, cc = ci0 + c;
         const bool ok = h < hits && cc < cin;
         tc::cp_async16(As + kr * LDA + c,
                        ok ? fchunk + (long long)hit_r[h] * cin + cc : feats,
                        ok ? 16 : 0);
       }
-      for (int e = tid; e < kDwBK * (TN / 8); e += T) {
-        const int kr = e / (TN / 8), c = (e % (TN / 8)) * 8;
+    } else {
+      for (int e = tid; e < kDwBK * TM; e += T) {
+        const int kr = e / TM, c = e % TM;
+        const int h = h0 + kr, cc = ci0 + c;
+        const bool ok = h < hits && cc < cin;
+        tc::cp_async4(As + kr * LDA + c,
+                      ok ? fchunk + (long long)hit_r[h] * cin + cc : feats,
+                      ok ? 4 : 0);
+      }
+    }
+    if (vec_b) {
+      for (int e = tid; e < kDwBK * (TN / 4); e += T) {
+        const int kr = e / (TN / 4), c = (e % (TN / 4)) * 4;
         const int h = h0 + kr, cc = co0 + c;
         const bool ok = h < hits && cc < cout;
         tc::cp_async16(Bs + kr * LDB + c,
@@ -192,43 +219,13 @@ dw_partial_kernel(const E* __restrict__ feats, const int* __restrict__ rb,
                        ok ? 16 : 0);
       }
     } else {
-      if (vec_a) {
-        for (int e = tid; e < kDwBK * (TM / 4); e += T) {
-          const int kr = e / (TM / 4), c = (e % (TM / 4)) * 4;
-          const int h = h0 + kr, cc = ci0 + c;
-          const bool ok = h < hits && cc < cin;
-          tc::cp_async16(As + kr * LDA + c,
-                         ok ? fchunk + (long long)hit_r[h] * cin + cc : feats,
-                         ok ? 16 : 0);
-        }
-      } else {
-        for (int e = tid; e < kDwBK * TM; e += T) {
-          const int kr = e / TM, c = e % TM;
-          const int h = h0 + kr, cc = ci0 + c;
-          const bool ok = h < hits && cc < cin;
-          tc::cp_async4(As + kr * LDA + c,
-                        ok ? fchunk + (long long)hit_r[h] * cin + cc : feats,
-                        ok ? 4 : 0);
-        }
-      }
-      if (vec_b) {
-        for (int e = tid; e < kDwBK * (TN / 4); e += T) {
-          const int kr = e / (TN / 4), c = (e % (TN / 4)) * 4;
-          const int h = h0 + kr, cc = co0 + c;
-          const bool ok = h < hits && cc < cout;
-          tc::cp_async16(Bs + kr * LDB + c,
-                         ok ? g + (long long)hit_g[h] * cout + cc : g,
-                         ok ? 16 : 0);
-        }
-      } else {
-        for (int e = tid; e < kDwBK * TN; e += T) {
-          const int kr = e / TN, c = e % TN;
-          const int h = h0 + kr, cc = co0 + c;
-          const bool ok = h < hits && cc < cout;
-          tc::cp_async4(Bs + kr * LDB + c,
-                        ok ? g + (long long)hit_g[h] * cout + cc : g,
-                        ok ? 4 : 0);
-        }
+      for (int e = tid; e < kDwBK * TN; e += T) {
+        const int kr = e / TN, c = e % TN;
+        const int h = h0 + kr, cc = co0 + c;
+        const bool ok = h < hits && cc < cout;
+        tc::cp_async4(Bs + kr * LDB + c,
+                      ok ? g + (long long)hit_g[h] * cout + cc : g,
+                      ok ? 4 : 0);
       }
     }
   };
@@ -248,13 +245,9 @@ dw_partial_kernel(const E* __restrict__ feats, const int* __restrict__ rb,
     if (next < steps) load(next, next % kDwStages);
     tc::cp_commit();
     if (computes) {
-      const E* As = smem + (s % kDwStages) * STAGE;
-      if constexpr (kBf16)
-        tc::mma_stage_bf16<MT, NT, kDwBK, LDA, LDB, true>(
-            As, As + A_ELEMS, acc, wm0, wn0, lane);
-      else
-        tc::mma_stage<MT, NT, kDwBK, LDA, LDB, true>(As, As + A_ELEMS, acc,
-                                                     wm0, wn0, lane);
+      const float* As = smem + (s % kDwStages) * STAGE;
+      tc::mma_stage<MT, NT, kDwBK, LDA, LDB, true>(As, As + A_FLOATS, acc,
+                                                   wm0, wn0, lane);
     }
   }
   tc::cp_wait<0>();
@@ -266,20 +259,287 @@ dw_partial_kernel(const E* __restrict__ feats, const int* __restrict__ rb,
   }
 }
 
-// dW = the partials summed in chunk order, in f32 (rounded to bf16 once
-// for a bf16 dW)
-template <typename E>
 __global__ void dw_reduce_kernel(const float* __restrict__ part,
-                                 E* __restrict__ dw, int chunks,
+                                 float* __restrict__ dw, int chunks,
                                  long long per) {
   long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= per) return;
   float v = 0.f;
   for (int c = 0; c < chunks; ++c) v += part[(long long)c * per + e];
-  if constexpr (sizeof(E) == 2)
-    dw[e] = __float2bfloat16_rn(v);
-  else
-    dw[e] = v;
+  dw[e] = v;
+}
+
+// ---- the bf16 dW pass (wgmma)
+
+// dW (bf16) = the partials summed in a fixed order, rounded once: thread
+// (x, y) of a 32 x 8 block sums chunks y, y + 8, ... of element 32
+// blockIdx.x + x in order, and the 8 sums are added in y order (no
+// atomics: the same bits every run).  dw_reduce_kernel's one thread an
+// element in chunk order leaves most SMs idle at Cin x Cout of 16 x 32
+// and hundreds of chunks.
+__global__ void __launch_bounds__(256)
+dw_reduce_bf16_kernel(const float* __restrict__ part,
+                      __nv_bfloat16* __restrict__ dw, int chunks,
+                      long long per) {
+  __shared__ float sums[8][33];
+  const int x = threadIdx.x & 31, y = threadIdx.x >> 5;
+  const long long e = (long long)blockIdx.x * 32 + x;
+  float v = 0.f;
+  if (e < per)
+    for (int c = y; c < chunks; c += 8) v += part[(long long)c * per + e];
+  sums[y][x] = v;
+  __syncthreads();
+  if (y == 0 && e < per) {
+    float t = sums[0][x];
+#pragma unroll
+    for (int i = 1; i < 8; ++i) t += sums[i][x];
+    dw[e] = __float2bfloat16_rn(t);
+  }
+}
+
+constexpr int kDwWgStages = 4;  // ring depth
+constexpr int kDwHits = 64;     // hit rows a stage: four k16 products
+constexpr int kDwOffsets = 4;   // offsets a block sums, one after another
+// (K >= 8; below, one offset a block: measured at conv_out, K 3, where
+// one block for all offsets leaves the card idle)
+__host__ __device__ constexpr int dw_offsets(int k) {
+  return k >= 8 ? kDwOffsets : 1;
+}
+
+// A bf16 dW tile: TM = 64 kWG rows of dW (Cin; a consumer warpgroup each
+// 64) x TN columns (Cout); a stage holds kDwHits hit rows of each operand,
+// MN-major: A one 128-byte swizzled atom of 64 channels a warpgroup, B
+// atoms of AW columns in rows of RB bytes
+template <int TN, int kWG>
+struct DwWgCfg {
+  static constexpr int TM = 64 * kWG;
+  static constexpr int kThreads = 128 * kWG + sm90::kProducers;
+  static constexpr int AW = TN < 64 ? TN : 64, RB = AW * 2;
+  static constexpr int A_BYTES = kWG * kDwHits * 128;
+  static constexpr int B_BYTES = (kDwHits * TN * 2 + 1023) / 1024 * 1024;
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+};
+
+// shared memory: the ring, its barriers, the scan's warp counts, the hit
+// counts and the hit lists of kDwOffsets offsets
+template <int TN, int kWG>
+constexpr size_t dw_wgmma_smem(int chunk) {
+  using C = DwWgCfg<TN, kWG>;
+  return 1024 + (size_t)kDwWgStages * C::STAGE + 16 * kDwWgStages +
+         4 * kScan * kDwOffsets * (C::kThreads / 32) + 4 * kDwOffsets +
+         8 * (size_t)kDwOffsets * chunk;
+}
+
+// Partial dW tiles of one (row chunk, kDwOffsets offsets j0.., TM x TN
+// tile), bf16 tables, f32 sums.  The block first compacts, for each of its
+// offsets, the chunk's rows that hit it, in row order (a ballot prefix sum
+// as in dw_partial_kernel; each row's kDwOffsets neighbouring rulebook
+// entries are read together, so a 32-byte sector of the strided column
+// serves them all, where one offset a block read a sector an entry).  Then
+// a producer warpgroup gathers 64 hit rows a stage, offset after offset
+// through one ring, and each consumer warpgroup runs wgmma on its 64
+// channels, storing an offset's partial tile before the next offset's
+// first product.  Rows of dW past Cin and columns past Cout are not loaded
+// (their sums are not stored); hit rows past an offset's last zero-fill.
+template <int TN, int kWG>
+__global__ void __launch_bounds__(DwWgCfg<TN, kWG>::kThreads)
+dw_wgmma_kernel(const sm90::bf16* __restrict__ feats,
+                const int* __restrict__ rb,
+                const sm90::bf16* __restrict__ g, float* __restrict__ part,
+                long long nrows, int mg, int k, int cin, int cout,
+                int chunk, int flip) {
+  using namespace sm90;
+  using C = DwWgCfg<TN, kWG>;
+  constexpr int T = C::kThreads, W = T / 32, J = kDwOffsets;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm =
+      smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t ring = smem_u32(sm);
+  const uint32_t full0 = ring + kDwWgStages * C::STAGE;
+  const uint32_t empty0 = full0 + 8 * kDwWgStages;
+  int* counts = reinterpret_cast<int*>(sm + kDwWgStages * C::STAGE +
+                                       16 * kDwWgStages);  // [kScan][J][W]
+  int* nhit = counts + kScan * J * W;
+  int* hit_r = nhit + J;                                  // [J][chunk]
+  int* hit_g = hit_r + J * chunk;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int per = dw_offsets(k);
+  const int j0 = blockIdx.y * per;
+  const int nj = k - j0 < per ? k - j0 : per;
+  const int tiles_co = (cout + TN - 1) / TN;
+  const int ci0 = (blockIdx.z / tiles_co) * C::TM;
+  const int co0 = (blockIdx.z % tiles_co) * TN;
+  const long long r_begin = (long long)blockIdx.x * chunk;
+  const long long r_end =
+      r_begin + chunk < nrows ? r_begin + chunk : nrows;
+
+  if (tid == 0) {
+    for (int s = 0; s < kDwWgStages; ++s) {
+      mbar_init(full0 + 8 * s, kProducers);
+      mbar_init(empty0 + 8 * s, kWG);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // compact the rows of the chunk that hit each offset, in row order
+  int hits[J] = {};
+  for (long long base = r_begin; base < r_end; base += kScan * T) {
+    int gr[kScan][J];
+#pragma unroll
+    for (int i = 0; i < kScan; ++i) {
+      const long long r = base + i * T + tid;
+#pragma unroll
+      for (int jj = 0; jj < J; ++jj)
+        gr[i][jj] = r < r_end && jj < nj ? rb[r * k + j0 + jj] : mg;
+    }
+    unsigned ballot[kScan][J];
+#pragma unroll
+    for (int i = 0; i < kScan; ++i)
+#pragma unroll
+      for (int jj = 0; jj < J; ++jj) {
+        ballot[i][jj] =
+            __ballot_sync(0xffffffffu, (unsigned)gr[i][jj] < (unsigned)mg);
+        if (lane == 0) counts[(i * J + jj) * W + warp] = __popc(ballot[i][jj]);
+      }
+    __syncthreads();
+#pragma unroll
+    for (int jj = 0; jj < J; ++jj) {
+      int pos = hits[jj];
+#pragma unroll
+      for (int i = 0; i < kScan; ++i) {
+        int before = pos;
+        for (int w = 0; w < W; ++w) {
+          const int c = counts[(i * J + jj) * W + w];
+          if (w < warp) before += c;
+          pos += c;
+        }
+        if ((unsigned)gr[i][jj] < (unsigned)mg) {
+          const int at =
+              before + __popc(ballot[i][jj] & ((1u << lane) - 1u));
+          hit_r[jj * chunk + at] = (int)(base + i * T + tid - r_begin);
+          hit_g[jj * chunk + at] = gr[i][jj];
+        }
+      }
+      hits[jj] = pos;
+    }
+    __syncthreads();  // counts are reused; the lists are complete
+  }
+  if (tid == 0)
+#pragma unroll
+    for (int jj = 0; jj < J; ++jj) nhit[jj] = hits[jj];
+  __syncthreads();
+  const bf16* fchunk = feats + r_begin * cin;
+  // the warpgroup's role, warp-uniform to the compiler (see gather_kernel)
+  const int role = __shfl_sync(0xffffffffu, tid / 128, 0);
+
+  if (role == kWG) {
+    // producer warpgroup: 16-byte copies of the stage's hit rows; thread
+    // pt copies chunk pt % QA of A's hit rows pt / QA + (128 / QA) t and
+    // chunk pt % QB of B's, their row indices loaded first (each copy is a
+    // barrier to the compiler)
+    const int pt = tid - 128 * kWG;
+    constexpr int QA = C::TM / 8, QB = TN / 8, QR = C::AW / 8;
+    constexpr int NA = kDwHits * QA / kProducers;
+    constexpr int NB = kDwHits * QB / kProducers;
+    const int qa = pt % QA, qb = pt % QB;
+    const int ci = ci0 + qa * 8, co = co0 + qb * 8;
+    int gs = 0;  // the ring's step, over all the block's offsets
+    for (int jj = 0; jj < nj; ++jj) {
+      const int nh = nhit[jj];
+      const int* lr = hit_r + jj * chunk;
+      const int* lg = hit_g + jj * chunk;
+      for (int h0 = 0; h0 < nh; h0 += kDwHits, ++gs) {
+        const int st = gs % kDwWgStages;
+        const uint32_t full = full0 + 8 * st;
+        const uint32_t As = ring + st * C::STAGE, Bs = As + C::A_BYTES;
+        if (gs >= kDwWgStages)
+          mbar_wait(empty0 + 8 * st, ((gs / kDwWgStages) - 1) & 1);
+        int ra[NA], rg[NB];
+#pragma unroll
+        for (int t = 0; t < NA; ++t) {
+          const int h = h0 + (pt + kProducers * t) / QA;
+          ra[t] = h < nh ? lr[h] : -1;
+        }
+#pragma unroll
+        for (int t = 0; t < NB; ++t) {
+          const int h = h0 + (pt + kProducers * t) / QB;
+          rg[t] = h < nh ? lg[h] : -1;
+        }
+        if (ci < cin) {
+#pragma unroll
+          for (int t = 0; t < NA; ++t) {
+            const int hr = (pt + kProducers * t) / QA;
+            cp_async16(As + (qa >> 3) * (kDwHits * 128) +
+                           swz(hr * 128 + (qa & 7) * 16, 128),
+                       ra[t] >= 0 ? fchunk + (long long)ra[t] * cin + ci
+                                  : feats,
+                       ra[t] >= 0 ? 16 : 0);
+          }
+        }
+        if (co < cout) {
+#pragma unroll
+          for (int t = 0; t < NB; ++t) {
+            const int hr = (pt + kProducers * t) / QB;
+            cp_async16(Bs + (qb / QR) * (kDwHits * C::RB) +
+                           swz(hr * C::RB + (qb % QR) * 16, C::RB),
+                       rg[t] >= 0 ? g + (long long)rg[t] * cout + co : g,
+                       rg[t] >= 0 ? 16 : 0);
+          }
+        }
+        cp_async_arrive(full);
+      }
+    }
+    cp_async_wait_all();
+  } else {
+    // consumer warpgroup wg: dW rows ci0 + 64 wg .. + 63 of each offset
+    const int wg = role, wl = warp & 3;
+    int gs = 0;
+    for (int jj = 0; jj < nj; ++jj) {
+      float acc[TN / 2];
+#pragma unroll
+      for (int i = 0; i < TN / 2; ++i) acc[i] = 0.f;
+      const int nh = nhit[jj];
+      for (int h0 = 0; h0 < nh; h0 += kDwHits, ++gs) {
+        const int st = gs % kDwWgStages;
+        mbar_wait(full0 + 8 * st, (gs / kDwWgStages) & 1);
+        fence_async_smem();
+        const uint32_t As = ring + st * C::STAGE + wg * kDwHits * 128;
+        const uint32_t Bs = ring + st * C::STAGE + C::A_BYTES;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kDwHits / 16; ++kk) {
+          const uint64_t da =
+              mdesc(As + kk * 16 * 128, kDwHits * 128, 1024, 1);
+          const uint64_t db = mdesc(Bs + kk * 16 * C::RB, kDwHits * C::RB,
+                                    8 * C::RB, swz_mode(C::RB));
+          wgmma<TN, 1, 1>(acc, da, db);  // MMA
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+        // the group before this one has read its stage: release it
+        if (gs > 0 && (tid & 127) == 0)
+          mbar_arrive(empty0 + 8 * ((gs - 1) % kDwWgStages));
+      }
+      wgmma_wait<0>();
+      fence_acc(acc);
+      const int j = j0 + jj, jo = flip ? k - 1 - j : j;
+      float* dst = part + ((long long)blockIdx.x * k + jo) * cin * cout;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int ci = ci0 + wg * 64 + wl * 16 + (lane >> 2) + 8 * h;
+        if (ci >= cin) continue;
+#pragma unroll
+        for (int i = 0; i < TN / 8; ++i) {
+          const int co = co0 + 8 * i + 2 * (lane & 3);
+          if (co < cout)
+            *reinterpret_cast<float2*>(dst + (long long)ci * cout + co) =
+                make_float2(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
+        }
+      }
+    }
+  }
 }
 
 // ---- the strided backward's preparation: reverse rulebook, row grouping
@@ -399,15 +659,15 @@ strided_prep_scatter(const unsigned char* __restrict__ key,
   }
 }
 
-template <typename E, int TM, int TN>
-cudaError_t launch_dw(const E* feats, const int* rb, const E* g,
+template <int TM, int TN>
+cudaError_t launch_dw(const float* feats, const int* rb, const float* g,
                       float* part, long long nrows, int mg, int k, int cin,
                       int cout, int chunk, int flip, int chunks,
                       cudaStream_t s) {
   using C = DwCfg<TM, TN>;
   const size_t smem =
-      sizeof(E) * kDwStages * C::STAGE + sizeof(int) * 2 * chunk;
-  auto fn = dw_partial_kernel<E, TM, TN>;
+      sizeof(float) * kDwStages * C::STAGE + sizeof(int) * 2 * chunk;
+  auto fn = dw_partial_kernel<TM, TN>;
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -420,34 +680,25 @@ cudaError_t launch_dw(const E* feats, const int* rb, const E* g,
   return cudaGetLastError();
 }
 
-// the dW pass of either element type: the partials, then their sum
-template <typename E>
-int dw_pass(const E* f, const int* r, const E* gg, float* p, E* dw,
-            long long nrows, int mg, int k, int cin, int cout, int chunk,
-            int flip, cudaStream_t s) {
-  if (chunk < 1 || chunk > kMaxChunk || k < 1 || cin < 0 || cout < 0 ||
-      nrows < 0)
-    return (int)cudaErrorInvalidValue;
-  const int chunks = (int)((nrows + chunk - 1) / chunk);
-  const long long per = (long long)k * cin * cout;
-  if (per == 0) return (int)cudaSuccess;
-  if (chunks > 0) {
-    const int ti = tile_of(cin), to = tile_of(cout);
-    cudaError_t err = cudaErrorInvalidValue;
-#define SRF_DW(TI, TO)                                                      \
-  if (ti == TI && to == TO)                                                 \
-    err = launch_dw<E, TI, TO>(f, r, gg, p, nrows, mg, k, cin, cout, chunk, \
-                               flip, chunks, s);
-    SRF_DW(16, 16) SRF_DW(16, 32) SRF_DW(16, 64) SRF_DW(16, 128)
-    SRF_DW(32, 16) SRF_DW(32, 32) SRF_DW(32, 64) SRF_DW(32, 128)
-    SRF_DW(64, 16) SRF_DW(64, 32) SRF_DW(64, 64) SRF_DW(64, 128)
-    SRF_DW(128, 16) SRF_DW(128, 32) SRF_DW(128, 64) SRF_DW(128, 128)
-#undef SRF_DW
-    if (err != cudaSuccess) return (int)err;
-  }
-  dw_reduce_kernel<E><<<(unsigned)((per + 255) / 256), 256, 0, s>>>(
-      p, dw, chunks, per);
-  return (int)cudaGetLastError();
+template <int TN, int kWG>
+cudaError_t launch_dw_wgmma(const sm90::bf16* feats, const int* rb,
+                            const sm90::bf16* g, float* part,
+                            long long nrows, int mg, int k, int cin,
+                            int cout, int chunk, int flip, int chunks,
+                            cudaStream_t s) {
+  using C = DwWgCfg<TN, kWG>;
+  const size_t smem = dw_wgmma_smem<TN, kWG>(chunk);
+  auto fn = dw_wgmma_kernel<TN, kWG>;
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = ((cin + C::TM - 1) / C::TM) * ((cout + TN - 1) / TN);
+  dim3 grid((unsigned)chunks,
+            (unsigned)((k + dw_offsets(k) - 1) / dw_offsets(k)),
+            (unsigned)tiles);
+  fn<<<grid, C::kThreads, smem, s>>>(feats, rb, g, part, nrows, mg, k, cin,
+                                     cout, chunk, flip);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -479,24 +730,23 @@ int conv_bwd_dfeats_perm_f32(const void* g, const void* rb, const void* perm,
 }
 
 // the bf16 dfeats: g (M, Cout), w (K, Cin, Cout) the (flipped) weights
-// as they are (the bf16 gather-GEMM takes its B operand transposed),
-// dfeats (N, Cin); Cout % 8 == 0
+// as they are (Cout, the reduction, a multiple of 8), dfeats (N, Cin)
 int conv_bwd_dfeats_bf16(const void* g, const void* rb, const void* w,
                          void* dfeats, int mg, long long nrows, int k,
                          int cout, int cin, void* stream) {
-  return (int)gather_gemm::launch_bf16(
-      (const __nv_bfloat16*)g, (const int*)rb, (const __nv_bfloat16*)w,
-      (__nv_bfloat16*)dfeats, mg, nrows, k, cout, cin, (cudaStream_t)stream);
+  return (int)sm90::launch_gather<false>(
+      (const sm90::bf16*)g, (const int*)rb, nullptr, (const sm90::bf16*)w,
+      (sm90::bf16*)dfeats, mg, nrows, k, cout, cin, (cudaStream_t)stream);
 }
 
 int conv_bwd_dfeats_perm_bf16(const void* g, const void* rb, const void* perm,
                               const void* w, void* dfeats, int mg,
                               long long nrows, int k, int cout, int cin,
                               void* stream) {
-  return (int)gather_gemm::launch_bf16<true>(
-      (const __nv_bfloat16*)g, (const int*)rb, (const __nv_bfloat16*)w,
-      (__nv_bfloat16*)dfeats, mg, nrows, k, cout, cin, (cudaStream_t)stream,
-      (const int*)perm);
+  return (int)sm90::launch_gather<false>(
+      (const sm90::bf16*)g, (const int*)rb, (const int*)perm,
+      (const sm90::bf16*)w, (sm90::bf16*)dfeats, mg, nrows, k, cout, cin,
+      (cudaStream_t)stream);
 }
 
 // rev (N, K) int32: the reverse rulebook of idx (M, K) over N input rows,
@@ -540,22 +790,71 @@ int strided_group_i32(const void* rev, void* key, void* hist, void* perm,
 int conv_bwd_dw_f32(const void* feats, const void* rb, const void* g,
                     void* part, void* dw, long long nrows, int mg, int k,
                     int cin, int cout, int chunk, int flip, void* stream) {
-  return dw_pass((const float*)feats, (const int*)rb, (const float*)g,
-                 (float*)part, (float*)dw, nrows, mg, k, cin, cout, chunk,
-                 flip, (cudaStream_t)stream);
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* f = (const float*)feats;
+  const int* r = (const int*)rb;
+  const float* gg = (const float*)g;
+  float* p = (float*)part;
+  if (chunk < 1 || chunk > kMaxChunk || k < 1 || cin < 0 || cout < 0 ||
+      nrows < 0)
+    return (int)cudaErrorInvalidValue;
+  const int chunks = (int)((nrows + chunk - 1) / chunk);
+  const long long per = (long long)k * cin * cout;
+  if (per == 0) return (int)cudaSuccess;
+  if (chunks > 0) {
+    const int ti = tile_of(cin), to = tile_of(cout);
+    cudaError_t err = cudaErrorInvalidValue;
+#define SRF_DW(TI, TO)                                                      \
+  if (ti == TI && to == TO)                                                 \
+    err = launch_dw<TI, TO>(f, r, gg, p, nrows, mg, k, cin, cout, chunk,   \
+                            flip, chunks, s);
+    SRF_DW(16, 16) SRF_DW(16, 32) SRF_DW(16, 64) SRF_DW(16, 128)
+    SRF_DW(32, 16) SRF_DW(32, 32) SRF_DW(32, 64) SRF_DW(32, 128)
+    SRF_DW(64, 16) SRF_DW(64, 32) SRF_DW(64, 64) SRF_DW(64, 128)
+    SRF_DW(128, 16) SRF_DW(128, 32) SRF_DW(128, 64) SRF_DW(128, 128)
+#undef SRF_DW
+    if (err != cudaSuccess) return (int)err;
+  }
+  dw_reduce_kernel<<<(unsigned)((per + 255) / 256), 256, 0, s>>>(
+      p, (float*)dw, chunks, per);
+  return (int)cudaGetLastError();
 }
 
-// the same with bf16 feats, g and dW (f32 partials, dW rounded once);
-// Cin and Cout multiples of 8, feats and g 16-byte aligned
+// the same with bf16 feats, g and dW (f32 partials, dW rounded once); Cin
+// and Cout multiples of 8, feats and g 16-byte aligned.  Each consumer
+// warpgroup owns 64 channels of Cin (two above 64), the Cout tile is
+// Cout's power of two, 16 to 128.
 int conv_bwd_dw_bf16(const void* feats, const void* rb, const void* g,
                      void* part, void* dw, long long nrows, int mg, int k,
                      int cin, int cout, int chunk, int flip, void* stream) {
-  if (cin % 8 != 0 || cout % 8 != 0 || !tc::aligned16(feats) ||
-      !tc::aligned16(g))
+  cudaStream_t s = (cudaStream_t)stream;
+  using sm90::bf16;
+  const bf16* f = (const bf16*)feats;
+  const int* r = (const int*)rb;
+  const bf16* gg = (const bf16*)g;
+  float* p = (float*)part;
+  if (chunk < 1 || chunk > kMaxChunk || k < 1 || cin < 0 || cout < 0 ||
+      nrows < 0 || cin % 8 != 0 || cout % 8 != 0 || !sm90::aligned16(f) ||
+      !sm90::aligned16(gg))
     return (int)cudaErrorInvalidValue;
-  return dw_pass((const __nv_bfloat16*)feats, (const int*)rb,
-                 (const __nv_bfloat16*)g, (float*)part, (__nv_bfloat16*)dw,
-                 nrows, mg, k, cin, cout, chunk, flip, (cudaStream_t)stream);
+  const int chunks = (int)((nrows + chunk - 1) / chunk);
+  const long long per = (long long)k * cin * cout;
+  if (per == 0) return (int)cudaSuccess;
+  if (chunks > 0) {
+    const int to = tile_of(cout), wgs = cin > 64 ? 2 : 1;
+    cudaError_t err = cudaErrorInvalidValue;
+#define SRF_DW(TO, WG)                                                     \
+  if (to == TO && wgs == WG)                                               \
+    err = launch_dw_wgmma<TO, WG>(f, r, gg, p, nrows, mg, k, cin, cout,    \
+                                  chunk, flip, chunks, s);
+    SRF_DW(16, 1) SRF_DW(32, 1) SRF_DW(64, 1) SRF_DW(128, 1)
+    SRF_DW(16, 2) SRF_DW(32, 2) SRF_DW(64, 2) SRF_DW(128, 2)
+#undef SRF_DW
+    if (err != cudaSuccess) return (int)err;
+  }
+  dw_reduce_bf16_kernel<<<(unsigned)((per + 31) / 32), 256, 0, s>>>(
+      p, (bf16*)dw, chunks, per);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -1,8 +1,7 @@
 // Sparse-conv gather-GEMM device code, float32 through 3xTF32 tensor-core
-// MMAs or bfloat16 through bf16 MMAs (the element type is the kernel's
-// template parameter), shared by gather_conv.cu (the forward, K1) and
-// gather_conv_bwd.cu (the dfeats half of the backward, K3 and K4; its dW
-// pass uses the tc:: helpers below):
+// MMAs, shared by gather_conv.cu (the forward, K1) and gather_conv_bwd.cu
+// (the dfeats half of the backward, K3 and K4; its dW pass uses the tc::
+// helpers below; the bf16 kernels are in gather_gemm_sm90.cuh):
 //
 //     out[m, :] = sum_j feats[idx[m, j], :] @ W[j]      (idx == N: a miss, zeros)
 //
@@ -32,24 +31,9 @@
 // W[j]'s chunk is staged the same way.  Shared rows are padded (A by 4
 // floats, B by 8) so that every fragment load of a warp hits 32 banks.
 // Above 48 KB the shared memory is dynamic, after cudaFuncSetAttribute.
-//
-// bfloat16 (the compute_dtype="bfloat16" model).  feats, W and out are
-// bf16; the kernel takes W transposed, Wt (K, Cout, Cin), so that both
-// operands' rows run along the reduction (Cin) and every fragment register
-// (two bf16 values) is one 32-bit shared load.  Each 16-deep step is one
-// mma.sync m16n8k16 bf16 with f32 accumulation into a fresh register tile,
-// added to the running f32 sum round-to-nearest as in the f32 path; there
-// is no split: a product of two bf16 values is exact in f32.  The sum is
-// rounded to bf16 once, on the store (__float2bfloat16_rn).  Rows are
-// gathered by 16-byte copies of 8 channels, so Cin must be a multiple of 8
-// with 16-byte aligned rows (the wrapper pads Cin 5 to 8 with zeros);
-// shared rows are padded by 8 bf16 (16 bytes), which keeps a warp's 32
-// fragment loads on 32 banks.  The tile shapes are the f32 path's, with the
-// channel chunk at least 16 (one MMA's depth).
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -194,123 +178,21 @@ __device__ __forceinline__ void store_tile_rows(
 
 inline bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
-// ---- bfloat16
-
-// two bf16 at p (4-byte aligned), low half the first
-__device__ __forceinline__ unsigned ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const unsigned*>(p);
-}
-
-// two bf16 from two places, low half lo
-__device__ __forceinline__ unsigned pack_pair(const __nv_bfloat16* lo,
-                                              const __nv_bfloat16* hi) {
-  const unsigned l = *reinterpret_cast<const unsigned short*>(lo);
-  const unsigned h = *reinterpret_cast<const unsigned short*>(hi);
-  return l | (h << 16);
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// One warp's MT x NT m16n8 tiles over a BK-deep bf16 stage.  A element
-// (m, k) is As[m * LDA + k], or As[k * LDA + m] when KM; B element (k, n)
-// is Bs[n * LDB + k], or Bs[k * LDB + n] when KM.  A k-contiguous operand
-// loads a fragment register whole; a k-major one packs it from two rows.
-// Each 16-deep step goes to a fresh tile, added to acc round-to-nearest.
-// Fragments (PTX m16n8k16 .bf16): lane = 4 g + t; A regs (g, 2t..2t+1)
-// (g+8, 2t..) (g, 2t+8..) (g+8, 2t+8..), B regs (2t..2t+1, g)
-// (2t+8.., g), C as the TF32 shape's.
-template <int MT, int NT, int BK, int LDA, int LDB, bool KM>
-__device__ __forceinline__ void mma_stage_bf16(const __nv_bfloat16* As,
-                                               const __nv_bfloat16* Bs,
-                                               float (&acc)[MT][NT][4],
-                                               int m0, int n0, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < BK; kk += 16) {
-    unsigned b[NT][2];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int n = n0 + j * 8 + g;
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int kc = kk + 2 * t + q * 8;
-        b[j][q] = KM ? pack_pair(Bs + kc * LDB + n, Bs + (kc + 1) * LDB + n)
-                     : ld_pair(Bs + n * LDB + kc);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      unsigned a[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int r = m0 + i * 16 + g + (q & 1) * 8;
-        const int kc = kk + 2 * t + (q >> 1) * 8;
-        a[q] = KM ? pack_pair(As + kc * LDA + r, As + (kc + 1) * LDA + r)
-                  : ld_pair(As + r * LDA + kc);
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        float d[4] = {0.f, 0.f, 0.f, 0.f};
-        mma_bf16(d, a, b[j]);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][j][q] += d[q];
-      }
-    }
-  }
-}
-
-// store_tile for a bf16 dst: each sum rounded to bf16 once
-template <int MT, int NT>
-__device__ __forceinline__ void store_tile_bf16(
-    const float (&acc)[MT][NT][4], __nv_bfloat16* dst, long long rows,
-    int cols, long long ld, long long r0, int c0, int lane,
-    const int* rowmap = nullptr) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const long long r = r0 + i * 16 + g + h * 8;
-      if (r >= rows) continue;
-      __nv_bfloat16* row = dst + (rowmap ? (long long)rowmap[r] : r) * ld;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int c = c0 + j * 8 + 2 * t;
-        if (c < cols) row[c] = __float2bfloat16_rn(acc[i][j][2 * h]);
-        if (c + 1 < cols)
-          row[c + 1] = __float2bfloat16_rn(acc[i][j][2 * h + 1]);
-      }
-    }
-}
-
 }  // namespace tc
 
 namespace gather_gemm {
 
 constexpr int kStages = 3;
 
-// E: float (B staged k-major, (BK, BN)) or __nv_bfloat16 (B staged
-// n-major, (BN, BK), from the transposed weights); sizes in elements
-template <typename E, int BM, int BN, int BK, int WM, int WN>
+template <int BM, int BN, int BK, int WM, int WN>
 struct Cfg {
-  static constexpr bool kBf16 = sizeof(E) == 2;
   static constexpr int kThreads = WM * WN * 32;
   static constexpr int MT = BM / WM / 16, NT = BN / WN / 8;
-  static constexpr int LDA = kBf16 ? BK + 8 : BK + 4;
-  static constexpr int LDB = kBf16 ? BK + 8 : BN + 8;
-  static constexpr int A_ELEMS = BM * LDA;
-  static constexpr int B_ELEMS = kBf16 ? BN * LDB : BK * LDB;
-  static constexpr int STAGE = A_ELEMS + B_ELEMS;
+  static constexpr int LDA = BK + 4, LDB = BN + 8;
+  static constexpr int A_FLOATS = BM * LDA, B_FLOATS = BK * LDB;
+  static constexpr int STAGE_FLOATS = A_FLOATS + B_FLOATS;
   static_assert(MT >= 1 && NT >= 1 && BM % (16 * WM) == 0 &&
-                    BN % (8 * WN) == 0 && BK % (kBf16 ? 16 : 8) == 0,
+                    BN % (8 * WN) == 0 && BK % 8 == 0,
                 "tile shape");
 };
 
@@ -320,18 +202,16 @@ __device__ __forceinline__ int nth_bit(unsigned mask, int q) {
   return __ffs(mask) - 1;
 }
 
-// w: W (K, Cin, Cout) for float, Wt (K, Cout, Cin) for bf16
-template <typename E, int BM, int BN, int BK, int WM, int WN, bool kPerm>
+template <int BM, int BN, int BK, int WM, int WN, bool kPerm>
 __global__ void __launch_bounds__(WM * WN * 32, 2)
-kernel(const E* __restrict__ feats, const int* __restrict__ idx,
-       const E* __restrict__ w, E* __restrict__ out, int n,
+kernel(const float* __restrict__ feats, const int* __restrict__ idx,
+       const float* __restrict__ w, float* __restrict__ out, int n,
        long long m, int k, int cin, int cout, int vec_a, int vec_b,
        const int* __restrict__ perm) {
-  using C = Cfg<E, BM, BN, BK, WM, WN>;
+  using C = Cfg<BM, BN, BK, WM, WN>;
   constexpr int T = C::kThreads;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  E* smem = reinterpret_cast<E*>(smem_raw);
-  int* rows = reinterpret_cast<int*>(smem + kStages * C::STAGE);
+  extern __shared__ __align__(16) float smem[];
+  int* rows = reinterpret_cast<int*>(smem + kStages * C::STAGE_FLOATS);
   __shared__ unsigned warp_mask[T / 32];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -387,64 +267,44 @@ kernel(const E* __restrict__ feats, const int* __restrict__ idx,
     const int q = s / chunks;
     const int j = nth_bit(mask, q);
     const int c0 = (s - q * chunks) * BK;
-    E* As = smem + buf * C::STAGE;
-    E* Bs = As + C::A_ELEMS;
+    float* As = smem + buf * C::STAGE_FLOATS;
+    float* Bs = As + C::A_FLOATS;
     const int* rj = rows + j;
-    if constexpr (C::kBf16) {
-      // 16-byte copies of 8 channels (Cin % 8 == 0, 16-byte aligned rows)
-      for (int e = tid; e < BM * (BK / 8); e += T) {
-        const int r = e / (BK / 8), c = (e % (BK / 8)) * 8;
+    if (vec_a) {
+      for (int e = tid; e < BM * (BK / 4); e += T) {
+        const int r = e / (BK / 4), c = (e % (BK / 4)) * 4;
         const int row = rj[r * k], cc = c0 + c;
         const bool ok = (unsigned)row < (unsigned)n && cc < cin;
         tc::cp_async16(As + r * C::LDA + c,
                        ok ? feats + (long long)row * cin + cc : feats,
                        ok ? 16 : 0);
       }
-      const E* wj = w + (long long)j * cin * cout;     // Wt[j] (Cout, Cin)
-      for (int e = tid; e < BN * (BK / 8); e += T) {
-        const int nr = e / (BK / 8), c = (e % (BK / 8)) * 8;
-        const int nn = n0 + nr, cc = c0 + c;
-        const bool ok = nn < cout && cc < cin;
-        tc::cp_async16(Bs + nr * C::LDB + c,
-                       ok ? wj + (long long)nn * cin + cc : w, ok ? 16 : 0);
+    } else {
+      for (int e = tid; e < BM * BK; e += T) {
+        const int r = e / BK, c = e % BK;
+        const int row = rj[r * k], cc = c0 + c;
+        const bool ok = (unsigned)row < (unsigned)n && cc < cin;
+        tc::cp_async4(As + r * C::LDA + c,
+                      ok ? feats + (long long)row * cin + cc : feats,
+                      ok ? 4 : 0);
+      }
+    }
+    const float* wj = w + (long long)j * cin * cout;
+    if (vec_b) {
+      for (int e = tid; e < BK * (BN / 4); e += T) {
+        const int kr = e / (BN / 4), c = (e % (BN / 4)) * 4;
+        const int cc = c0 + kr, nn = n0 + c;
+        const bool ok = cc < cin && nn < cout;
+        tc::cp_async16(Bs + kr * C::LDB + c,
+                       ok ? wj + (long long)cc * cout + nn : w, ok ? 16 : 0);
       }
     } else {
-      if (vec_a) {
-        for (int e = tid; e < BM * (BK / 4); e += T) {
-          const int r = e / (BK / 4), c = (e % (BK / 4)) * 4;
-          const int row = rj[r * k], cc = c0 + c;
-          const bool ok = (unsigned)row < (unsigned)n && cc < cin;
-          tc::cp_async16(As + r * C::LDA + c,
-                         ok ? feats + (long long)row * cin + cc : feats,
-                         ok ? 16 : 0);
-        }
-      } else {
-        for (int e = tid; e < BM * BK; e += T) {
-          const int r = e / BK, c = e % BK;
-          const int row = rj[r * k], cc = c0 + c;
-          const bool ok = (unsigned)row < (unsigned)n && cc < cin;
-          tc::cp_async4(As + r * C::LDA + c,
-                        ok ? feats + (long long)row * cin + cc : feats,
-                        ok ? 4 : 0);
-        }
-      }
-      const float* wj = w + (long long)j * cin * cout;
-      if (vec_b) {
-        for (int e = tid; e < BK * (BN / 4); e += T) {
-          const int kr = e / (BN / 4), c = (e % (BN / 4)) * 4;
-          const int cc = c0 + kr, nn = n0 + c;
-          const bool ok = cc < cin && nn < cout;
-          tc::cp_async16(Bs + kr * C::LDB + c,
-                         ok ? wj + (long long)cc * cout + nn : w, ok ? 16 : 0);
-        }
-      } else {
-        for (int e = tid; e < BK * BN; e += T) {
-          const int kr = e / BN, c = e % BN;
-          const int cc = c0 + kr, nn = n0 + c;
-          const bool ok = cc < cin && nn < cout;
-          tc::cp_async4(Bs + kr * C::LDB + c,
-                        ok ? wj + (long long)cc * cout + nn : w, ok ? 4 : 0);
-        }
+      for (int e = tid; e < BK * BN; e += T) {
+        const int kr = e / BN, c = e % BN;
+        const int cc = c0 + kr, nn = n0 + c;
+        const bool ok = cc < cin && nn < cout;
+        tc::cp_async4(Bs + kr * C::LDB + c,
+                      ok ? wj + (long long)cc * cout + nn : w, ok ? 4 : 0);
       }
     }
   };
@@ -462,39 +322,28 @@ kernel(const E* __restrict__ feats, const int* __restrict__ idx,
     const int next = s + kStages - 1;
     if (next < steps) load(next, next % kStages);
     tc::cp_commit();
-    const E* As = smem + (s % kStages) * C::STAGE;
-    if constexpr (C::kBf16)
-      tc::mma_stage_bf16<C::MT, C::NT, BK, C::LDA, C::LDB, false>(
-          As, As + C::A_ELEMS, acc, wm0, wn0, lane);
-    else
-      tc::mma_stage<C::MT, C::NT, BK, C::LDA, C::LDB, false>(
-          As, As + C::A_ELEMS, acc, wm0, wn0, lane);
+    const float* As = smem + (s % kStages) * C::STAGE_FLOATS;
+    tc::mma_stage<C::MT, C::NT, BK, C::LDA, C::LDB, false>(
+        As, As + C::A_FLOATS, acc, wm0, wn0, lane);
   }
   tc::cp_wait<0>();
 
-  if constexpr (C::kBf16) {
-    if constexpr (kPerm)
-      tc::store_tile_bf16(acc, out, tile_rows, cout, cout, wm0, n0 + wn0,
-                          lane, rows + BM * k);
-    else
-      tc::store_tile_bf16(acc, out, m, cout, cout, m0 + wm0, n0 + wn0, lane);
-  } else if constexpr (kPerm) {
+  if constexpr (kPerm)
     tc::store_tile_rows(acc, out, rows + BM * k, (int)tile_rows, cout, cout,
                         wm0, n0 + wn0, lane);
-  } else {
+  else
     tc::store_tile(acc, out, m, cout, cout, m0 + wm0, n0 + wn0, lane);
-  }
 }
 
-template <typename E, int BM, int BN, int BK, int WM, int WN, bool kPerm>
-cudaError_t launch_cfg(const E* feats, const int* idx, const E* w, E* out,
-                       int n, long long m, int k, int cin, int cout,
-                       int vec_a, int vec_b, const int* perm,
+template <int BM, int BN, int BK, int WM, int WN, bool kPerm>
+cudaError_t launch_cfg(const float* feats, const int* idx, const float* w,
+                       float* out, int n, long long m, int k, int cin,
+                       int cout, int vec_a, int vec_b, const int* perm,
                        cudaStream_t s) {
-  using C = Cfg<E, BM, BN, BK, WM, WN>;
-  const size_t smem = sizeof(E) * kStages * C::STAGE +
+  using C = Cfg<BM, BN, BK, WM, WN>;
+  const size_t smem = sizeof(float) * kStages * C::STAGE_FLOATS +
                       sizeof(int) * BM * (k + (kPerm ? 1 : 0));
-  auto fn = kernel<E, BM, BN, BK, WM, WN, kPerm>;
+  auto fn = kernel<BM, BN, BK, WM, WN, kPerm>;
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -509,21 +358,21 @@ cudaError_t launch_cfg(const E* feats, const int* idx, const E* w, E* out,
 // every warp holds a 32 x 32 (or 32 x 16) accumulator.  (Measured on the
 // card: 128 x 128 tiles leave SMs idle at 15k rows; 64 x 64 tiles re-read
 // W[j] twice as often.)
-template <typename E, int BK, bool kPerm>
-cudaError_t launch_bk(const E* feats, const int* idx, const E* w, E* out,
-                      int n, long long m, int k, int cin, int cout,
-                      int vec_a, int vec_b, const int* perm,
+template <int BK, bool kPerm>
+cudaError_t launch_bk(const float* feats, const int* idx, const float* w,
+                      float* out, int n, long long m, int k, int cin,
+                      int cout, int vec_a, int vec_b, const int* perm,
                       cudaStream_t s) {
   if (cout > 64)
-    return launch_cfg<E, 64, 128, BK, 2, 4, kPerm>(
+    return launch_cfg<64, 128, BK, 2, 4, kPerm>(
         feats, idx, w, out, n, m, k, cin, cout, vec_a, vec_b, perm, s);
   if (cout > 32)
-    return launch_cfg<E, 128, 64, BK, 4, 2, kPerm>(
+    return launch_cfg<128, 64, BK, 4, 2, kPerm>(
         feats, idx, w, out, n, m, k, cin, cout, vec_a, vec_b, perm, s);
   if (cout > 16)
-    return launch_cfg<E, 128, 32, BK, 4, 1, kPerm>(
+    return launch_cfg<128, 32, BK, 4, 1, kPerm>(
         feats, idx, w, out, n, m, k, cin, cout, vec_a, vec_b, perm, s);
-  return launch_cfg<E, 128, 16, BK, 4, 1, kPerm>(
+  return launch_cfg<128, 16, BK, 4, 1, kPerm>(
       feats, idx, w, out, n, m, k, cin, cout, vec_a, vec_b, perm, s);
 }
 
@@ -545,34 +394,13 @@ inline cudaError_t launch(const float* feats, const int* idx, const float* w,
   const int vec_a = cin % 4 == 0 && tc::aligned16(feats);
   const int vec_b = cout % 4 == 0 && tc::aligned16(w);
   if (cin > 16)
-    return launch_bk<float, 32, kPerm>(feats, idx, w, out, n, m, k, cin,
-                                       cout, vec_a, vec_b, perm, s);
+    return launch_bk<32, kPerm>(feats, idx, w, out, n, m, k, cin, cout,
+                                vec_a, vec_b, perm, s);
   if (cin > 8)
-    return launch_bk<float, 16, kPerm>(feats, idx, w, out, n, m, k, cin,
-                                       cout, vec_a, vec_b, perm, s);
-  return launch_bk<float, 8, kPerm>(feats, idx, w, out, n, m, k, cin, cout,
-                                    vec_a, vec_b, perm, s);
-}
-
-// The bf16 gather-GEMM: feats (N, Cin), wt (K, Cout, Cin) the transposed
-// weights, out (M, Cout), all bf16.  Cin % 8 == 0 and every base 16-byte
-// aligned (else invalid value: the 16-byte row copies need both).  The
-// channel chunk is 32 above 16 channels, else 16; the block tiles follow
-// Cout as in the f32 path.
-template <bool kPerm = false>
-inline cudaError_t launch_bf16(const __nv_bfloat16* feats, const int* idx,
-                               const __nv_bfloat16* wt, __nv_bfloat16* out,
-                               int n, long long m, int k, int cin, int cout,
-                               cudaStream_t s, const int* perm = nullptr) {
-  if (k < 1 || k > 32 || cin < 1 || cout < 0 || n < 0 || m < 0 ||
-      cin % 8 != 0 || !tc::aligned16(feats) || !tc::aligned16(wt))
-    return cudaErrorInvalidValue;
-  if (m == 0 || cout == 0) return cudaSuccess;
-  if (cin > 16)
-    return launch_bk<__nv_bfloat16, 32, kPerm>(feats, idx, wt, out, n, m, k,
-                                               cin, cout, 1, 1, perm, s);
-  return launch_bk<__nv_bfloat16, 16, kPerm>(feats, idx, wt, out, n, m, k,
-                                             cin, cout, 1, 1, perm, s);
+    return launch_bk<16, kPerm>(feats, idx, w, out, n, m, k, cin, cout,
+                                vec_a, vec_b, perm, s);
+  return launch_bk<8, kPerm>(feats, idx, w, out, n, m, k, cin, cout, vec_a,
+                             vec_b, perm, s);
 }
 
 }  // namespace gather_gemm

@@ -36,7 +36,7 @@ launches = 0
 bf16_launches = 0
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# feats, idx, W (bf16: Wt (K, Cout, Cin)), out, N, M, K, Cin, Cout, stream
+# feats, idx, W (K, Cin, Cout), out, N, M, K, Cin, Cout, stream
 _SIGNATURES = {"gather_conv_f32": [_P, _P, _P, _P, _I, _LL, _I, _I, _I, _P],
                "gather_conv_bf16": [_P, _P, _P, _P, _I, _LL, _I, _I, _I, _P]}
 DTYPES = (torch.float32, torch.bfloat16)
@@ -55,7 +55,9 @@ def check_dtypes(name: str, *tensors: torch.Tensor) -> torch.dtype:
 def pad_channels(x: torch.Tensor, dim: int, multiple: int = 8
                  ) -> torch.Tensor:
     """x with zeros appended along `dim` to a multiple of `multiple`
-    channels, contiguous (the bf16 kernels' 16-byte row copies)."""
+    channels, contiguous (the bf16 kernels' 16-byte row copies and the
+    weights' tensor map); x itself where it needs none and is
+    contiguous."""
     pad = -x.shape[dim] % multiple
     if pad:
         shape = list(x.shape)
@@ -129,23 +131,22 @@ def _gather_conv_cuda(feats: torch.Tensor, idx: torch.Tensor,
         raise ValueError(f"gather_conv: the kernel takes 1 to 32 offsets, "
                          f"got K = {k}")
     cout = weights.shape[2]
-    out = torch.empty(m, cout, dtype=dtype, device=dev)
     lib = cuda_build.load_library("gather_conv", _SIGNATURES)
     if dtype == torch.float32:
-        entry, table, w = lib.gather_conv_f32, feats, weights
+        entry, w = lib.gather_conv_f32, weights
     else:
-        # Cin padded to a multiple of 8 (zeros: they add nothing), W
-        # transposed to (K, Cout, Cin) for the kernel's B operand
-        entry, table = lib.gather_conv_bf16, pad_channels(feats, 1)
-        w = pad_channels(weights.transpose(1, 2), 2)
-        cin = table.shape[1]
+        # W read as it is, (K, Cin, Cout), by the kernel's tensor map, which
+        # needs Cout % 8 == 0: other widths are padded with zero columns
+        # and cut back (no shipped config has one); any Cin
+        entry, w = lib.gather_conv_bf16, pad_channels(weights, 2)
+    out = torch.empty(m, w.shape[2], dtype=dtype, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = entry(table.data_ptr(), idx.data_ptr(), w.data_ptr(),
-                   out.data_ptr(), n, m, k, cin, cout, stream)
+        rc = entry(feats.data_ptr(), idx.data_ptr(), w.data_ptr(),
+                   out.data_ptr(), n, m, k, cin, w.shape[2], stream)
     cuda_build.check(lib, rc, "gather_conv")
     if dtype == torch.float32:
         launches += 1
     else:
         bf16_launches += 1
-    return out
+    return out if out.shape[1] == cout else out[:, :cout].contiguous()

@@ -55,6 +55,17 @@ strided_bf16_launches = 0
 # written (the kernel takes at most 4096)
 DW_CHUNK = 1024
 
+
+def dw_chunk(bf16: bool, cin: int, cout: int, k: int) -> int:
+    """Input rows a dW block compacts: DW_CHUNK, or twice it in the bf16
+    pass at Cin x Cout >= 2048 and K >= 8, where halving its float32
+    partials (chunks x K x Cin x Cout, written and summed again) saves more
+    than the blocks it takes away (measured on the card at the flagship's
+    down1 and down2, bench/probe_gather_gemm.py; at down0 and conv_out,
+    K 3, the smaller chunk is faster)."""
+    return 2 * DW_CHUNK if bf16 and cin * cout >= 2048 and k >= 8 \
+        else DW_CHUNK
+
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     # g, rb, wt, dfeats, M, N, K, Cout, Cin, stream
@@ -251,9 +262,10 @@ def _kernel_bwd(feats: torch.Tensor, rb: torch.Tensor,
     """Launch the dfeats gather (if asked; its tile rows through perm
     where given) and the two dW passes, float32 or bfloat16.  The float32
     dfeats gather takes the (flipped) weights transposed, (K, Cout, Cin);
-    the bf16 one takes them as they are, and its Cin and Cout are padded
-    with zeros to multiples of 8 where they are not (its 16-byte row
-    copies), the results cut back."""
+    the bf16 one reads them as they are, (K, Cin, Cout), and its Cin and
+    Cout are padded with zeros to multiples of 8 where they are not (its
+    16-byte row copies; no shipped config has such a width), the results
+    cut back."""
     _check(name, feats, rb, weights, g)
     bf16 = feats.dtype == torch.bfloat16
     kind = "bf16" if bf16 else "f32"
@@ -265,7 +277,8 @@ def _kernel_bwd(feats: torch.Tensor, rb: torch.Tensor,
     fp, gp = (pad_channels(feats, 1), pad_channels(g, 1)) if bf16 \
         else (feats, g)
     cin_k, cout_k = fp.shape[1], gp.shape[1]
-    chunks = (n + DW_CHUNK - 1) // DW_CHUNK
+    chunk = dw_chunk(bf16, cin_k, cout_k, k)
+    chunks = (n + chunk - 1) // chunk
     part = torch.empty(max(chunks, 1) * k * cin_k * cout_k,
                        dtype=torch.float32, device=dev)
     dw = torch.empty(k, cin_k, cout_k, dtype=feats.dtype, device=dev)
@@ -291,7 +304,7 @@ def _kernel_bwd(feats: torch.Tensor, rb: torch.Tensor,
                 dfeats = dfeats[:, :cin].contiguous()
         rc = getattr(lib, f"conv_bwd_dw_{kind}")(
             fp.data_ptr(), rb.data_ptr(), gp.data_ptr(), part.data_ptr(),
-            dw.data_ptr(), n, mg, k, cin_k, cout_k, DW_CHUNK, int(flip),
+            dw.data_ptr(), n, mg, k, cin_k, cout_k, chunk, int(flip),
             stream)
     cuda_build.check(lib, rc, f"{name} dW")
     if (cin_k, cout_k) != (cin, cout):

@@ -25,6 +25,7 @@ from __future__ import annotations
 import argparse
 import os
 import pickle
+import sys
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -203,8 +204,12 @@ def _test(args, dev: torch.device) -> Dict:
     res = run_inference_eval(cfg, dataset, model, args.batch_size,
                              args.eval, out=args.out, device=dev)
     who = f"rank {mesh.rank()}: " if mesh.world() > 1 else ""
-    print(who + str({k: (round(v, 4) if isinstance(v, float) else v)
-                     for k, v in res.items() if not isinstance(v, dict)}))
+    # the line and its newline in one write: ranks that share a log file
+    # then never splice their lines together
+    sys.stdout.write(who + str({k: (round(v, 4) if isinstance(v, float)
+                                    else v) for k, v in res.items()
+                                if not isinstance(v, dict)}) + "\n")
+    sys.stdout.flush()
     return res
 
 

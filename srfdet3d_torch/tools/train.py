@@ -384,12 +384,14 @@ def _train(args, argv, dev: torch.device) -> Dict:
     who = f"rank {rank}: " if world > 1 else ""
     if record["step_ms"]:
         wait, step = record["wait_ms"], record["step_ms"]
-        print(f"{who}training done: {len(step)} steps, step p50 "
-              f"{statistics.median(step):.1f} ms, loader wait "
-              f"{sum(wait) / (sum(wait) + sum(step)):.3f} of the loop",
-              flush=True)
+        line = (f"{who}training done: {len(step)} steps, step p50 "
+                f"{statistics.median(step):.1f} ms, loader wait "
+                f"{sum(wait) / (sum(wait) + sum(step)):.3f} of the loop")
     else:
-        print(f"{who}training done", flush=True)
+        line = f"{who}training done"
+    # one write with its newline, so that ranks sharing a log keep whole lines
+    sys.stdout.write(line + "\n")
+    sys.stdout.flush()
     return record
 
 

@@ -11,6 +11,7 @@ tensorboard.
 
 from __future__ import annotations
 
+import sys
 import time
 from typing import Dict, Optional
 
@@ -34,7 +35,10 @@ class MetricLogger:
         if lr is not None:
             parts.append(f"lr {lr:.2e}")
         parts += [f"{k} {float(v):.4f}" for k, v in sorted(metrics.items())]
-        print("  ".join(parts), flush=True)
+        # one write with its newline: a line another rank prints into the
+        # same log cannot land inside it
+        sys.stdout.write("  ".join(parts) + "\n")
+        sys.stdout.flush()
         if self._writer is not None:
             scalars = {k: float(v) for k, v in metrics.items()}
             if lr is not None:

@@ -7,6 +7,7 @@ gradient accumulation, the eval hook); and a SIGTERM mid-epoch whose
 preemption checkpoint resumes to the same weights, bit for bit, as an
 uninterrupted run."""
 
+import io
 import os
 import pickle
 import signal
@@ -69,6 +70,44 @@ def test_train_then_test_in_subprocesses(tmp_path):
     assert len(dump["gts"]) == len(dump["preds"]) == 3   # tail padded
     again = run("test", "tiny", "--eval-from-pkl", out, "--device", "cpu")
     assert again.strip().splitlines()[-1].startswith("{'mAP'")
+
+
+class _Writes(io.StringIO):
+    """stdout that keeps every write call's text."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = []
+
+    def write(self, text):
+        self.calls.append(text)
+        return super().write(text)
+
+
+@pytest.mark.parametrize("cli,marks", [
+    ("train", ("iter 1", "iter 2", "training done")),
+    ("test", ("'mAP'",))])
+def test_parsed_lines_are_one_write_each(tmp_path, monkeypatch, cli, marks):
+    """The lines that a launcher's log is read for (loss lines, the end of
+    training, each rank's metrics) reach stdout as one write with their
+    newline: under an unbuffered stdout, ranks that share a log file
+    spliced two `print` lines into one when each wrote its text and its
+    newline apart."""
+    out = _Writes()
+    monkeypatch.setattr(sys, "stdout", out)
+    common = ["tiny", "--synthetic", "--batch-size", "2", "--device", "cpu"]
+    if cli == "train":
+        train_cli.main([*common, "--synthetic-length", "4", "--epochs", "1",
+                        "--log-interval", "1",
+                        "--work-dir", str(tmp_path / "wd")])
+    else:
+        test_cli.main([*common, "--synthetic-length", "2"])
+    for mark in marks:
+        calls = [c for c in out.calls if mark in c]
+        assert len(calls) == 1, (mark, out.calls)
+        (call,) = calls
+        assert call.endswith("\n") and call.count("\n") == 1, repr(call)
+        assert f"\n{call}" in "\n" + out.getvalue(), repr(call)
 
 
 def test_train_and_test_from_a_data_root(tmp_path):
