@@ -195,6 +195,18 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    reported; the ranks' parameters and buffers bit for bit equal, each
    rank's launches a step equal to the structure, its p50 and peak, the
    collectives a step and the gloo all-reduce times;
+   model_axis_flagship, the same flagship steps on a 2 x 2 (data x
+   model) grid of such ranks (`--ddp-worker <dir> 2`), the 900 proposals
+   sharded 450 a model rank under proposal_sharding, the decisions
+   joined along the proposals as well (joined_decisions with n_model),
+   held as ddp_flagship_train's, after two predicts (at the flagship's
+   32-cell BEV patch window, and at MODEL_AXIS_OVERFLOW_PATCH, where the
+   misfits overflow the 64 fallback slots and those of rank 0's block
+   decide drops in rank 1's) whose
+   gathered outputs are held field by field within MODEL_AXIS_PRED_TOL
+   of this process's; with each rank's launches, p50 and peak, the
+   collectives a step by group and the BEV patch rule's misfits a
+   sample;
    ddp_nccl_world1, 3 flagship steps in an NCCL group of one, every
    collective issued, between two runs with no group on the same weights
    (p50s, differences per step), the first step held within the same
@@ -264,7 +276,8 @@ parameter of every train phase stays float32.
    data_launches, its launches a step in each data phase's train run,
    convert_launches, its launches in each round-trip predict,
    learn_launches, its launches a flagship_learn step, ddp_launches,
-   each ddp_flagship_train rank's launches a step, and options_launches,
+   each ddp_flagship_train rank's launches a step, model_axis_launches,
+   each model_axis_flagship rank's launches a step, and options_launches,
    its launches in each option phase's predict or train step,
    export_launches, its launches in each export phase's artifact call,
    and bf16_launches, its launches in each bf16 phase; K1-bf16
@@ -3735,7 +3748,11 @@ class Decisions:
     each, so that what remains between the two is rounding.  `replay`:
     {kind: [tensor a call]} (kinds not named run as they are).  `calls`
     keeps every call's own decisions, played back or not, on the device;
-    take() moves them to the host."""
+    take() moves them to the host.  `blocks` tags each call made inside
+    a refinement iteration (SingleSRFDetHead.forward) with its (B, n_p)
+    proposals, a model rank's block under proposal sharding, and every
+    other call (the encoder, the DPG, the assignment) with None
+    (joined_decisions joins the model ranks by it)."""
 
     KINDS = ("level", "corners", "ota", "relu", "extreme", "clip")
     # the batch axis of each kind's record (joined_decisions)
@@ -3750,9 +3767,12 @@ class Decisions:
         self.orig = (roi_align._level_geometry, roi_align._axis_corners,
                      losses.ota_assign_batch, F.relu,
                      head.lidar_rois_from_boxes,
-                     head.SingleSRFDetHead.apply_deltas)
+                     head.SingleSRFDetHead.apply_deltas,
+                     head.SingleSRFDetHead.forward)
         self.replay = {k: list(v) for k, v in (replay or {}).items()}
         self.calls = {k: [] for k in self.KINDS}
+        self.blocks = {k: [] for k in self.KINDS}
+        self.block = None
         roi_align._level_geometry = self._level
         roi_align._axis_corners = self._corners
         losses.ota_assign_batch = self._ota
@@ -3760,14 +3780,27 @@ class Decisions:
         head.lidar_rois_from_boxes = self._rois
         head.SingleSRFDetHead.apply_deltas = \
             lambda mod, d, b: self._apply_deltas(mod, d, b)
+        head.SingleSRFDetHead.forward = \
+            lambda mod, *a, **k: self._iteration(mod, *a, **k)
 
     def close(self):
         (self.roi_align._level_geometry, self.roi_align._axis_corners,
          self.losses.ota_assign_batch, self.F.relu,
          self.head.lidar_rois_from_boxes,
-         self.head.SingleSRFDetHead.apply_deltas) = self.orig
+         self.head.SingleSRFDetHead.apply_deltas,
+         self.head.SingleSRFDetHead.forward) = self.orig
+
+    def _iteration(self, mod, *args, **kwargs):
+        """A refinement iteration, its calls tagged with its proposals'
+        (B, n_p)."""
+        outer, self.block = self.block, tuple(args[1].shape[:2])
+        try:
+            return self.orig[6](mod, *args, **kwargs)
+        finally:
+            self.block = outer
 
     def _next(self, kind, device):
+        self.blocks[kind].append(self.block)
         if kind not in self.replay:
             return None
         if not self.replay[kind]:
@@ -3861,9 +3894,11 @@ class Decisions:
         return torch.cat([ctr, new_sizes, d[..., 6:]], -1)
 
     def take(self):
-        """The calls since the last take, on the host."""
+        """The calls since the last take, on the host, and their blocks."""
         out = {k: [t.cpu() for t in v] for k, v in self.calls.items()}
+        out["blocks"] = self.blocks
         self.calls = {k: [] for k in self.KINDS}
+        self.blocks = {k: [] for k in self.KINDS}
         return out
 
 
@@ -3883,13 +3918,48 @@ def decision_flips(a, b):
     return out
 
 
-def joined_decisions(per_rank):
+def joined_decisions(per_rank, n_model: int = 1):
     """The global batch's decisions from each rank's record of one step,
     rank by rank along each kind's batch axis (ranks hold contiguous
-    rows)."""
+    rows).  With n_model > 1 the ranks are a (data, model) grid in world
+    order: each data index's model ranks are joined first
+    (joined_blocks), then the data indices along the batch."""
+    if n_model > 1:
+        per_rank = [joined_blocks(per_rank[d:d + n_model])
+                    for d in range(0, len(per_rank), n_model)]
     return {kind: [torch.cat(parts, Decisions.BATCH_AXIS[kind])
                    for parts in zip(*(r[kind] for r in per_rank))]
             for kind in Decisions.KINDS}
+
+
+def joined_blocks(per_block):
+    """One data index's decisions from its model ranks' records: a call
+    inside a refinement iteration (Decisions.blocks) joins the blocks
+    along the proposal axis within each sample's rows; every other call
+    is replicated on the model ranks and taken from model rank 0."""
+    out = {}
+    for kind in Decisions.KINDS:
+        ax = Decisions.BATCH_AXIS[kind]
+        calls = []
+        for i, parts in enumerate(zip(*(r[kind] for r in per_block))):
+            block = per_block[0]["blocks"][kind][i]
+            if block is None:
+                calls.append(parts[0])
+                continue
+            b, n = block
+            shape = tuple(parts[0].shape)
+            if kind in ("extreme", "clip"):        # (.., B, n_p, ..)
+                calls.append(torch.cat(parts, ax + 1))
+                continue
+            if shape[ax] != b * n:                 # rows (B * n_p, ...)
+                raise AssertionError(f"{kind} call {i}: {shape[ax]} rows, "
+                                     f"not {b} x {n} proposals")
+            split = [p.reshape(shape[:ax] + (b, n) + shape[ax + 1:])
+                     for p in parts]
+            calls.append(torch.cat(split, ax + 1).reshape(
+                shape[:ax] + (-1,) + shape[ax + 1:]))
+        out[kind] = calls
+    return out
 
 
 def flat_grads(params):
@@ -3903,13 +3973,15 @@ def flat_state(model):
 
 
 def ddp_steps(model, opt, batch, want, keep_grads: bool,
-              steps: int = DDP_STEPS, replay=None, keep_states=False):
+              steps: int = DDP_STEPS, replay=None, keep_states=False,
+              first_offsets=None):
     """`steps` train steps on `batch`: per step the metrics, the launches
     (held against `want`), the ms, the step's own decisions (Decisions,
     on the host), with keep_grads the flat grads and the flat parameters
     after the update, with keep_states the state_dict and the AdamW
     moments before the step (host).  `replay`: a Decisions replay a step
-    to play back."""
+    to play back.  `first_offsets`: an OffsetRecorder whose calls during
+    the first step go into its row ("offsets")."""
     from srfdet3d_torch.train.trainer import train_step
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = []
@@ -3937,6 +4009,8 @@ def ddp_steps(model, opt, batch, want, keep_grads: bool,
                                  f"the structure gives {want}")
         row.update(metrics={k: float(v) for k, v in metrics.items()},
                    launches=counts, ms=ms, decisions=dec.take())
+        if first_offsets is not None and step == 0:
+            row["offsets"] = list(first_offsets.calls)
         if keep_grads:
             row.update(grads=flat_grads(opt.params),
                        params=torch.cat([p.detach().reshape(-1)
@@ -3953,13 +4027,99 @@ def load_step_state(model, opt, before) -> None:
     opt.count = before["count"]
 
 
-def ddp_worker(work: str) -> int:
+class CollectiveCounter:
+    """Counts the all-reduces and all-gathers this process issues (calls
+    and the bytes of the tensor it contributes) by group: "world" (no
+    group given), "data" and "model" (the 2-D mesh's groups).  close()
+    puts torch.distributed's functions back."""
+
+    def __init__(self, grid=None):
+        import torch.distributed as dist
+        self.dist, self.grid = dist, grid
+        self.orig = (dist.all_reduce, dist.all_gather)
+        self.tally = {}
+        dist.all_reduce = self._wrap(self.orig[0], "all_reduce", 0)
+        dist.all_gather = self._wrap(self.orig[1], "all_gather", 1)
+
+    def _wrap(self, fn, op, arg):
+        def call(*args, group=None, **kwargs):
+            grid = self.grid
+            who = ("world" if group is None else
+                   "model" if grid is not None and group is grid.model_group
+                   else "data")
+            t = args[arg]
+            row = self.tally.setdefault(f"{who}_{op}", dict(calls=0, bytes=0))
+            row["calls"] += 1
+            row["bytes"] += t.numel() * t.element_size()
+            return fn(*args, group=group, **kwargs)
+        return call
+
+    def close(self):
+        self.dist.all_reduce, self.dist.all_gather = self.orig
+
+
+class OffsetRecorder:
+    """Records each proposal_offsets call (the head's capacity-rule prefix
+    over the model group): the block's per-sample counts and the offsets
+    it got."""
+
+    def __init__(self):
+        from srfdet3d_torch.parallel import mesh
+        self.mesh, self.orig = mesh, mesh.proposal_offsets
+        self.calls = []
+        mesh.proposal_offsets = self._offsets
+
+    def _offsets(self, counts, grid=None):
+        out = self.orig(counts, grid)
+        self.calls.append((counts.tolist(), out.tolist()))
+        return out
+
+    def close(self):
+        self.mesh.proposal_offsets = self.orig
+
+
+def fallback_predicts(model, batch):
+    """The model's predict at its own BEV patch window ("predict") and at
+    a MODEL_AXIS_OVERFLOW_PATCH-cell one ("overflow"), both with the
+    config's fallback slots: pred_logits, pred_boxes, the decoded boxes
+    and the proposal_offsets calls, on the host."""
+    heads = model.bbox_head.heads
+    own = heads[0].roi_patch
+    out = {}
+    model.eval()
+    with torch.no_grad():
+        for name, window in (("predict", own),
+                             ("overflow", MODEL_AXIS_OVERFLOW_PATCH)):
+            for h in heads:
+                h.roi_patch = window
+            rec = OffsetRecorder()
+            try:
+                logits, boxes = model(batch)
+                dec = model.decode((logits, boxes))
+            finally:
+                rec.close()
+                for h in heads:
+                    h.roi_patch = own
+            out[name] = dict(logits=logits.cpu(), boxes=boxes.cpu(),
+                             decoded={k: v.cpu() for k, v in dec.items()},
+                             offsets=rec.calls)
+    return out
+
+
+def ddp_worker(work: str, n_model: int = 1) -> int:
     """One rank of ddp_flagship_train (RANK, WORLD_SIZE, MASTER_ADDR and
-    MASTER_PORT from the parent; gloo on cuda:0): the flagship's steps on
-    its rows of the global batch; every rank its decisions a step, its
-    final state, launches, ms, peak memory and the collectives a step;
-    rank 0 also the state before each step and the grads and parameters
-    after it.  Writes <work>/rank<r>.pt."""
+    MASTER_PORT from the parent; gloo on cuda:0), or with n_model > 1 of
+    model_axis_flagship (a make_mesh_2d(WORLD_SIZE / n_model, n_model)
+    grid, the steps under proposal_sharding, and first the two
+    fallback_predicts, whose gathered outputs it keeps): the flagship's
+    steps on its data index's
+    rows of the global batch; every rank its decisions a step, its final
+    state, launches, ms, peak memory and the collectives a step (on a grid
+    by group, and the capacity rule's offsets of the first step); rank 0
+    also the state before each step and the grads and parameters after
+    it.  Writes <work>/rank<r>.pt."""
+    import contextlib
+
     import torch.distributed as dist
     from srfdet3d_torch import set_backend_flags
     from srfdet3d_torch.models.detector import SRFDet
@@ -3970,47 +4130,61 @@ def ddp_worker(work: str) -> int:
     if not mesh.init_from_env(dev):
         raise RuntimeError("ddp worker: no group in the environment")
     rank, world = mesh.rank(), mesh.world()
+    grid = mesh.make_mesh_2d(world // n_model, n_model) if n_model > 1 \
+        else None
     cfg = ddp_config()
     model = SRFDet(cfg, device=dev, seed=0)
     mesh.broadcast_module(model)
     opt = make_optimizer(model, cfg, total_steps=1000)
     batch = {k: v.to(dev) for k, v in
-             mesh.shard_rows(ddp_batch(cfg), rank, world).items()}
-    collectives = {"calls": 0, "bytes": 0}
-    plain_all_reduce = dist.all_reduce
-
-    def counted(t, *args, **kwargs):
-        collectives["calls"] += 1
-        collectives["bytes"] += t.numel() * t.element_size()
-        return plain_all_reduce(t, *args, **kwargs)
-    dist.all_reduce = counted
-    torch.cuda.reset_peak_memory_stats()
-    steps = ddp_steps(model, opt, batch, train_launches(model),
-                      keep_grads=rank == 0, keep_states=rank == 0)
-    dist.all_reduce = plain_all_reduce
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    # the grad all-reduce alone (one flat buffer) and a BN-sized one
-    times = {}
-    for what, tensors in (("grads", None),
-                          ("stats_257", [torch.ones(257, device=dev)])):
-        reps = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            if tensors is None:
-                mesh.all_reduce_grads(opt.params)
-            else:
-                dist.all_reduce(tensors[0])
-            torch.cuda.synchronize()
-            reps.append((time.perf_counter() - t0) * 1e3)
-        times[what] = statistics.median(reps[1:])
-    final = flat_state(model)
-    torch.save(dict(rank=rank, steps=steps, final=final, peak_gb=peak,
-                    collectives_per_step={k: v // DDP_STEPS for k, v in
-                                          collectives.items()},
-                    allreduce_ms=times,
-                    grad_mb=sum(p.numel() for p in opt.params) * 4 / 1e6),
-               os.path.join(work, f"rank{rank}.pt"))
+             mesh.shard_rows(ddp_batch(cfg)).items()}
+    out = dict(rank=rank)
+    with (mesh.proposal_sharding(grid) if grid is not None
+          else contextlib.nullcontext()):
+        if grid is not None:
+            out["predicts"] = fallback_predicts(model, batch)
+        counter = CollectiveCounter(grid)
+        offsets = OffsetRecorder()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            steps = ddp_steps(model, opt, batch, train_launches(model),
+                              keep_grads=rank == 0, keep_states=rank == 0,
+                              first_offsets=offsets)
+        finally:
+            counter.close()
+            offsets.close()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        # the grad all-reduce alone (one flat buffer: over the whole world
+        # on a grid) and a BN-sized one
+        times = {}
+        for what, tensors in (("grads", None),
+                              ("stats_257", [torch.ones(257, device=dev)])):
+            reps = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if tensors is None:
+                    mesh.all_reduce_grads(opt.params)
+                else:
+                    dist.all_reduce(tensors[0])
+                torch.cuda.synchronize()
+                reps.append((time.perf_counter() - t0) * 1e3)
+            times[what] = statistics.median(reps[1:])
+    tally = {k: {f: v // DDP_STEPS for f, v in row.items()}
+             for k, row in counter.tally.items()}
+    if grid is None:
+        out["collectives_per_step"] = tally.get("world_all_reduce",
+                                                dict(calls=0, bytes=0))
+    else:
+        out["collectives_per_step"] = tally
+        out["offsets"] = steps[0].pop("offsets")
+        out["grid"] = dict(n_data=grid.n_data, n_model=grid.n_model,
+                           data_index=grid.data_index,
+                           model_index=grid.model_index)
+    out.update(steps=steps, final=flat_state(model), peak_gb=peak,
+               allreduce_ms=times,
+               grad_mb=sum(p.numel() for p in opt.params) * 4 / 1e6)
+    torch.save(out, os.path.join(work, f"rank{rank}.pt"))
     mesh.barrier()
     mesh.shutdown()
     return 0
@@ -4090,6 +4264,53 @@ DDP_TOLERANCES = dict(loss_rtol=DDP_LOSS_RTOL, grad_norm_rtol=DDP_GRAD_RTOL,
                                 "back the decisions")
 
 
+def run_ranks(work: str, world: int, *args: str):
+    """`world` ranks of `chip_smoke.py --ddp-worker work *args` over gloo
+    on cuda:0 (killed at DDP_TIMEOUT); returns each rank's record and the
+    seconds they took."""
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(free_port()), WORLD_SIZE=str(world),
+               SRFDET_DIST_BACKEND="gloo")
+    t0 = time.perf_counter()
+    run_group([[sys.executable, os.path.abspath(__file__), "--ddp-worker",
+                work, *args]] * world,
+              [dict(env, RANK=str(r), LOCAL_RANK="0") for r in range(world)],
+              DDP_TIMEOUT,
+              [os.path.join(work, f"rank{r}.log") for r in range(world)])
+    ranks_s = time.perf_counter() - t0
+    return [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)], ranks_s
+
+
+def replayed_steps(cfg, batch, want, ranks, sizes, names, n_model=1):
+    """Each of the ranks' DDP_STEPS steps again in this process on the
+    whole batch, from rank 0's state before it, playing back the ranks'
+    decisions of that step (joined_decisions), held at step_errors: a
+    row a step with the losses, the errors and the decisions that still
+    differ."""
+    from srfdet3d_torch.models.detector import SRFDet
+    from srfdet3d_torch.train.trainer import make_lr_schedule, make_optimizer
+    lr = make_lr_schedule(cfg.optim, 1000)
+    rows = []
+    for step in range(DDP_STEPS):
+        got = ranks[0]["steps"][step]
+        played = joined_decisions([r["steps"][step]["decisions"]
+                                   for r in ranks], n_model)
+        model = SRFDet(cfg, device="cuda", seed=0)
+        opt = make_optimizer(model, cfg, total_steps=1000)
+        if step:
+            load_step_state(model, opt, got["before"])
+        again = ddp_steps(model, opt, batch, want, keep_grads=True, steps=1,
+                          replay=[played])[0]
+        del model, opt
+        free_cache()
+        rows.append(dict(step=step, losses=got["metrics"],
+                         ref_losses=again["metrics"],
+                         **step_errors(got, again, sizes, names, lr(step)),
+                         flips=decision_flips(again["decisions"], played)))
+    return rows
+
+
 def ddp_flagship_train(smi, tmp: str):
     """The flagship at full width, DDP_WORLD ranks sharing the card over
     gloo (host-staged collectives), DDP_RANK_BATCH rows each, for
@@ -4100,7 +4321,8 @@ def ddp_flagship_train(smi, tmp: str):
     it, playing back the ranks' decisions of that step, each within the
     DDP_* tolerances (step_errors); the ranks' final parameters and
     buffers bit for bit equal; each rank's launches a step equal to the
-    structure, its p50 and peak.  Returns each rank's launches a step."""
+    structure, its p50 and peak.  Returns each rank's launches a step and
+    the ranks' p50 and peak."""
     from srfdet3d_torch.models.detector import SRFDet
     from srfdet3d_torch.train.trainer import make_lr_schedule, make_optimizer
     t_phase = time.perf_counter()
@@ -4119,42 +4341,21 @@ def ddp_flagship_train(smi, tmp: str):
     free_cache()
     work = os.path.join(tmp, "ddp_flagship")
     os.makedirs(work)
-    env = dict(os.environ, MASTER_ADDR="127.0.0.1",
-               MASTER_PORT=str(free_port()), WORLD_SIZE=str(DDP_WORLD),
-               SRFDET_DIST_BACKEND="gloo")
-    t0 = time.perf_counter()
-    run_group([[sys.executable, os.path.abspath(__file__), "--ddp-worker",
-                work]] * DDP_WORLD,
-              [dict(env, RANK=str(r), LOCAL_RANK="0")
-               for r in range(DDP_WORLD)], DDP_TIMEOUT,
-              [os.path.join(work, f"rank{r}.log") for r in range(DDP_WORLD)])
-    ranks_s = time.perf_counter() - t0
-    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"),
-                        weights_only=False) for r in range(DDP_WORLD)]
+    ranks, ranks_s = run_ranks(work, DDP_WORLD)
     lr = make_lr_schedule(cfg.optim, 1000)
-    rows = []
-    for step in range(DDP_STEPS):
-        got = ranks[0]["steps"][step]
-        played = joined_decisions([r["steps"][step]["decisions"]
-                                   for r in ranks])
-        model = SRFDet(cfg, device="cuda", seed=0)
-        opt = make_optimizer(model, cfg, total_steps=1000)
-        if step:
-            load_step_state(model, opt, got["before"])
-        again = ddp_steps(model, opt, batch, want, keep_grads=True, steps=1,
-                          replay=[played])[0]
-        del model, opt
-        free_cache()
-        rows.append(dict(step=step, losses=got["metrics"],
-                         ref_losses=again["metrics"],
-                         **step_errors(got, again, sizes, names, lr(step)),
-                         flips=decision_flips(again["decisions"], played)))
+    rows = replayed_steps(cfg, batch, want, ranks, sizes, names)
     unplayed = dict(step_errors(ranks[0]["steps"][0], ref[0], sizes, names,
                                 lr(0)),
                     flips=decision_flips(ref[0]["decisions"], joined_decisions(
                         [r["steps"][0]["decisions"] for r in ranks])))
     identical = all(torch.equal(ranks[0]["final"], r["final"])
                     for r in ranks[1:])
+    summary = dict(
+        rank_p50_ms=[statistics.median(s["ms"] for s in r["steps"])
+                     for r in ranks],
+        rank_peak_gb=[r["peak_gb"] for r in ranks],
+        ref_p50_ms=statistics.median(s["ms"] for s in ref),
+        ref_peak_gb=ref_peak)
     emit(dict(phase="ddp_flagship_train", config=cfg.name, dropout=0.0,
               ranks=DDP_WORLD, backend="gloo (host-staged, one card)",
               batch_per_rank=DDP_RANK_BATCH,
@@ -4162,16 +4363,12 @@ def ddp_flagship_train(smi, tmp: str):
               tolerances=DDP_TOLERANCES, per_step=rows,
               first_step_without_playback=unplayed,
               ranks_bit_identical=identical,
-              rank_p50_ms=[statistics.median(s["ms"] for s in r["steps"])
-                           for r in ranks],
               rank_step_ms=[[s["ms"] for s in r["steps"]] for r in ranks],
-              rank_peak_gb=[r["peak_gb"] for r in ranks],
               rank_launches=[r["steps"][-1]["launches"] for r in ranks],
               collectives_per_step=ranks[0]["collectives_per_step"],
               gloo_one_card_allreduce_ms=ranks[0]["allreduce_ms"],
               grad_mb=ranks[0]["grad_mb"],
-              ref_p50_ms=statistics.median(s["ms"] for s in ref),
-              ref_step_ms=[s["ms"] for s in ref], ref_peak_gb=ref_peak,
+              ref_step_ms=[s["ms"] for s in ref], **summary,
               ranks_s=ranks_s, seconds=time.perf_counter() - t_phase,
               device=smi))
     bad = [r for r in rows if not step_ok(r)]
@@ -4181,6 +4378,166 @@ def ddp_flagship_train(smi, tmp: str):
     if not identical:
         raise AssertionError("ddp_flagship_train: the ranks' parameters "
                              "and buffers differ")
+    return ({f"rank{r['rank']}": r["steps"][-1]["launches"] for r in ranks},
+            summary)
+
+
+# the model axis (parallel.make_mesh_2d, proposal_sharding): the flagship's
+# 900 proposals over MODEL_AXIS_GRID = (data, model) ranks on the card,
+# DDP_RANK_BATCH rows a data index, against one process at the global
+# batch.  The predicts' gathered outputs are held field by field (each
+# class logit, each box code): the largest |difference| within
+# MODEL_AXIS_PRED_TOL of max(1, the field's largest |value|) of the
+# one-process predict's.  A block's queries attend to the gathered keys
+# in products of other shapes than the whole run's, so cuBLAS may sum in
+# another order (float32 rounding, 6e-8 relative an operation), and five
+# iterations carry it: the largest field error measured on the H100 is
+# 1.25e-5 (PERF.md); a wrong block, order or offset moves an output by
+# O(0.1-1).  At the flagship's 32-cell window the predict's misfits
+# (0-3 a sample) never fill the 64 fallback slots, so the second predict
+# narrows the window to MODEL_AXIS_OVERFLOW_PATCH cells: ~100 misfits a
+# sample in the last iteration, ~50 a block, so model rank 1's offset
+# decides which of its misfits drop; the phase fails if it decided none.
+MODEL_AXIS_GRID = (2, 2)
+MODEL_AXIS_PRED_TOL = 1e-4
+MODEL_AXIS_OVERFLOW_PATCH = 16
+
+
+def field_errors(got: torch.Tensor, ref: torch.Tensor):
+    """Per field of the last axis: max |got - ref| / max(1, max |ref|)."""
+    scale = ref.abs().flatten(0, -2).amax(0).clamp_min(1.0)
+    return ((got - ref).abs().flatten(0, -2).amax(0) / scale).tolist()
+
+
+def offsets_decide(calls, slots: int) -> int:
+    """The proposal_offsets calls (per-row counts, offsets) whose offset
+    decides a drop: some misfit in the row's first `slots` local slots
+    sits past the slots once the offset is added."""
+    return sum(o > 0 and c > max(0, slots - o)
+               for counts, offs in calls for c, o in zip(counts, offs))
+
+
+def model_axis_flagship(smi, tmp: str, ddp_summary):
+    """The flagship at full width on a MODEL_AXIS_GRID of gloo ranks
+    sharing the card, its proposals sharded over the model axis: one
+    predict (its gathered pred_logits and pred_boxes against this process's
+    predict on the whole batch at the same weights, and the decoded boxes
+    that differ), then DDP_STEPS train steps, each held against this
+    process at the global batch from rank 0's state before it, playing
+    back the grid's decisions joined along the proposals and the batch
+    (replayed_steps); the ranks' final states bit for bit equal; each
+    rank's launches a step equal to the structure (K5 over its block), its
+    p50 and peak beside ddp_flagship_train's, the collectives a step by
+    group with their bytes, and the BEV patch rule's misfits a sample
+    against its fallback slots.  Returns each rank's launches a step."""
+    from srfdet3d_torch.models.detector import SRFDet
+    from srfdet3d_torch.train.trainer import make_optimizer
+    t_phase = time.perf_counter()
+    n_data, n_model = MODEL_AXIS_GRID
+    cfg = ddp_config()
+    model = SRFDet(cfg, device="cuda", seed=0)
+    opt = make_optimizer(model, cfg, total_steps=1000)
+    want = train_launches(model)
+    batch = {k: v.cuda() for k, v in ddp_batch(cfg).items()}
+    refs = fallback_predicts(model, batch)
+    sizes = [p.numel() for p in opt.params]
+    names = [n for n, p in model.named_parameters()
+             if any(p is q for q in opt.params)]
+    del model, opt
+    free_cache()
+    work = os.path.join(tmp, "model_axis_flagship")
+    os.makedirs(work)
+    ranks, ranks_s = run_ranks(work, n_data * n_model, str(n_model))
+    rows = replayed_steps(cfg, batch, want, ranks, sizes, names, n_model)
+    # the predicts: model rank 0 of each data index, joined along the
+    # batch, field by field; the decoded boxes that differ
+    leads = ranks[::n_model]
+    errs, differ, decoded = {}, {}, {}
+    for name, ref in refs.items():
+        errs[name] = {k: field_errors(
+            torch.cat([r["predicts"][name][k] for r in leads], 1), ref[k])
+            for k in ("logits", "boxes")}
+        dec = {k: torch.cat([r["predicts"][name]["decoded"][k]
+                             for r in leads]) for k in ref["decoded"]}
+        rd = ref["decoded"]
+        box_diff = (dec["boxes"] - rd["boxes"]).abs().amax(-1)
+        differ[name] = int(((dec["valid"] != rd["valid"]) |
+                            ((dec["valid"] | rd["valid"]) &
+                             ((dec["labels"] != rd["labels"]) |
+                              (box_diff > 1e-3)))).sum())
+        decoded[name] = int(rd["valid"].sum())
+    worst = max(max(v) for e in errs.values() for v in e.values())
+    same_blocks = all(torch.equal(r["predicts"][name][k],
+                                  ranks[(i // n_model) * n_model]
+                                  ["predicts"][name][k])
+                      for i, r in enumerate(ranks) for name in refs
+                      for k in ("logits", "boxes"))
+    fallback = cfg.head.roi_patch_fallback
+    decided = sum(offsets_decide(r["predicts"]["overflow"]["offsets"],
+                                 fallback) for r in ranks)
+
+    def misfits_of(calls):
+        # the BEV patch rule a sample and iteration: the last model
+        # rank's offset plus its count is the sample's misfits
+        return [[o + c for c, o in zip(counts, offs)]
+                for counts, offs in calls]
+    misfits = misfits_of(ranks[n_model - 1]["offsets"])
+    straddles = sum(o < fallback < o + c for r in ranks[:n_model]
+                    for counts, offs in r["offsets"]
+                    for c, o in zip(counts, offs))
+    identical = all(torch.equal(ranks[0]["final"], r["final"])
+                    for r in ranks[1:])
+    emit(dict(phase="model_axis_flagship", config=cfg.name, dropout=0.0,
+              grid=dict(n_data=n_data, n_model=n_model),
+              proposals=cfg.head.num_proposals,
+              proposals_per_rank=cfg.head.num_proposals // n_model,
+              backend="gloo (host-staged, one card)",
+              batch_per_data_rank=DDP_RANK_BATCH,
+              global_batch=n_data * DDP_RANK_BATCH, steps=DDP_STEPS,
+              tolerances=dict(DDP_TOLERANCES,
+                              predict=f"{MODEL_AXIS_PRED_TOL} x max(1, "
+                                      f"max |ref|) a field"),
+              per_step=rows, ranks_bit_identical=identical,
+              predict_field_err=errs, predict_worst_field_err=worst,
+              predict_model_ranks_equal=same_blocks,
+              decoded_boxes=decoded, decoded_boxes_differ=differ,
+              overflow_patch=MODEL_AXIS_OVERFLOW_PATCH,
+              overflow_misfits_per_sample=misfits_of(
+                  ranks[n_model - 1]["predicts"]["overflow"]["offsets"]),
+              overflow_rows_offset_decides=decided,
+              overflow_moved_predict=max(
+                  float((refs["overflow"][k] - refs["predict"][k])
+                        .abs().max()) for k in ("logits", "boxes")),
+              rank_p50_ms=[statistics.median(s["ms"] for s in r["steps"])
+                           for r in ranks],
+              rank_step_ms=[[s["ms"] for s in r["steps"]] for r in ranks],
+              rank_peak_gb=[r["peak_gb"] for r in ranks],
+              ddp_flagship_train=ddp_summary,
+              rank_launches=[r["steps"][-1]["launches"] for r in ranks],
+              collectives_per_step=[r["collectives_per_step"]
+                                    for r in ranks],
+              allreduce_ms=ranks[0]["allreduce_ms"],
+              grad_mb=ranks[0]["grad_mb"],
+              patch_misfits_per_sample=misfits, patch_fallback=fallback,
+              misfits_past_fallback=sum(m > fallback for row in misfits
+                                        for m in row),
+              blocks_straddling_fallback=straddles,
+              ranks_s=ranks_s, seconds=time.perf_counter() - t_phase,
+              device=smi))
+    bad = [r for r in rows if not step_ok(r)]
+    if bad:
+        raise AssertionError(f"model_axis_flagship: off the one-process "
+                             f"step: {bad[0]}")
+    if not identical:
+        raise AssertionError("model_axis_flagship: the ranks' parameters "
+                             "and buffers differ")
+    if worst > MODEL_AXIS_PRED_TOL or not same_blocks:
+        raise AssertionError(f"model_axis_flagship: a predict is off the "
+                             f"one-process predict: {errs}, model ranks "
+                             f"equal {same_blocks}")
+    if not decided:
+        raise AssertionError("model_axis_flagship: no model rank's offset "
+                             "decided a drop in the overflow predict")
     return {f"rank{r['rank']}": r["steps"][-1]["launches"] for r in ranks}
 
 
@@ -4700,7 +5057,8 @@ def kernel_entry(name, source, replaces, launches, t, max_err):
                 "prep_ms", "prep_device_ms", "builds", "bf16_launches",
                 "lc_launches",
                 "lc_train_launches", "data_launches", "convert_launches",
-                "learn_launches", "ddp_launches", "options_launches",
+                "learn_launches", "ddp_launches", "model_axis_launches",
+                "options_launches",
                 "export_launches", "img_geometry"):
         if key in t:
             entry[key] = t[key]
@@ -4926,7 +5284,10 @@ def main() -> int:
         free_cache()
         # data parallelism: two ranks against one process, an NCCL group
         # of one, and the launchers
-        ddp_launches = ddp_flagship_train(smi, tmp)
+        ddp_launches, ddp_summary = ddp_flagship_train(smi, tmp)
+        free_cache()
+        # the model axis: the flagship's proposals over a 2 x 2 grid
+        model_axis_launches = model_axis_flagship(smi, tmp, ddp_summary)
         free_cache()
         ddp_nccl_world1(smi)
         free_cache()
@@ -5024,6 +5385,8 @@ def main() -> int:
         entry["learn_launches"] = learn_launches[key]
         entry["ddp_launches"] = {rank: c[key]
                                  for rank, c in ddp_launches.items()}
+        entry["model_axis_launches"] = {
+            rank: c[key] for rank, c in model_axis_launches.items()}
         entry["options_launches"] = {ph: c[key]
                                      for ph, c in options_launches.items()}
         entry["export_launches"] = {ph: c[key]
@@ -5068,7 +5431,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ddp-worker"]:
-        sys.exit(ddp_worker(sys.argv[2]))
+        sys.exit(ddp_worker(sys.argv[2], *map(int, sys.argv[3:4])))
     workers = {"--export-worker": export_worker,
                "--learn-worker": learn_worker}
     if sys.argv[1:2] and sys.argv[1] in workers:

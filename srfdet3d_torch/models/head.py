@@ -33,6 +33,16 @@ levels before the proposals, `deform_attn.LidarBEVEncoder`), and `remat`
 `unroll_predict` choose how XLA compiles its scan; the port runs the
 iterations eagerly, one module each, which is what both give.
 
+Proposal sharding (`parallel.mesh.proposal_sharding`, the JAX package's
+`shard_proposal_axis` at `head.py:339`, `:589-590`, `:633-634`): the
+initial proposals are computed whole and cut to this model rank's block
+(`ProposalBlock`); every iteration runs on the block, its carry stays
+local, self-attention gathers K and V over the model group, the capacity
+rules' slots start after the lower ranks' counts (`proposal_offsets`),
+every dropout mask is drawn whole and cut, so the masks equal the
+one-process run's; the outputs are gathered at the end.  The
+`parallel.mesh` docstring gives the gradient argument.
+
 In bfloat16 (`dtype`, layers.set_dtype) the Linear layers, the attention,
 the DynamicConv and the LayerNorms compute in bfloat16 (JAX `head.py:75-98`,
 `:332-387`, `:484-570`); the RoIAlign's float32 weights promote its pooled
@@ -45,7 +55,7 @@ from __future__ import annotations
 
 import math
 import struct
-from typing import Dict, Optional, Sequence
+from typing import Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -55,7 +65,8 @@ from torch import nn
 
 from ..geometry.boxes import boxes3d_to_corners3d, denormalize_bbox
 from ..geometry.iou import multiclass_nms_3d
-from ..ops.roi_align import multilevel_roi_align
+from ..ops.roi_align import Offset, multilevel_roi_align, row_offsets
+from ..parallel import mesh as pmesh
 from .deform_attn import LidarBEVEncoder
 from .layers import (Conv2d, ConvBNReLU, LayerNorm, Linear, dropout,
                      softmax)
@@ -128,17 +139,22 @@ def visible_pair_counts(cam_rois: torch.Tensor, img_shape, strides
     return visible_mask(cam_rois, img_shape, strides).sum(-1)
 
 
-def compact_pairs(cam_rois: torch.Tensor, img_shape, strides, cap: int):
+def compact_pairs(cam_rois: torch.Tensor, img_shape, strides, cap: int,
+                  offset: Offset = None):
     """The visible pairs of each camera in `cap` slots, in proposal order
     (a cumulative sum); the pairs past the cap are dropped.  cam_rois
     (B, n_cam, n_p, 4) -> (rois (B*n_cam, cap, 4), the off-image RoI -1e6
     in unused slots; src (B*n_cam, cap) each slot's proposal, n_p where
-    unused)."""
+    unused).  `offset` (a callable, roi_align.row_offsets; per (sample,
+    camera) row): the visible pairs ahead of these proposals, a model
+    rank's lower blocks; a pair's slot in the whole run is its slot here
+    plus the offset, and it is kept when that is below the cap."""
     b, n_cam, n_p, _ = cam_rois.shape
     bc = b * n_cam
     vis = visible_mask(cam_rois, img_shape, strides).reshape(bc, n_p)
+    off = row_offsets(offset, vis.sum(1))
     slot = torch.cumsum(vis.long(), 1) - 1
-    slot = torch.where(vis & (slot < cap), slot, cap)
+    slot = torch.where(vis & (slot + off < cap), slot, cap)
     rois = cam_rois.new_full((bc, cap + 1, 4), -1e6).scatter_(
         1, slot[..., None].expand(-1, -1, 4), cam_rois.reshape(bc, n_p, 4))
     prop = torch.arange(n_p, device=slot.device).expand(bc, n_p)
@@ -150,27 +166,30 @@ def compact_pairs(cam_rois: torch.Tensor, img_shape, strides, cap: int):
 def pooled_img_roi(img_feats: Sequence[torch.Tensor], cam_rois: torch.Tensor,
                    strides: Sequence[int], res: int, cap: int = 0,
                    patch: int = 0, patch_fallback: int = -1,
-                   xpatch: int = 0, xpatch_fallback: int = -1
-                   ) -> torch.Tensor:
+                   xpatch: int = 0, xpatch_fallback: int = -1,
+                   offset: Offset = None) -> torch.Tensor:
     """Camera-summed multi-level RoIAlign.  img_feats: L maps (B*n_cam,
     H_l, W_l, C); cam_rois (B, n_cam, n_p, 4) -> (B, n_p, res, res, C).
 
     cap 0: every (camera, proposal) pair.  cap > 0: the pairs of
     compact_pairs, whose unused slots pool to zeros, added back to their
     proposals.  patch / xpatch and their fallbacks: multilevel_roi_align's
-    capacity rules, whose slots count per (sample, camera)."""
+    capacity rules, whose slots count per (sample, camera).  `offset`: a
+    callable (ProposalBlock.offsets) that turns each rule's per-row
+    counts into the counts ahead of these proposals, or None."""
     b, n_cam, n_p, _ = cam_rois.shape
     bc = b * n_cam
     c = img_feats[0].shape[-1]
     rules = dict(out_size=res, patch=patch, patch_fallback=patch_fallback,
-                 xpatch=xpatch, xpatch_fallback=xpatch_fallback)
+                 xpatch=xpatch, xpatch_fallback=xpatch_fallback,
+                 offset=offset)
     if not cap:
         pooled = multilevel_roi_align(img_feats, cam_rois.reshape(bc, n_p, 4),
                                       strides, **rules)
         return pooled.reshape(b, n_cam, n_p, res, res, c).sum(1)
     img_shape = (img_feats[0].shape[1] * strides[0],
                  img_feats[0].shape[2] * strides[0])
-    rois, src = compact_pairs(cam_rois, img_shape, strides, cap)
+    rois, src = compact_pairs(cam_rois, img_shape, strides, cap, offset)
     pooled = multilevel_roi_align(img_feats, rois, strides, **rules)
     b_idx = torch.arange(b, device=src.device).repeat_interleave(n_cam)
     flat_prop = torch.where(src < n_p, b_idx[:, None] * n_p + src, b * n_p)
@@ -191,10 +210,25 @@ def torch_nearest_resize(x: torch.Tensor, hw) -> torch.Tensor:
         ..., torch.as_tensor(ix, device=x.device)]
 
 
+class ProposalBlock(NamedTuple):
+    """A model rank's block of the proposals: the sharding mesh, the
+    block's first proposal and the whole count."""
+    mesh: pmesh.Mesh
+    start: int
+    n: int
+
+    def offsets(self, counts: torch.Tensor) -> torch.Tensor:
+        """The capacity rules' per-row counts of the lower ranks' blocks."""
+        return pmesh.proposal_offsets(counts, self.mesh)
+
+
 class MultiHeadAttention(nn.Module):
     """Self-attention as flax's MultiHeadDotProductAttention computes it:
     q, k, v projections with bias, q scaled by 1/sqrt(head_dim), softmax
-    over keys, dropout on the weights in train mode, output projection."""
+    over keys, dropout on the weights in train mode, output projection.
+    On a block of the proposals (`block`) the queries are the block's and
+    the keys and values every rank's, gathered over the model group; the
+    weights' dropout mask is drawn whole and cut to the block's rows."""
 
     def __init__(self, c: int, num_heads: int):
         super().__init__()
@@ -205,7 +239,8 @@ class MultiHeadAttention(nn.Module):
         self.out_proj = Linear(c, c)
 
     def forward(self, x: torch.Tensor, rate: float = 0.0,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                block: Optional[ProposalBlock] = None) -> torch.Tensor:
         b, n, c = x.shape
         h = self.num_heads
         dh = c // h
@@ -213,10 +248,18 @@ class MultiHeadAttention(nn.Module):
         scale = math.sqrt(dh) if x.dtype == torch.float32 else \
             round_to_bf16(math.sqrt(dh))
         q = self.q_proj(x).view(b, n, h, dh).transpose(1, 2) / scale
-        k = self.k_proj(x).view(b, n, h, dh).transpose(1, 2)
-        v = self.v_proj(x).view(b, n, h, dh).transpose(1, 2)
+        k, v = self.k_proj(x), self.v_proj(x)
+        n_k, rows = n, None
+        if block is not None:
+            # one gather for both; its backward sums the keys' and values'
+            # gradients over the model group
+            k, v = pmesh.gather_proposal_axis(
+                torch.cat([k, v], -1), 1, "sum", block.mesh).split(c, -1)
+            n_k, rows = block.n, (2, block.start, n)
+        k = k.reshape(b, n_k, h, dh).transpose(1, 2)
+        v = v.reshape(b, n_k, h, dh).transpose(1, 2)
         att = softmax(q @ k.transpose(-1, -2), -1)
-        att = dropout(att, rate, generator, (1, 1, n, n))
+        att = dropout(att, rate, generator, (1, 1, n_k, n_k), rows)
         out = (att @ v).transpose(1, 2).reshape(b, n, c)
         return self.out_proj(out)
 
@@ -309,35 +352,45 @@ class SingleSRFDetHead(nn.Module):
                 bboxes: torch.Tensor, prop_feats: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 img_feats: Optional[Sequence[torch.Tensor]] = None,
-                lidar2img: Optional[torch.Tensor] = None):
+                lidar2img: Optional[torch.Tensor] = None,
+                block: Optional[ProposalBlock] = None):
         """point_feats: (B, H, W, C) maps; bboxes (B, n_p, code) with
         normalized centers; prop_feats (B, n_p, C); generator: dropout's
         masks in train mode; img_feats: (B*n_cam, H, W, C_img) maps with
-        lidar2img (B, n_cam, 4, 4), or None (the LiDAR path alone).
-        Returns (logits, refined boxes with normalized centers, object
-        features)."""
+        lidar2img (B, n_cam, 4, 4), or None (the LiDAR path alone);
+        block: the ProposalBlock that bboxes and prop_feats hold, or None
+        (every proposal).  Returns (logits, refined boxes with normalized
+        centers, object features) of these proposals."""
         rate = self.dropout if self.training else 0.0
-
-        def drop(x):
-            return dropout(x, rate, generator)
-
         bs, n_p = bboxes.shape[:2]
         c = prop_feats.shape[-1]
+        offset = None if block is None else block.offsets
+
+        def drop(x):
+            if block is None or rate == 0.0:
+                return dropout(x, rate, generator)
+            # the whole (B, n, ...) mask, cut to the block
+            xb = x.reshape(bs, n_p, -1)
+            return dropout(xb, rate, generator,
+                           (bs, block.n, xb.shape[-1]),
+                           (1, block.start, n_p)).reshape(x.shape)
+
         boxes_abs = denormalize_centers(bboxes, self.pc_range)
         rois = lidar_rois_from_boxes(boxes_abs, self.pc_range,
                                      self.voxel_size)
         roi = multilevel_roi_align(point_feats, rois, self.lidar_strides,
                                    out_size=self.res, patch=self.roi_patch,
-                                   patch_fallback=self.roi_patch_fallback)
+                                   patch_fallback=self.roi_patch_fallback,
+                                   offset=offset)
         if img_feats is not None:
             img_roi = pooled_img_roi(
                 img_feats, img_rois_from_boxes(boxes_abs, lidar2img),
-                self.img_strides, self.res, **self.img_rules)
+                self.img_strides, self.res, offset=offset, **self.img_rules)
             roi = self.output_fused_proj(torch.cat([img_roi, roi], -1))
         roi = roi.reshape(bs * n_p, self.res * self.res, c)
 
         x = self.norm_attn(prop_feats + drop(
-            self.self_attn(prop_feats, rate, generator)))
+            self.self_attn(prop_feats, rate, generator, block)))
         flat = x.reshape(bs * n_p, c)
         obj = self.norm_inst(flat + drop(self.inst_interact(flat, roi)))
         obj = self.norm_ffn(obj + drop(self.ffn2(drop(F.relu(
@@ -492,7 +545,10 @@ class SRFDetHead(nn.Module):
         (L, B, n_p, #cls) and pred_boxes (L, B, n_p, code) with absolute
         centers; every iteration's outputs keep their graph, and only the
         boxes carried into the next iteration are detached (JAX:
-        stop_gradient on the scan carry)."""
+        stop_gradient on the scan carry).  Inside proposal_sharding, when
+        the model axis divides n_p, the iterations run on this rank's
+        block and the outputs are gathered over the model group (every
+        model rank returns the whole set)."""
         nhwc = [f.permute(0, 2, 3, 1).contiguous() for f in point_feats]
         if self.lidar_encoder is not None:
             # JAX head.py:519-525: the encoded levels feed the DPG too
@@ -503,9 +559,21 @@ class SRFDetHead(nn.Module):
             img_maps = self.image_maps(img_feats)
             img_nhwc = [f.permute(0, 2, 3, 1).contiguous() for f in img_maps]
         boxes, prop = self.init_proposals(point_feats, img_maps)
+        block = None
+        n_p = boxes.shape[1]
+        if pmesh.shards(n_p):
+            sharding = pmesh.sharding()
+            block = ProposalBlock(sharding, sharding.model_index * n_p //
+                                  sharding.n_model, n_p)
+            # JAX head.py:589-590; the slice's backward hands the DPG this
+            # block's rows of the gradient
+            boxes = pmesh.shard_proposal_axis(boxes)
+            prop = pmesh.shard_proposal_axis(prop)
+        # the step's grad sum reads this decision (all_reduce_grads)
+        pmesh.mark_cut(block is not None)
         logits_all, boxes_all = [], []
         for head in self.heads:
-            args = (nhwc, boxes, prop, generator, img_nhwc, lidar2img)
+            args = (nhwc, boxes, prop, generator, img_nhwc, lidar2img, block)
             if self.remat and torch.is_grad_enabled():
                 logits, pred, prop = _checkpointed(head, generator, args)
             else:
@@ -515,8 +583,15 @@ class SRFDetHead(nn.Module):
             boxes_all.append(pred)
         if not self.deep_supervision:
             logits_all, boxes_all = logits_all[-1:], boxes_all[-1:]
-        return (torch.stack(logits_all),
-                denormalize_centers(torch.stack(boxes_all), self.pc_range))
+        logits = torch.stack(logits_all)
+        boxes = denormalize_centers(torch.stack(boxes_all), self.pc_range)
+        if block is not None:
+            # every model rank computes the same losses of the whole set:
+            # the backward keeps this block's rows of their cotangent
+            logits = pmesh.gather_proposal_axis(logits, 2, "slice",
+                                                block.mesh)
+            boxes = pmesh.gather_proposal_axis(boxes, 2, "slice", block.mesh)
+        return logits, boxes
 
 
 def _checkpointed(head: nn.Module, generator: Optional[torch.Generator],
@@ -527,7 +602,8 @@ def _checkpointed(head: nn.Module, generator: Optional[torch.Generator],
     drew them from, and leaves the generator where it found it, so the
     masks, and the grads, equal the first run's (checkpoint's own RNG
     stashing covers only the default generators, which the head never
-    draws from)."""
+    draws from).  On a proposal block the recomputation issues the
+    block's gathers again, in the same order on every model rank."""
     if generator is None:
         return torch.utils.checkpoint.checkpoint(
             head, *args, use_reentrant=False, preserve_rng_state=False)

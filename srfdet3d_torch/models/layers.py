@@ -7,7 +7,9 @@ encoder's masked BN (padding rows excluded) stores the unbiased variance,
 the dense convs' flax BatchNorm the biased one.
 
 Under a process group (`parallel.mesh`) the train-mode statistics span
-every rank's batch, with their gradient, as the JAX package's shard_map
+every rank's batch of the data group (the whole world without a 2-D
+mesh; the model ranks of one data index hold the same rows), with their
+gradient, as the JAX package's shard_map
 step computes them (`psum_if_sync` in MaskedBatchNorm, flax's
 `axis_name` in ConvBNReLU) and the reference's SyncBN: MaskedBatchNorm
 sums the count and the sums in one collective, then the squares centred on
@@ -28,7 +30,7 @@ each layer is its torch counterpart, unchanged.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -94,10 +96,14 @@ def softmax(x: torch.Tensor, dim: int) -> torch.Tensor:
 
 def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator],
-            shape: Optional[Sequence[int]] = None) -> torch.Tensor:
+            shape: Optional[Sequence[int]] = None,
+            block: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """flax's nn.Dropout: keep with probability 1 - rate, scale kept values
     by 1 / (1 - rate).  `shape` draws a mask that broadcasts over x.  The
-    draws are float32 whatever x's dtype; a bfloat16 x is scaled in it."""
+    draws are float32 whatever x's dtype; a bfloat16 x is scaled in it.
+    `block` (axis, start, length): the mask is drawn whole at `shape` and
+    narrowed to that block of the axis (a model rank's proposals), so the
+    generator advances as for the whole tensor."""
     if rate == 0.0:
         return x
     if generator is None:
@@ -105,6 +111,8 @@ def dropout(x: torch.Tensor, rate: float,
     keep_prob = 1.0 - rate
     u = torch.rand(tuple(shape or x.shape), generator=generator,
                    device=x.device)
+    if block is not None:
+        u = u.narrow(*block)
     return torch.where(u < keep_prob, x / keep_prob, 0.0)
 
 
@@ -210,8 +218,8 @@ class _SyncedBatchNorm2d(torch.autograd.Function):
         var_l, mean_l = torch.var_mean(x.float(), dim=(0, 2, 3),
                                        unbiased=False)
         stats = torch.stack([mean_l, var_l + mean_l * mean_l])
-        dist.all_reduce(stats)
-        mean, mean2 = stats / mesh.world()
+        dist.all_reduce(stats, group=mesh.data_group())
+        mean, mean2 = stats / mesh.data_size()
         var = (mean2 - mean * mean).clamp_min(0.0)
         invstd = torch.rsqrt(var + eps)
         ctx.save_for_backward(x, weight, mean, invstd)
@@ -227,8 +235,8 @@ class _SyncedBatchNorm2d(torch.autograd.Function):
         xhat = (x.float() - mean.view(shape)) * invstd.view(shape)
         local = torch.stack([dy.sum((0, 2, 3)), (dy * xhat).sum((0, 2, 3))])
         sums = local.clone()
-        dist.all_reduce(sums)
-        n = x.numel() // x.shape[1] * mesh.world()
+        dist.all_reduce(sums, group=mesh.data_group())
+        n = x.numel() // x.shape[1] * mesh.data_size()
         dx = (weight * invstd).view(shape) * (
             dy - (sums[0] / n).view(shape) - xhat * (sums[1] / n).view(shape))
         return dx.to(x.dtype), local[1], local[0], None

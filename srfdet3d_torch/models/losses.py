@@ -7,7 +7,8 @@ the host) or "auction" (on the device), each run per layer.
 The loss normalizer spans every replica, as the JAX package's
 `psum_if_sync` makes it (reference reduce_mean and sync_cls_avg_factor,
 srfdet_head.py:873-884): under a process group (`parallel.mesh`) each
-layer's positive count `num_inst` is summed over the ranks (no gradient),
+layer's positive count `num_inst` is summed over the data group (no
+gradient; the model ranks of one data shard hold the same outputs),
 and each rank's losses are its LOCAL focal and L1 sums over that global
 count.  The ranks' losses then sum to the global batch's, and so do their
 gradients once the step sums them (`all_reduce_grads`); the train step

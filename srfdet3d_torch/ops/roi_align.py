@@ -17,6 +17,12 @@ image (each row of `rois`) take the first `patch_fallback` /
 exact value, and the misfits after those slots pool to exact zeros.  The
 values themselves are the pairs route's: the JAX package's window
 gathers compute the same bilinear samples.  patch wins over xpatch.
+`offset` starts each row's slots after that many misfits: a model rank
+holding a block of the proposals (`parallel.mesh.proposal_sharding`)
+passes the misfits of the lower ranks' blocks (a callable that takes the
+block's per-row misfit counts and returns the offsets), so that every
+RoI keeps the slot it has in the whole run; with fallback -1 no block
+drops a misfit, whatever its offset.
 
 The backward (`CornerPool`) gives the feature table its cotangent through
 the roi_scatter kernel (K5, ops/roi_scatter.py) and the corner weights
@@ -32,9 +38,19 @@ takes the JAX package's route for a non-float32 cotangent
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
+
+# takes the rows' (rows,) counts, returns each row's slot offset (rows,)
+Offset = Optional[Callable[[torch.Tensor], torch.Tensor]]
+
+
+def row_offsets(offset: Offset, counts: torch.Tensor):
+    """`offset(counts)` as a (rows, 1) tensor that broadcasts over a row's
+    slots; 0 for no offset."""
+    return 0 if offset is None else offset(counts).reshape(-1, 1)
+
 
 from .roi_scatter import (expand_axes, roi_scatter, roi_scatter_plain,
                           sample_grads)
@@ -176,12 +192,14 @@ def corner_samples(shapes, rois: torch.Tensor, strides: Sequence[int],
                    out_size: int = 7, sampling_ratio: int = 2,
                    finest_scale: float = 56.0, patch: int = 0,
                    patch_fallback: int = -1, xpatch: int = 0,
-                   xpatch_fallback: int = -1) -> Corners:
+                   xpatch_fallback: int = -1, offset: Offset = None
+                   ) -> Corners:
     """The bilinear corners of every sample of every RoI.  shapes: the
     levels' (H, W); rois (B, R, 4).  Returns Corners over the B*R RoIs:
     idx (B*R, 4, S, S) rows of the (B * rows, C) table the levels flatten
     into, their weights wgt (same shape), drop (B*R,), the misfits past the
-    fallback slots of their row b, and the per-axis corners."""
+    fallback slots of their row b (after `offset` misfits of that row,
+    row_offsets), and the per-axis corners."""
     b, r, _ = rois.shape
     rows = sum(h * w for h, w in shapes)
     flat = rois.reshape(b * r, 4)
@@ -201,10 +219,11 @@ def corner_samples(shapes, rois: torch.Tensor, strides: Sequence[int],
         fits = patch_fits(shapes, flat, strides, patch or xpatch, out_size,
                           sampling_ratio, finest_scale, x_only=not patch)
         fallback = patch_fallback if patch else xpatch_fallback
-        cap = r if fallback < 0 else fallback
-        mis = ~fits.reshape(b, r)
-        slot = torch.cumsum(mis.long(), 1) - 1
-        drop = (mis & (slot >= cap)).reshape(-1)
+        if fallback >= 0:       # -1: every misfit keeps its value
+            mis = ~fits.reshape(b, r)
+            slot = torch.cumsum(mis.long(), 1) - 1 + row_offsets(
+                offset, mis.sum(1))
+            drop = (mis & (slot >= fallback)).reshape(-1)
     return Corners(idx, wgt, drop, cells, cw.detach(), level)
 
 
@@ -212,10 +231,11 @@ def multilevel_roi_align(feats: Sequence[torch.Tensor], rois: torch.Tensor,
                          strides: Sequence[int], out_size: int = 7,
                          sampling_ratio: int = 2, finest_scale: float = 56.0,
                          patch: int = 0, patch_fallback: int = -1,
-                         xpatch: int = 0, xpatch_fallback: int = -1
-                         ) -> torch.Tensor:
+                         xpatch: int = 0, xpatch_fallback: int = -1,
+                         offset: Offset = None) -> torch.Tensor:
     """Batched RoIAlign.  feats: L maps (B, H_l, W_l, C); rois (B, R, 4)
-    [x1, y1, x2, y2] in the stride-1 frame -> (B, R, out, out, C)."""
+    [x1, y1, x2, y2] in the stride-1 frame -> (B, R, out, out, C).
+    `offset`: corner_samples'."""
     b, r, _ = rois.shape
     c = feats[0].shape[-1]
     shapes = [(f.shape[1], f.shape[2]) for f in feats]
@@ -223,7 +243,7 @@ def multilevel_roi_align(feats: Sequence[torch.Tensor], rois: torch.Tensor,
                       ).reshape(-1, c)
     cs = corner_samples(shapes, rois, strides, out_size, sampling_ratio,
                         finest_scale, patch, patch_fallback, xpatch,
-                        xpatch_fallback)
+                        xpatch_fallback, offset)
     pooled = CornerPool.apply(table, cs.idx, cs.wgt, cs.drop, cs.cells,
                               cs.cw, cs.level, out_size, sampling_ratio)
     return pooled.reshape(b, r, out_size, out_size, c)

@@ -32,6 +32,13 @@ Every rank then runs the same AdamW update on the same grads, so the
 ranks' parameters stay bit-identical.  The step's generator folds in the
 rank (`step_generator`), so dropout and GridMask masks differ across
 ranks, as the JAX step folds in the replica index.
+
+On a 2-D mesh (`mesh.make_mesh_2d`) "the ranks" above are the data
+group, and the generator folds in the data index: the model ranks of one
+data shard draw the same masks.  Inside `mesh.proposal_sharding` the head
+runs its block of proposals on each model rank, and the grads are summed
+over the whole world (the `parallel.mesh` docstring's gradient argument);
+when the proposals do not divide by the model axis, over the data group.
 """
 
 from __future__ import annotations
@@ -196,9 +203,10 @@ def step_generator(model, seed: int, step: int) -> torch.Generator:
     """The generator of train step `step` of a run seeded `seed`, on the
     model's device: seeded from (seed, step) alone, as JAX folds the host
     step into its base key, so a resumed run draws what an uninterrupted
-    one draws; under a process group from (seed, step, rank), as the JAX
-    step folds in the replica index (`trainer.py:367`)."""
-    key = (seed, step, mesh.rank()) if mesh.active() else (seed, step)
+    one draws; under a process group from (seed, step, data index), as
+    the JAX step folds in the replica index (`trainer.py:367`): the
+    model ranks of one data shard draw the same masks."""
+    key = (seed, step, mesh.data_index()) if mesh.active() else (seed, step)
     words = np.random.SeedSequence(key).generate_state(2, np.uint32)
     g = torch.Generator(device=model.device)
     g.manual_seed((int(words[0]) << 31) | (int(words[1]) >> 1))
