@@ -1311,39 +1311,48 @@ COUNTED = ("gather_conv", "eqmatch", "subm_bwd", "strided_bwd",
            "strided_bwd_bf16")
 
 
-def reset_counts():
-    from srfdet3d_torch.ops import (eqmatch, gather_conv, gather_conv_bwd,
-                                    roi_scatter, rulebook_lookup)
-    gather_conv.launches = 0
-    gather_conv.bf16_launches = 0
-    eqmatch.launches = 0
-    gather_conv_bwd.subm_launches = 0
-    gather_conv_bwd.strided_launches = 0
-    gather_conv_bwd.strided_bf16_launches = 0
-    roi_scatter.launches = 0
-    rulebook_lookup.launches = 0
-    eqmatch.map_builds = 0
-    rulebook_lookup.builds = 0
+# the system's counters (srfdet3d_torch.utils.profiling) of each kernel in
+# COUNTED order, and of the builds counted apart from the launches: K2's
+# plan maps and K6's hash tables
+COUNTERS = ("gather_conv.launches", "eqmatch.launches",
+            "gather_conv_bwd.subm_launches",
+            "gather_conv_bwd.strided_launches", "roi_scatter.launches",
+            "rulebook_lookup.launches", "gather_conv.bf16_launches",
+            "gather_conv_bwd.strided_bf16_launches")
+BUILD_COUNTERS = {"plan_map": "eqmatch.map_builds",
+                  "key_hash": "rulebook_lookup.builds"}
+HUNGARIAN = ("copy_ms", "host_ms", "solves", "auctions", "rounds",
+             "exhausted")
+
+
+def reset_counts(*prefixes):
+    """Zero the launch and build counters (or the counters whose names
+    start with one of `prefixes`)."""
+    from srfdet3d_torch.utils import profiling
+    profiling.reset(*(prefixes or COUNTERS + tuple(BUILD_COUNTERS.values())))
 
 
 def read_builds():
     """Preparations since reset_counts, counted apart from the launches:
     K2's plan maps and K6's hash tables."""
-    from srfdet3d_torch.ops import eqmatch, rulebook_lookup
-    return dict(plan_map=eqmatch.map_builds, key_hash=rulebook_lookup.builds)
+    from srfdet3d_torch.utils import profiling
+    counts = profiling.snapshot()
+    return {k: counts.get(name, 0) for k, name in BUILD_COUNTERS.items()}
 
 
 def read_counts():
     """Launches since reset_counts of the kernels in COUNTED order."""
-    from srfdet3d_torch.ops import (eqmatch, gather_conv, gather_conv_bwd,
-                                    roi_scatter, rulebook_lookup)
-    return dict(zip(COUNTED, (gather_conv.launches, eqmatch.launches,
-                              gather_conv_bwd.subm_launches,
-                              gather_conv_bwd.strided_launches,
-                              roi_scatter.launches,
-                              rulebook_lookup.launches,
-                              gather_conv.bf16_launches,
-                              gather_conv_bwd.strided_bf16_launches)))
+    from srfdet3d_torch.utils import profiling
+    counts = profiling.snapshot()
+    return {k: counts.get(name, 0) for k, name in zip(COUNTED, COUNTERS)}
+
+
+def hungarian_stats():
+    """The assignment's counters since reset_counts("hungarian."): scipy
+    solves and their copy and host ms, auctions, rounds, budgets spent."""
+    from srfdet3d_torch.utils import profiling
+    counts = profiling.snapshot()
+    return {k: counts.get("hungarian." + k, 0) for k in HUNGARIAN}
 
 
 def all_finite(out) -> bool:
@@ -4785,7 +4794,6 @@ def options_encoder(smi):
     solves a step and of the one device-to-host copy of every layer's and
     sample's costs a step (which waits for the forward queued before
     it)."""
-    from srfdet3d_torch.assign import hungarian
     t0 = time.perf_counter()
     cfg = option_config("srfdet_voxel_nusc_L", "head.with_lidar_encoder=true")
     none = dict.fromkeys(COUNTED, 0)
@@ -4797,12 +4805,12 @@ def options_encoder(smi):
                         "loss.assigner=hungarian")
     # scipy's first import (~2 s, inside the first solve) is not a solve
     import scipy.optimize  # noqa: F401
-    hungarian.reset_stats()
+    reset_counts("hungarian.")
     per_step = train_phase("options_encoder_train", cfg, smi, warmup=2,
                            steps=5)
     check_launches("options_encoder_train", per_step,
                    FLAGSHIP_STEP_LAUNCHES, 1)
-    st = dict(hungarian.stats)
+    st = hungarian_stats()
     # srfdet_losses calls: each solves every layer's and sample's problem
     calls = st["solves"] / (cfg.head.num_heads * 2)
     free_cache()
@@ -4890,16 +4898,15 @@ def options_auction_nodpg(smi):
     the head's (what remat recomputes) within 1e-5, the LiDAR branch's
     within 1e-5 or twice what the same step run twice without remat moves
     them (K5's float atomics feed their backward), and both peaks."""
-    from srfdet3d_torch.assign import hungarian
     t0 = time.perf_counter()
     cfg = option_config("srfdet_voxel_nusc_L", "head.with_dpg=false",
                         "loss.assigner=auction", "head.remat=true")
-    hungarian.reset_stats()
+    reset_counts("hungarian.")
     per_step = train_phase("options_auction_nodpg_train", cfg, smi,
                            warmup=1, steps=3)
     check_launches("options_auction_nodpg_train", per_step,
                    FLAGSHIP_STEP_LAUNCHES, 1)
-    st = dict(hungarian.stats)
+    st = hungarian_stats()
     free_cache()
     with deterministic_cudnn():
         again, remat, peaks = remat_grads(cfg, train_batch(cfg, 2, seed=1),

@@ -18,10 +18,12 @@ The cost is FocalLossCost + BBox3DL1Cost over normalize_bbox.  Two solvers:
     A greedy pass in GT order then gives every valid GT still unassigned
     its best free pred.
 
-`stats` counts, since the caller last cleared it, the scipy solves, the
-milliseconds of their copy to the host (which waits for the work queued
-before it) and of the solves themselves, and the auctions, their rounds
-and the budgets they spent.
+Counters (`utils.profiling`): `hungarian.solves`, the scipy solves;
+`hungarian.copy_ms` and `hungarian.host_ms`, the milliseconds of their
+copy to the host (which waits for the work queued before it) and of the
+solves themselves; `hungarian.auctions`, `hungarian.rounds` and
+`hungarian.exhausted`, the auctions, their rounds and the budgets they
+spent; `host_sync`, each read of a device value on the host.
 """
 
 from __future__ import annotations
@@ -33,17 +35,10 @@ import torch
 
 from ..geometry.boxes import normalize_bbox
 from ..ops.focal_loss import focal_loss_cost
+from ..utils import profiling
 
 AUCTION_CHUNK = 16
 _BIG_NEG = -1e9
-
-stats = dict(copy_ms=0.0, host_ms=0.0, solves=0, auctions=0, rounds=0,
-             exhausted=0)
-
-
-def reset_stats() -> None:
-    stats.update(copy_ms=0.0, host_ms=0.0, solves=0, auctions=0, rounds=0,
-                 exhausted=0)
 
 
 def _lsa_host(cost: np.ndarray, n_valid: int) -> np.ndarray:
@@ -112,13 +107,15 @@ def auction_assign(cost: torch.Tensor, gt_mask: torch.Tensor,
             prices = torch.where(won, torch.maximum(prices, best_bid),
                                  prices)
         done += min(AUCTION_CHUNK, max_rounds - done)
+        profiling.count("host_sync")
         if not bool((mask & ~_assigned(owner, g)).any()):
             break
-    stats["auctions"] += 1
-    stats["rounds"] += int(rounds)
+    profiling.count("hungarian.auctions")
+    profiling.count("hungarian.rounds", int(rounds))
     left = mask & ~_assigned(owner, g)
+    profiling.count("host_sync", 2)
     if bool(left.any()):
-        stats["exhausted"] += 1
+        profiling.count("hungarian.exhausted")
         # greedy completion: each valid GT still unassigned, in GT order,
         # takes its best free pred
         rows = torch.arange(n, device=dev)
@@ -161,9 +158,11 @@ def _scipy_assign(cost: torch.Tensor, gt_mask: torch.Tensor
     host = both[:, :-1].reshape(-1, n_p, g)
     out = np.stack([_lsa_host(c, int(v)) for c, v in zip(host, both[:, -1])])
     t2 = time.perf_counter()
-    stats["copy_ms"] += (t1 - t0) * 1e3
-    stats["host_ms"] += (t2 - t1) * 1e3
-    stats["solves"] += len(host)
+    profiling.count("hungarian.copy_ms", (t1 - t0) * 1e3)
+    profiling.count("hungarian.host_ms", (t2 - t1) * 1e3)
+    profiling.count("hungarian.solves", len(host))
+    # the copy to the host, and the answer's copy back from pageable memory
+    profiling.count("host_sync", 2)
     return torch.from_numpy(out).to(cost.device).reshape(
         cost.shape[:-1])
 

@@ -31,6 +31,7 @@ from ..geometry.boxes import (boxes3d_to_corners3d, denormalize_bbox,
                               normalize_bbox)
 from ..geometry.iou import iou_3d
 from ..ops.focal_loss import focal_loss_cost
+from ..utils import profiling
 
 _PAD_GT_COST = 1e8      # cost for padded GT columns (never matched)
 _INVALID_COST = 1e4     # reference's +10000 for preds failing the gate
@@ -113,6 +114,9 @@ def ota_assign_batch(pred_boxes: torch.Tensor, pred_logits: torch.Tensor,
     # index, truncated toward zero, at least 1
     k_top = min(cfg.candidate_topk, n_p)
     topk_ious = torch.topk(ious.transpose(-1, -2), k_top, dim=-1).values
+    if not (isinstance(head_idx, torch.Tensor) and head_idx.device == dev):
+        # on a card the copy from host memory waits for the stream
+        profiling.count("host_sync")
     head = torch.as_tensor(head_idx, dtype=torch.float32, device=dev)
     head = head.reshape(head.shape + (1,) * (topk_ious.dim() - 1 -
                                              head.dim()))
@@ -141,6 +145,7 @@ def ota_assign_batch(pred_boxes: torch.Tensor, pred_logits: torch.Tensor,
     bump = torch.zeros(cost.shape[:-1], device=dev)       # (..., n_p)
     for _ in range(g + n_p):
         un = gt_mask & ~matching.any(-2)                  # (..., G)
+        profiling.count("host_sync")
         if not bool(un.any()):
             break
         bump = bump + _MATCHED_BUMP * matching.any(-1).float()

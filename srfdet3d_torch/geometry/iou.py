@@ -17,6 +17,8 @@ import functools
 import torch
 from torch._higher_order_ops.while_loop import while_loop_op
 
+from ..utils import profiling
+
 _EPS = 1e-8
 
 
@@ -170,6 +172,10 @@ def rotated_nms_bev(boxes_bev: torch.Tensor, scores: torch.Tensor,
     if not (torch.compiler.is_exporting() or
             torch.compiler.is_compiling()):
         last_nms_sweeps = int(sweeps)
+        # the loop's predicate, read after each sweep and twice before the
+        # first (eager while_loop tests it, then loops on it), and the
+        # count itself
+        profiling.count("host_sync", last_nms_sweeps + 3)
     inv = torch.argsort(order, dim=-1)
     return torch.gather(keep, -1, inv)
 

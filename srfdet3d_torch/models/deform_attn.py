@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils import profiling
 from .layers import BatchNorm2d, LayerNorm, Linear, dropout, softmax
 
 
@@ -115,6 +116,8 @@ class MSDeformAttention(nn.Module):
             value = value.permute(0, 3, 4, 1, 2).reshape(b * nh, hd, h, w)
             loc = (reference_points[:, :, None, None, :] +
                    off[:, :, :, li] / off.new_tensor([w, h]))
+            # on a card the copy from host memory waits for the stream
+            profiling.count("host_sync")
             loc = loc.permute(0, 2, 1, 3, 4).reshape(b * nh, q, npt, 2)
             if value.dtype == torch.float32:
                 taps = F.grid_sample(value, 2.0 * loc - 1.0, mode="bilinear",

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..utils import profiling
 from .layers import Conv2d
 
 
@@ -46,6 +47,8 @@ def modulated_deform_conv(x: torch.Tensor, weight: torch.Tensor,
                              device=dev)
     tap_dx = torch.as_tensor(np.tile(np.arange(kernel), kernel), dtype=dt,
                              device=dev)
+    # on a card each copy from host memory waits for the stream
+    profiling.count("host_sync", 2)
     py = base_y[None, :, None, None] + tap_dy + offset[..., 0]
     px = base_x[None, None, :, None] + tap_dx + offset[..., 1]
 

@@ -51,6 +51,7 @@ from torch import nn
 from .. import resolve_device, set_backend_flags
 from ..config import SRFDetConfig
 from ..ops.voxelize import VoxelizedPoints, voxelize_points_batched
+from ..utils import profiling
 from .deform_conv import ModulatedDeformConv
 from .fpn import FPN
 from .grid_mask import grid_mask
@@ -66,6 +67,15 @@ from .vovnet import VoVNet
 # the LiDAR branch that cfg.optim.freeze_lidar freezes
 LIDAR_MODULES = ("pts_voxel_encoder", "pts_middle_encoder", "pts_backbone",
                  "pts_neck")     # a pillar model has no pts_middle_encoder
+
+
+def to_device(value, device: torch.device) -> torch.Tensor:
+    """`value` (a tensor or an array) as a tensor on `device`.  On a card
+    a copy from host memory waits for the stream (counter `host_sync`)."""
+    t = torch.as_tensor(value)
+    if t.device.type != device.type:
+        profiling.count("host_sync")
+    return t.to(device)
 
 
 def _flatten_voxelization(vox: VoxelizedPoints, v_cap: int
@@ -297,10 +307,11 @@ class SRFDet(nn.Module):
 
     def _inputs(self, batch: Dict[str, torch.Tensor]):
         dev = self.device
-        points = torch.as_tensor(batch["points"], device=dev).float()
-        mask = torch.as_tensor(batch["points_mask"], device=dev).bool()
+        points = to_device(batch["points"], dev).float()
+        mask = to_device(batch["points_mask"], dev).bool()
         return points, mask
 
+    @profiling.span("voxelize")
     def voxel_features(self, points: torch.Tensor,
                        points_mask: torch.Tensor):
         """(B, P, D) points -> ((B, V_cap, F) voxel features, the
@@ -315,6 +326,7 @@ class SRFDet(nn.Module):
                                        b * v_cap)
         return feats.reshape(b, v_cap, -1), vox
 
+    @profiling.span("encoder")
     def middle(self, feats: torch.Tensor, vox: VoxelizedPoints
                ) -> torch.Tensor:
         """(B, V_cap, F) voxel features -> the (B, H, W, C') BEV map: the
@@ -332,16 +344,18 @@ class SRFDet(nn.Module):
         """(B, P, D) points -> the FPN's NCHW BEV maps."""
         feats, vox = self.voxel_features(points, points_mask)
         bev = self.middle(feats, vox)                   # (B, H, W, C')
-        stages = self.pts_backbone(bev.permute(0, 3, 1, 2).contiguous())
-        return self.pts_neck(stages)
+        with profiling.span("bev"):
+            stages = self.pts_backbone(bev.permute(0, 3, 1, 2).contiguous())
+            return self.pts_neck(stages)
 
     def image_tensor(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The batch's (B, n_cam, H, W, 3) images as one NCHW
         (B*n_cam, 3, H, W) tensor on the model's device."""
-        img = torch.as_tensor(batch["images"], device=self.device).float()
+        img = to_device(batch["images"], self.device).float()
         img = img.flatten(0, 1).permute(0, 3, 1, 2)
         return img.contiguous()
 
+    @profiling.span("img")
     def extract_img_features(self, images: torch.Tensor,
                              generator: Optional[torch.Generator] = None
                              ) -> Tuple[torch.Tensor, ...]:
@@ -371,19 +385,22 @@ class SRFDet(nn.Module):
             maps = tuple(f.detach() for f in maps)
         if not self.cfg.use_img or "images" not in batch:
             # an LC model given no images runs its LiDAR branch alone
-            return self.bbox_head(maps, generator)
+            with profiling.span("head"):
+                return self.bbox_head(maps, generator)
         img_feats = self.extract_img_features(self.image_tensor(batch),
                                               generator)
-        lidar2img = torch.as_tensor(batch["lidar2img"],
-                                    device=self.device).float()
-        return self.bbox_head(maps, generator, img_feats, lidar2img)
+        lidar2img = to_device(batch["lidar2img"], self.device).float()
+        with profiling.span("head"):
+            return self.bbox_head(maps, generator, img_feats, lidar2img)
 
     @torch.no_grad()
+    @profiling.span("predict")
     def predict(self, batch: Dict[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
         """Inference + decode (reference simple_test, srfdet.py:309-335)."""
         return self.decode(self(batch))
 
+    @profiling.span("decode")
     def decode(self, preds) -> Dict[str, torch.Tensor]:
         """The forward's (pred_logits, pred_boxes) -> the last layer's
         boxes after the config's test_cfg (score threshold, rotated NMS,

@@ -67,6 +67,7 @@ from ..geometry.boxes import boxes3d_to_corners3d, denormalize_bbox
 from ..geometry.iou import multiclass_nms_3d
 from ..ops.roi_align import Offset, multilevel_roi_align, row_offsets
 from ..parallel import mesh as pmesh
+from ..utils import profiling
 from .deform_attn import LidarBEVEncoder
 from .layers import (Conv2d, ConvBNReLU, LayerNorm, Linear, dropout,
                      softmax)
@@ -91,6 +92,8 @@ def denormalize_centers(boxes: torch.Tensor, pc_range) -> torch.Tensor:
     """[0, 1] centers -> absolute within pc_range (columns 0:3)."""
     lo = boxes.new_tensor(pc_range[:3])
     hi = boxes.new_tensor(pc_range[3:6])
+    # on a card each copy from host memory waits for the stream
+    profiling.count("host_sync", 2)
     return torch.cat([boxes[..., :3] * (hi - lo) + lo, boxes[..., 3:]], -1)
 
 
@@ -102,6 +105,7 @@ def lidar_rois_from_boxes(boxes_abs: torch.Tensor, pc_range, voxel_size
                                    yaw_as_sincos=True, log_size=True)
     lo = boxes_abs.new_tensor(pc_range[:2])
     vs = boxes_abs.new_tensor(voxel_size[:2])
+    profiling.count("host_sync", 2)
     xy = (corners[..., :2] - lo) / vs
     return torch.cat([xy.amin(-2), xy.amax(-2)], -1)
 
@@ -206,6 +210,7 @@ def torch_nearest_resize(x: torch.Tensor, hw) -> torch.Tensor:
     h, w = x.shape[-2:]
     iy = (np.arange(hw[0]) * (h / hw[0])).astype(np.int32)
     ix = (np.arange(hw[1]) * (w / hw[1])).astype(np.int32)
+    profiling.count("host_sync", 2)
     return x[:, :, torch.as_tensor(iy, device=x.device)][
         ..., torch.as_tensor(ix, device=x.device)]
 
@@ -378,15 +383,17 @@ class SingleSRFDetHead(nn.Module):
         boxes_abs = denormalize_centers(bboxes, self.pc_range)
         rois = lidar_rois_from_boxes(boxes_abs, self.pc_range,
                                      self.voxel_size)
-        roi = multilevel_roi_align(point_feats, rois, self.lidar_strides,
-                                   out_size=self.res, patch=self.roi_patch,
-                                   patch_fallback=self.roi_patch_fallback,
-                                   offset=offset)
-        if img_feats is not None:
-            img_roi = pooled_img_roi(
-                img_feats, img_rois_from_boxes(boxes_abs, lidar2img),
-                self.img_strides, self.res, offset=offset, **self.img_rules)
-            roi = self.output_fused_proj(torch.cat([img_roi, roi], -1))
+        with profiling.span("roi_align"):
+            roi = multilevel_roi_align(
+                point_feats, rois, self.lidar_strides, out_size=self.res,
+                patch=self.roi_patch, patch_fallback=self.roi_patch_fallback,
+                offset=offset)
+            if img_feats is not None:
+                img_roi = pooled_img_roi(
+                    img_feats, img_rois_from_boxes(boxes_abs, lidar2img),
+                    self.img_strides, self.res, offset=offset,
+                    **self.img_rules)
+                roi = self.output_fused_proj(torch.cat([img_roi, roi], -1))
         roi = roi.reshape(bs * n_p, self.res * self.res, c)
 
         x = self.norm_attn(prop_feats + drop(
@@ -416,6 +423,7 @@ class SingleSRFDetHead(nn.Module):
         new_sizes = b[..., 3:6] + d[..., 3:6].clamp_max(self.scale_clamp)
         lo = b.new_tensor(self.pc_range[:3])
         hi = b.new_tensor(self.pc_range[3:6])
+        profiling.count("host_sync", 2)
         ctr = ((ctr - lo) / (hi - lo)).clamp(0.0, 1.0)
         return torch.cat([ctr, new_sizes, d[..., 6:]], -1)
 
@@ -574,10 +582,11 @@ class SRFDetHead(nn.Module):
         logits_all, boxes_all = [], []
         for head in self.heads:
             args = (nhwc, boxes, prop, generator, img_nhwc, lidar2img, block)
-            if self.remat and torch.is_grad_enabled():
-                logits, pred, prop = _checkpointed(head, generator, args)
-            else:
-                logits, pred, prop = head(*args)
+            with profiling.span("refine"):
+                if self.remat and torch.is_grad_enabled():
+                    logits, pred, prop = _checkpointed(head, generator, args)
+                else:
+                    logits, pred, prop = head(*args)
             boxes = pred.detach()
             logits_all.append(logits)
             boxes_all.append(pred)
@@ -660,6 +669,7 @@ def decode_boxes(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
         out_v = F.pad(torch.ones(b, k_eff, dtype=torch.bool,
                                  device=raw.device), (0, pad))
     pcr = out_b.new_tensor(post_center_range)
+    profiling.count("host_sync")
     in_range = ((out_b[..., :3] >= pcr[:3]).all(-1) &
                 (out_b[..., :3] <= pcr[3:]).all(-1))
     return {"boxes": out_b, "scores": out_s, "labels": out_l,

@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel import mesh
+from ..utils import profiling
 
 
 def set_dtype(module: nn.Module, dtype: torch.dtype) -> None:
@@ -155,6 +156,8 @@ class MaskedBatchNorm(nn.Module):
         else:
             m = None
             count = torch.tensor(float(xf[..., 0].numel()), device=xf.device)
+            # on a card the copy from host memory waits for the stream
+            profiling.count("host_sync")
             total = xf.sum(red)
         stats = mesh.all_reduce_sum(torch.cat([count.reshape(1), total]))
         n = stats[0].clamp_min(1.0)

@@ -28,6 +28,7 @@ from ..config import LossConfig, OTAConfig
 from ..geometry.boxes import normalize_bbox
 from ..ops.focal_loss import sigmoid_focal_loss
 from ..parallel import mesh
+from ..utils import profiling
 
 
 def _layer_losses(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
@@ -51,6 +52,8 @@ def _layer_losses(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
     tgt_norm = normalize_bbox(tgt_boxes.float())[..., :code]
     cw = torch.tensor(cfg.code_weights, dtype=torch.float32,
                       device=pred_boxes.device)
+    # on a card the copy from host memory waits for the stream
+    profiling.count("host_sync")
     l1 = (pred_boxes[..., :code].float() - tgt_norm).abs() * cw
     # drop whole rows whose target has a non-finite element (reference
     # isnotnan, srfdet_head.py:1190), and non-finite elements of the rest

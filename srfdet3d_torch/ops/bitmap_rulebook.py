@@ -23,6 +23,7 @@ from typing import Tuple
 
 import torch
 
+from ..utils import profiling
 from .eqmatch import eqmatch_rulebook, mask_below, popcount64
 
 
@@ -98,6 +99,8 @@ def build_columns(coords: torch.Tensor, vmask: torch.Tensor,
     cstart[ghead] = torch.arange(b * v, device=dev)
     cmask = torch.zeros(n, dtype=torch.bool, device=dev)
     cmask[ghead] = True
+    # the scalar's copy from host memory waits for the stream on a card
+    profiling.count("host_sync")
     z = coords[..., 0].reshape(-1)
     # distinct voxels of a column have distinct z: the sum is an exact OR
     bits = torch.zeros(n, dtype=torch.int64, device=dev).index_add_(
@@ -248,6 +251,7 @@ def strided_downsample_bitmap(cs: ColumnSet, padding: Tuple[int, int, int],
             ok = ((cy <= yhi) & (cx <= xhi) & (cy >= 0) & (cx >= 0) &
                   (cy < oh) & (cx < ow) & emits)
             occ[torch.where(ok, cy * ow + cx + gb * ohw, b * ohw)] = True
+            profiling.count("host_sync")
     occ = occ[:-1].reshape(b, ohw)
     rank = torch.cumsum(occ.to(torch.int64), 1) - 1
     keep = occ & (rank < out_cap)
@@ -258,6 +262,7 @@ def strided_downsample_bitmap(cs: ColumnSet, padding: Tuple[int, int, int],
     cc_o[slot] = torch.stack([cell // ow, cell % ow], -1).reshape(-1, 2)
     cm_o = torch.zeros(b * (out_cap + 1), dtype=torch.bool, device=dev)
     cm_o[slot] = True
+    profiling.count("host_sync")
     cc_o = cc_o.reshape(b, out_cap + 1, 2)[:, :out_cap]
     cm_o = cm_o.reshape(b, out_cap + 1)[:, :out_cap]
     cc_o = torch.where(cm_o[..., None], cc_o, 0)

@@ -37,12 +37,7 @@ from typing import List, Tuple
 import torch
 
 from . import cuda_build
-
-# query-kernel launches since the last reset, counted by the op's CUDA
-# implementation in eager and in an exported program alike (chip_smoke.py
-# reads them); the plan map that each call builds first is counted apart
-launches = 0
-map_builds = 0
+from ..utils import profiling
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -260,8 +255,9 @@ def _eqmatch_rulebook_cuda(ccoords: torch.Tensor, cmask: torch.Tensor,
                            shape: List[int], row_cap: int, scale: int,
                            offset: List[int]) -> torch.Tensor:
     """The op's CUDA implementation: checks the arguments, builds the plan
-    map, launches the query kernel and counts both."""
-    global launches, map_builds
+    map, launches the query kernel and counts both (counters
+    `eqmatch.map_builds`, `eqmatch.launches`, in eager and in an exported
+    program alike)."""
     cs = _column_set(ccoords, cmask, cstart, bits, shape, row_cap)
     dev = coords.device
     b, q, _ = coords.shape
@@ -293,6 +289,6 @@ def _eqmatch_rulebook_cuda(ccoords: torch.Tensor, cmask: torch.Tensor,
             scale, oz, oy, ox, pmap.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(lib, rc, "eqmatch_rulebook")
-    map_builds += 1
-    launches += 1
+    profiling.count("eqmatch.map_builds")
+    profiling.count("eqmatch.launches")
     return out

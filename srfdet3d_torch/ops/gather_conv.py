@@ -28,12 +28,7 @@ import ctypes
 import torch
 
 from . import cuda_build
-
-# kernel launches since the last reset, the float32 kernel's and the bf16
-# kernel's, counted by the op's CUDA implementation, in eager and in an
-# exported program alike (chip_smoke.py reads them)
-launches = 0
-bf16_launches = 0
+from ..utils import profiling
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # feats, idx, W (K, Cin, Cout), out, N, M, K, Cin, Cout, stream
@@ -109,8 +104,9 @@ def _gather_conv_fake(feats, idx, weights):
 def _gather_conv_cuda(feats: torch.Tensor, idx: torch.Tensor,
                       weights: torch.Tensor) -> torch.Tensor:
     """The op's CUDA implementation: checks the arguments, launches the
-    float32 or the bf16 kernel and counts the launch."""
-    global launches, bf16_launches
+    float32 or the bf16 kernel and counts the launch (counters
+    `gather_conv.launches` / `gather_conv.bf16_launches`, in eager and in
+    an exported program alike)."""
     dtype = check_dtypes("gather_conv", feats, weights)
     n, cin = feats.shape
     m, k = idx.shape
@@ -145,8 +141,6 @@ def _gather_conv_cuda(feats: torch.Tensor, idx: torch.Tensor,
         rc = entry(feats.data_ptr(), idx.data_ptr(), w.data_ptr(),
                    out.data_ptr(), n, m, k, cin, w.shape[2], stream)
     cuda_build.check(lib, rc, "gather_conv")
-    if dtype == torch.float32:
-        launches += 1
-    else:
-        bf16_launches += 1
+    profiling.count("gather_conv.launches" if dtype == torch.float32
+                    else "gather_conv.bf16_launches")
     return out if out.shape[1] == cout else out[:, :cout].contiguous()

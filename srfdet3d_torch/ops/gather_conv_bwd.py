@@ -44,12 +44,7 @@ import torch
 
 from . import cuda_build
 from .gather_conv import check_dtypes, pad_channels
-
-# kernel launches since the last reset, one per backward (chip_smoke.py);
-# a bf16 subm backward counts as K3's (the float32 kernel on upcasts)
-subm_launches = 0
-strided_launches = 0
-strided_bf16_launches = 0
+from ..utils import profiling
 
 # rows of the input a dW block compacts and sums before its partial is
 # written (the kernel takes at most 4096)
@@ -320,46 +315,52 @@ def _on_card(name: str, feats: torch.Tensor) -> bool:
     return True
 
 
+@profiling.span("k3")
 def subm_conv_bwd(feats: torch.Tensor, idx: torch.Tensor,
                   weights: torch.Tensor, g: torch.Tensor,
                   need_dfeats: bool = True) -> Grads:
     """K3: backward of a subm conv (idx (N, K) symmetric, M == N).
     Returns (dfeats (N, Cin) or None, dW (K, Cin, Cout)).  bfloat16 inputs
     run the float32 kernel (or plain version) on their upcasts; the results
-    come back rounded to bfloat16."""
+    come back rounded to bfloat16.  Counts each launch, a bf16 call's too
+    (counter `gather_conv_bwd.subm_launches`); span `k3`."""
     dtype = check_dtypes("subm_conv_bwd", feats, weights, g)
     if dtype != torch.float32:
-        dfeats, dw = subm_conv_bwd(feats.float(), idx, weights.float(),
-                                   g.float(), need_dfeats)
+        dfeats, dw = _subm_conv_bwd_f32(feats.float(), idx, weights.float(),
+                                        g.float(), need_dfeats)
         return (None if dfeats is None else dfeats.to(dtype)), dw.to(dtype)
+    return _subm_conv_bwd_f32(feats, idx, weights, g, need_dfeats)
+
+
+def _subm_conv_bwd_f32(feats, idx, weights, g, need_dfeats) -> Grads:
     if not _on_card("subm_conv_bwd", feats):
         return gather_bwd_plain(feats, idx, weights, g, True, need_dfeats)
-    global subm_launches
     out = _kernel_bwd(feats, idx, weights, g, True, need_dfeats,
                       "subm_conv_bwd")
-    subm_launches += 1
+    profiling.count("gather_conv_bwd.subm_launches")
     return out
 
 
+@profiling.span("k4")
 def strided_conv_bwd(feats: torch.Tensor, idx: torch.Tensor,
                      weights: torch.Tensor, g: torch.Tensor,
                      need_dfeats: bool = True) -> Grads:
     """K4: backward of a strided or conv_out conv, idx (M, K) over N input
     rows, through its reverse rulebook (dfeats over the grouped rows).
     Returns (dfeats (N, Cin) or None, dW (K, Cin, Cout)), float32 or
-    bfloat16 as the inputs."""
+    bfloat16 as the inputs.  Counts each launch (counters
+    `gather_conv_bwd.strided_launches` / `.strided_bf16_launches`); span
+    `k4`."""
     check_dtypes("strided_conv_bwd", feats, weights, g)
     if not _on_card("strided_conv_bwd", feats):
         return scatter_bwd_plain(feats, idx, weights, g, need_dfeats)
-    global strided_launches, strided_bf16_launches
     if idx.device != feats.device or g.shape[0] != idx.shape[0]:
         raise ValueError(f"strided_conv_bwd: idx {tuple(idx.shape)} on "
                          f"{idx.device}, g {tuple(g.shape)}")
     rev, perm = strided_prep(idx, feats.shape[0], need_dfeats)
     out = _kernel_bwd(feats, rev, weights, g, False, need_dfeats,
                       "strided_conv_bwd", perm)
-    if feats.dtype == torch.float32:
-        strided_launches += 1
-    else:
-        strided_bf16_launches += 1
+    profiling.count("gather_conv_bwd.strided_launches"
+                    if feats.dtype == torch.float32
+                    else "gather_conv_bwd.strided_bf16_launches")
     return out

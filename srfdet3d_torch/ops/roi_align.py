@@ -42,6 +42,8 @@ from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 
+from ..utils import profiling
+
 # takes the rows' (rows,) counts, returns each row's slot offset (rows,)
 Offset = Optional[Callable[[torch.Tensor], torch.Tensor]]
 
@@ -67,6 +69,8 @@ def _level_geometry(shapes, rois, strides, finest_scale):
     sizes = [h * w for h, w in shapes]
     offsets = torch.tensor([sum(sizes[:i]) for i in range(num_levels)],
                            device=dev)
+    # on a card each copy from host memory waits for the stream
+    profiling.count("host_sync", 4)
     x1, y1, x2, y2 = rois.unbind(-1)
     scale = torch.sqrt((x2 - x1).clamp_min(0) * (y2 - y1).clamp_min(0))
     lvl = torch.floor(torch.log2(scale / finest_scale + 1e-6))

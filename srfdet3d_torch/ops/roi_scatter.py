@@ -27,9 +27,7 @@ import ctypes
 import torch
 
 from . import cuda_build
-
-# kernel launches since the last reset (chip_smoke.py reads it)
-launches = 0
+from ..utils import profiling
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # gp, cells, cw, level, drop, dtable, R, C, out, sr, stream
@@ -74,18 +72,19 @@ def roi_scatter_plain(gp: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
     return dt
 
 
+@profiling.span("k5")
 def roi_scatter(gp: torch.Tensor, cells: torch.Tensor, cw: torch.Tensor,
                 level: torch.Tensor, drop: torch.Tensor, rows: int,
                 sr: int) -> torch.Tensor:
     """The table cotangent from the per-axis corners: the CUDA kernel for
     tensors on the card, the plain version (expand_axes, then
-    roi_scatter_plain) for tensors on the CPU."""
+    roi_scatter_plain) for tensors on the CPU.  Counts each launch
+    (counter `roi_scatter.launches`); span `k5`."""
     if gp.device.type == "cpu":
         return roi_scatter_plain(gp, *expand_axes(cells, cw, level), drop,
                                  rows, sr)
     if gp.device.type != "cuda":
         raise RuntimeError(f"roi_scatter: no kernel for {gp.device}")
-    global launches
     r, out, _, c = gp.shape
     s = out * sr
     dev = gp.device
@@ -119,5 +118,5 @@ def roi_scatter(gp: torch.Tensor, cells: torch.Tensor, cw: torch.Tensor,
                                  drop8.data_ptr(), dt.data_ptr(), r, c, out,
                                  sr, stream)
     cuda_build.check(lib, rc, "roi_scatter")
-    launches += 1
+    profiling.count("roi_scatter.launches")
     return dt

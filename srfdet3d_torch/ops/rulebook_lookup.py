@@ -36,12 +36,7 @@ from typing import Optional
 import torch
 
 from . import cuda_build
-
-# lookup-kernel launches and hash-table builds since the last reset,
-# counted by the ops' CUDA implementations in eager and in an exported
-# program alike (chip_smoke.py reads them)
-launches = 0
-builds = 0
+from ..utils import profiling
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -184,8 +179,8 @@ def _key_hash_fake(keys, rows, sentinel, log2_slots):
 def _key_hash_cuda(keys: torch.Tensor, rows: torch.Tensor, sentinel: int,
                    log2_slots: int) -> torch.Tensor:
     """The op's CUDA implementation: the fill and insert kernels; counts
-    the build."""
-    global builds
+    the build (counter `rulebook_lookup.builds`, in eager and in an
+    exported program alike)."""
     _check_hash_args(keys, rows, sentinel)
     dev = keys.device
     table = torch.empty(1 << log2_slots, dtype=torch.int64, device=dev)
@@ -196,7 +191,7 @@ def _key_hash_cuda(keys: torch.Tensor, rows: torch.Tensor, sentinel: int,
                                 log2_slots,
                                 torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(lib, rc, "key_hash")
-    builds += 1
+    profiling.count("rulebook_lookup.builds")
     return table
 
 
@@ -240,8 +235,8 @@ def _rulebook_lookup_cuda(keys: torch.Tensor, rows: torch.Tensor,
                           queries: torch.Tensor, table: torch.Tensor,
                           sentinel: int) -> torch.Tensor:
     """The op's CUDA implementation: checks the arguments, launches the
-    probe kernel on `table` and counts the launch."""
-    global launches
+    probe kernel on `table` and counts the launch (counter
+    `rulebook_lookup.launches`)."""
     dev = keys.device
     slots = table.numel()
     if queries.dtype != torch.int64 or queries.dim() != 2 or \
@@ -262,5 +257,5 @@ def _rulebook_lookup_cuda(keys: torch.Tensor, rows: torch.Tensor,
                                  sentinel, keys.numel(), out.data_ptr(),
                                  torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(lib, rc, "rulebook_lookup")
-    launches += 1
+    profiling.count("rulebook_lookup.launches")
     return out

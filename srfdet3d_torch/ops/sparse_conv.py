@@ -28,6 +28,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils import profiling
 from .gather_conv import gather_conv
 from .gather_conv_bwd import strided_conv_bwd, subm_conv_bwd
 from .rulebook_lookup import KeyHash, key_hash, rulebook_lookup
@@ -242,6 +243,8 @@ def strided_gather_indices_batched(coords: torch.Tensor, mask: torch.Tensor,
     offs = _offsets(kernel, dev)
     st = torch.tensor(stride, device=dev)
     pd = torch.tensor(padding, device=dev)
+    # on a card each copy from host memory waits for the stream
+    profiling.count("host_sync", 2)
     ic = out_coords[:, :, None, :] * st - pd + offs            # (B, M, K, 3)
     in_rng = ((ic >= 0).all(-1) & (ic[..., 0] < d) & (ic[..., 1] < h) &
               (ic[..., 2] < w))

@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 
 from ..config import VoxelizationSpec
+from ..utils import profiling
 
 
 @dataclasses.dataclass
@@ -38,6 +39,8 @@ def compute_voxel_coords(points: torch.Tensor, spec: VoxelizationSpec):
                       device=points.device)
     vs = torch.tensor(spec.voxel_size, dtype=torch.float32,
                       device=points.device)
+    # on a card each copy from host memory waits for the stream
+    profiling.count("host_sync", 2)
     nx, ny, nz = spec.grid_size
     idx = torch.floor((points[:, :3].float() - pc) / vs).to(torch.int64)
     in_range = ((idx[:, 0] >= 0) & (idx[:, 0] < nx) &

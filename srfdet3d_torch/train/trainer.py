@@ -50,9 +50,10 @@ import numpy as np
 import torch
 
 from ..config import OptimConfig, SRFDetConfig
-from ..models.detector import LIDAR_MODULES
+from ..models.detector import LIDAR_MODULES, to_device
 from ..models.losses import srfdet_losses
 from ..parallel import mesh
+from ..utils import profiling
 
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8
 
@@ -179,13 +180,15 @@ def losses_of(model, batch: Dict[str, torch.Tensor],
               ) -> Dict[str, torch.Tensor]:
     """Forward in train mode and the all-layer OTA losses."""
     cfg = model.cfg
-    logits, boxes = model(batch, generator=generator)
+    with profiling.span("forward"):
+        logits, boxes = model(batch, generator=generator)
     dev = model.device
-    return srfdet_losses(
-        logits, boxes, torch.as_tensor(batch["gt_boxes"], device=dev),
-        torch.as_tensor(batch["gt_labels"], device=dev),
-        torch.as_tensor(batch["gt_mask"], device=dev).bool(), cfg.loss,
-        cfg.ota, decoder_num_heads=cfg.head.num_heads)
+    with profiling.span("loss_ota"):
+        return srfdet_losses(
+            logits, boxes, to_device(batch["gt_boxes"], dev),
+            to_device(batch["gt_labels"], dev),
+            to_device(batch["gt_mask"], dev).bool(), cfg.loss, cfg.ota,
+            decoder_num_heads=cfg.head.num_heads)
 
 
 def _frozen_stats(model) -> List[Tuple[torch.Tensor, torch.Tensor]]:
@@ -227,6 +230,7 @@ def _microbatches(batch: Dict[str, torch.Tensor], accum: int
     return out
 
 
+@profiling.span("train_step")
 def train_step(model, opt: FlatAdamW, batch: Dict[str, torch.Tensor],
                generator: Optional[torch.Generator] = None
                ) -> Dict[str, torch.Tensor]:
@@ -244,7 +248,8 @@ def train_step(model, opt: FlatAdamW, batch: Dict[str, torch.Tensor],
     for mb in parts:
         losses = losses_of(model, mb, generator)
         total = sum(losses.values())
-        total.backward()
+        with profiling.span("backward"):
+            total.backward()
         losses["loss"] = total
         for k, v in losses.items():
             sums[k] = v.detach() if k not in sums else sums[k] + v.detach()
@@ -256,7 +261,8 @@ def train_step(model, opt: FlatAdamW, batch: Dict[str, torch.Tensor],
             for p in opt.params:
                 if p.grad is not None:
                     p.grad.div_(accum)
-    grad_norm = opt.step()
+    with profiling.span("optimizer"):
+        grad_norm = opt.step()
     if mesh.active():
         keys = sorted(sums)
         summed = mesh.sum_if_sync(torch.stack([sums[k] for k in keys]))

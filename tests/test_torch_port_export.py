@@ -101,6 +101,14 @@ def test_graph_holds_the_kernels_and_the_loop(case):
                        for t in targets)
 
 
+def test_graph_holds_no_profiler_node(case):
+    """The port's spans (`utils.profiling.span`) leave nothing in the
+    program: no record_function node."""
+    for prog in (case["prog"], case["loaded"]):
+        assert not any(t.startswith("profiler.")
+                       for t in graph_targets(prog))
+
+
 def test_weights_are_inputs(case):
     """The program carries no weight: called with another model's state
     it gives that model's predict."""

@@ -22,11 +22,11 @@ from srfdet3d_tpu.assign.hungarian import hungarian_assign as j_hungarian
 from srfdet3d_tpu.assign.hungarian import matching_cost as j_cost
 from srfdet3d_tpu.models.losses import LossConfig as JLossConfig
 from srfdet3d_tpu.models.losses import srfdet_losses as j_losses
-from srfdet3d_torch.assign import hungarian
 from srfdet3d_torch.assign.hungarian import (auction_assign,
                                              hungarian_assign, matching_cost)
 from srfdet3d_torch.config import LossConfig, OTAConfig
 from srfdet3d_torch.models.losses import srfdet_losses
+from srfdet3d_torch.utils import profiling
 
 T = torch.from_numpy
 
@@ -72,13 +72,13 @@ def test_scipy_assignment_equals_jax(n_valid):
         lambda pb, pl, gb, gl, gm: j_hungarian(pb, pl, gb, gl, gm, 2.0, 0.25)
     )(boxes[l], logits[l], gt, labels, mask)) for l in range(3)])
     lead = (3, 2)
-    hungarian.reset_stats()
+    profiling.reset()
     got = hungarian_assign(
         T(boxes), T(logits), T(gt).expand(lead + gt.shape[1:]),
         T(labels).expand(lead + labels.shape[1:]),
         T(mask).expand(lead + mask.shape[1:]), 2.0, 0.25)
     np.testing.assert_array_equal(got.numpy(), ref)
-    assert hungarian.stats["solves"] == 6
+    assert profiling.snapshot()["hungarian.solves"] == 6
     assert int((got >= 0).sum()) == 6 * n_valid
 
 
@@ -114,14 +114,15 @@ def test_auction_equals_jax(case):
     name, cost, mask, rounds = case
     ref = np.asarray(jax.jit(jax.vmap(
         lambda c, m: j_auction(c, m, max_rounds=rounds)))(cost, mask))
-    hungarian.reset_stats()
+    profiling.reset()
     got = auction_assign(T(cost), T(mask), max_rounds=rounds).numpy()
     np.testing.assert_array_equal(got, ref)
     # one pred column and three GTs: they outbid each other to the budget
     spent = name in ("exhausted", "one_column")
-    assert hungarian.stats["exhausted"] == int(spent)
+    counts = profiling.snapshot()
+    assert counts.get("hungarian.exhausted", 0) == int(spent)
     if spent:
-        assert hungarian.stats["rounds"] == rounds
+        assert counts["hungarian.rounds"] == rounds
     for c, m, owner in zip(cost, mask, got):
         assigned = owner[owner >= 0]
         valid = min(int(m.sum()), c.shape[0])
