@@ -67,6 +67,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    outputs, p50 latency, valid boxes, peak memory; plus decode_boxes with
    score_thr=0 so NMS sees its full 900 x 10 load; then the same predict
    split at its layer boundaries (time and peak memory of each part);
+   then tail_graph: predict's tail as one CUDA graph
+   (models/tail_graph.py) over five frames of the benchmark's
+   lidar_stream traffic, each replay bit for bit the eager tail on the
+   same encoder output, the last frame's outputs its own, one capture
+   and a replay a predict, memory_reserved, the peak and predict's p50
+   with and without the graph;
 9. srfdet_voxel_kitti_L predict at full width, batch 1, the same way, once
    on its shipped bitmap backend and once with middle.rulebook="table";
    then the flagship with middle.rulebook="table" (flagship_table_predict),
@@ -1476,6 +1482,99 @@ def predict_phase(phase, cfg, batch, smi, expect, prepare=None):
         visible_pairs(phase.replace("predict", "visible_pairs"), model,
                       dev_batch, smi)
     return counts, builds
+
+
+# lidar_stream frames the tail_graph phase replays, and its seed
+TAIL_FRAMES = 4
+TAIL_SEED = 2 ** 33 + 22
+
+
+@torch.no_grad()
+def tail_graph_phase(smi, frames: int = TAIL_FRAMES, seed: int = TAIL_SEED):
+    """Predict's tail graph (models/tail_graph.py) on the flagship at full
+    width, over `frames` + 1 frames of the benchmark's lidar_stream
+    traffic.  Each frame's sparse encoder output goes through the eager
+    tail (`SRFDet._tail`) and through the graph: bit for bit the same
+    outputs.  The last frame comes after the others and must give its own
+    outputs, not the frame before's (no static input goes stale).  Over
+    the predicts after set-up: one capture, a replay a frame, no eager
+    count.  Beside them: whether two eager forwards of one frame agree
+    bit for bit (the voxelizer's and the encoder's kernels are upstream of
+    the graph), memory_reserved and the peak allocated over predicts with
+    and without the graph (its predicate patched off), and their p50."""
+    from unittest import mock
+
+    from benchmark import scene
+    from benchmark.registry import Registry
+    from srfdet3d_torch.configs import get_config
+    from srfdet3d_torch.models.detector import TAIL_MODULES, SRFDet
+    from srfdet3d_torch.utils import profiling
+    reg = Registry()
+    cell = reg.cell("nusc_L.predict.stream")
+    traffic = dict(reg.traffic(cell), pool=frames + 1)
+    pool = scene.make_pool(traffic, reg.config(cell), seed, "cuda")
+    batches = [{k: b[k].cuda() for k in ("points", "points_mask")}
+               for b in pool]
+    model = SRFDet(get_config("srfdet_voxel_nusc_L"), device="cuda",
+                   seed=0)
+
+    def sparse_of(b):
+        feats, vox = model.voxel_features(*model._inputs(b))
+        return model.middle(feats, vox, dense=False)
+
+    def predict_ms(b):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.predict(b)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+    with mock.patch.object(SRFDet, "tail_graphed",
+                           lambda self, batch: False):
+        forward_repeats = same(model(batches[0]), model(batches[0]))
+        for b in batches:
+            model.predict(b)            # cuDNN's search on the first
+        torch.cuda.reset_peak_memory_stats()
+        eager_ms = [predict_ms(b) for b in batches]
+        eager_peak = torch.cuda.max_memory_allocated()
+    eager_reserved = torch.cuda.memory_reserved()
+    profiling.reset("tail_graph.")
+    model.predict(batches[0])           # the capture
+    captured_reserved = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    graphed_ms = [predict_ms(b) for b in batches]
+    graph_peak = torch.cuda.max_memory_allocated()
+    counts = {k: profiling.snapshot().get("tail_graph." + k, 0)
+              for k in ("captures", "replays", "eager")}
+    want = dict(captures=1, replays=frames + 2, eager=0)
+    if counts != want:
+        raise AssertionError(f"tail_graph counted {counts}, want {want}")
+    graphed, eager = [], []
+    for b in batches:
+        sparse = sparse_of(b)
+        eager.append(model._tail(*sparse))
+        graphed.append(model._tail_graphs.run(model._tail, sparse, model,
+                                              TAIL_MODULES))
+    for i, (g, e) in enumerate(zip(graphed, eager)):
+        if not same(g, e):
+            gap = max(float((x - y).abs().max()) for x, y in zip(g, e))
+            raise AssertionError(f"tail_graph: frame {i}'s replay differs "
+                                 f"from its eager tail (max {gap:.3g})")
+    if same(graphed[-1], graphed[-2]):
+        raise AssertionError("tail_graph: the last frame gave the frame "
+                             "before's outputs")
+    emit(dict(phase="tail_graph", config="srfdet_voxel_nusc_L",
+              traffic="lidar_stream", frames=frames + 1, counts=counts,
+              tail_bit_equal=True, eager_forward_repeats=forward_repeats,
+              memory_reserved_bytes=dict(eager=eager_reserved,
+                                         with_graph=captured_reserved),
+              peak_allocated_bytes=dict(eager=eager_peak,
+                                        with_graph=graph_peak),
+              predict_p50_ms=dict(eager=statistics.median(eager_ms),
+                                  with_graph=statistics.median(graphed_ms)),
+              device=smi))
 
 
 @torch.no_grad()
@@ -5172,6 +5271,8 @@ def main() -> int:
                                    dict(none, gather_conv=21, eqmatch=4))
     k2["builds"] = builds["plan_map"]
     k1_launches, k2_launches = counts["gather_conv"], counts["eqmatch"]
+    torch.cuda.empty_cache()
+    tail_graph_phase(smi)
     torch.cuda.empty_cache()
     # the bf16 model (compute_dtype="bfloat16"): K1-bf16 in its encoder;
     # its boxes against the float32 model's on the same weights

@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..utils import profiling
+from ..utils.constants import constant
 from .layers import BatchNorm2d, LayerNorm, Linear, dropout, softmax
 
 
@@ -115,9 +115,7 @@ class MSDeformAttention(nn.Module):
             value = self.value_proj(lv).view(b, h, w, nh, hd)
             value = value.permute(0, 3, 4, 1, 2).reshape(b * nh, hd, h, w)
             loc = (reference_points[:, :, None, None, :] +
-                   off[:, :, :, li] / off.new_tensor([w, h]))
-            # on a card the copy from host memory waits for the stream
-            profiling.count("host_sync")
+                   off[:, :, :, li] / constant((w, h), off))
             loc = loc.permute(0, 2, 1, 3, 4).reshape(b * nh, q, npt, 2)
             if value.dtype == torch.float32:
                 taps = F.grid_sample(value, 2.0 * loc - 1.0, mode="bilinear",

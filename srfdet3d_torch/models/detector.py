@@ -51,22 +51,27 @@ from torch import nn
 from .. import resolve_device, set_backend_flags
 from ..config import SRFDetConfig
 from ..ops.voxelize import VoxelizedPoints, voxelize_points_batched
+from ..parallel import mesh as pmesh
 from ..utils import profiling
 from .deform_conv import ModulatedDeformConv
 from .fpn import FPN
 from .grid_mask import grid_mask
-from .head import SRFDetHead, decode_boxes, focal_bias
+from .head import GraphOutputs, SRFDetHead, decode_boxes, focal_bias
 from .layers import MaskedBatchNorm, set_dtype
 from .middle import PointPillarsScatter
 from .resnet import ResNet
 from .second import SECOND
 from .sparse_encoder import GatheredConvBN, SparseEncoder, down_pads
+from .tail_graph import TailGraphs
 from .vfe import DynamicVFE, HardSimpleVFE, PillarFeatureNet
 from .vovnet import VoVNet
 
 # the LiDAR branch that cfg.optim.freeze_lidar freezes
 LIDAR_MODULES = ("pts_voxel_encoder", "pts_middle_encoder", "pts_backbone",
                  "pts_neck")     # a pillar model has no pts_middle_encoder
+# the modules predict's tail graph runs (models/tail_graph.py)
+TAIL_MODULES = ("pts_middle_encoder", "pts_backbone", "pts_neck",
+                "bbox_head")
 
 
 def to_device(value, device: torch.device) -> torch.Tensor:
@@ -137,6 +142,12 @@ def compute_dtypes(cfg: SRFDetConfig) -> Tuple[torch.dtype, torch.dtype]:
     return model, (of(img) if img else model)
 
 
+def _lidar_only(cfg: SRFDetConfig, batch: Dict[str, torch.Tensor]) -> bool:
+    """Does a forward of this batch run the LiDAR branch alone (a
+    LiDAR-only config, or an LC model given no images)?"""
+    return not cfg.use_img or "images" not in batch
+
+
 def _check_supported(cfg: SRFDetConfig) -> None:
     """The port runs every option of the JAX package's SRFDet; an unknown
     VFE or middle kind is an error in both."""
@@ -153,6 +164,7 @@ class SRFDet(nn.Module):
     def __init__(self, cfg: SRFDetConfig, device=None, seed: int = 0):
         super().__init__()
         _check_supported(cfg)
+        self._tail_graphs = TailGraphs()
         dev = resolve_device(device)
         set_backend_flags()
         self.cfg = cfg
@@ -243,6 +255,9 @@ class SRFDet(nn.Module):
         self.eval()
 
     def train(self, mode: bool = True) -> "SRFDet":
+        if mode:
+            # a training model keeps no graph's memory
+            self._tail_graphs.clear()
         super().train(mode)
         if mode and self.cfg.optim.freeze_lidar:
             for name in LIDAR_MODULES:
@@ -251,6 +266,12 @@ class SRFDet(nn.Module):
         if mode and self.cfg.use_img and self.cfg.img.norm_eval:
             self.img_backbone.eval()
         return self
+
+    def _apply(self, fn, recurse: bool = True):
+        # to(), cuda(), float() and the like move or replace the tensors a
+        # captured graph reads
+        self._tail_graphs.clear()
+        return super()._apply(fn, recurse)
 
     @property
     def device(self) -> torch.device:
@@ -327,26 +348,30 @@ class SRFDet(nn.Module):
         return feats.reshape(b, v_cap, -1), vox
 
     @profiling.span("encoder")
-    def middle(self, feats: torch.Tensor, vox: VoxelizedPoints
-               ) -> torch.Tensor:
+    def middle(self, feats: torch.Tensor, vox: VoxelizedPoints,
+               dense: bool = True):
         """(B, V_cap, F) voxel features -> the (B, H, W, C') BEV map: the
         sparse encoder's (C' = D*C, z-major groups) or the pillar
-        scatter's (C' = F, cell y * nx + x)."""
+        scatter's (C' = F, cell y * nx + x).  With dense False (the sparse
+        encoder), its fixed-capacity output before the scatter."""
         if self.cfg.middle.kind == "pillar_scatter":
             return self.pillar_scatter(feats, vox.voxel_coords,
                                        vox.voxel_mask)
         return self.pts_middle_encoder(feats, vox.voxel_coords,
-                                       vox.voxel_mask)
+                                       vox.voxel_mask, dense=dense)
+
+    def bev_maps(self, bev: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """The (B, H, W, C') BEV map -> the FPN's NCHW maps."""
+        with profiling.span("bev"):
+            stages = self.pts_backbone(bev.permute(0, 3, 1, 2).contiguous())
+            return self.pts_neck(stages)
 
     def extract_point_features(self, points: torch.Tensor,
                                points_mask: torch.Tensor
                                ) -> Tuple[torch.Tensor, ...]:
         """(B, P, D) points -> the FPN's NCHW BEV maps."""
         feats, vox = self.voxel_features(points, points_mask)
-        bev = self.middle(feats, vox)                   # (B, H, W, C')
-        with profiling.span("bev"):
-            stages = self.pts_backbone(bev.permute(0, 3, 1, 2).contiguous())
-            return self.pts_neck(stages)
+        return self.bev_maps(self.middle(feats, vox))
 
     def image_tensor(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The batch's (B, n_cam, H, W, 3) images as one NCHW
@@ -375,15 +400,52 @@ class SRFDet(nn.Module):
             stages = tuple(s.detach() for s in stages)
         return tuple(f.to(self.dtype) for f in self.img_neck(stages))
 
+    def tail_graphed(self, batch: Dict[str, torch.Tensor]) -> bool:
+        """Does this forward replay the tail graph (models/tail_graph.py)?
+        On a card, with grad off and the model in eval mode, on the LiDAR
+        branch alone, through the sparse encoder, with the head's
+        proposals whole (no proposal block), and while no export or
+        compile traces it.  Anything else runs eagerly."""
+        return (self.device.type == "cuda" and not torch.is_grad_enabled()
+                and not self.training and _lidar_only(self.cfg, batch)
+                and self.cfg.middle.kind == "sparse"
+                and not pmesh.shards(self.bbox_head.num_proposals)
+                and not torch.compiler.is_compiling()
+                and not torch.compiler.is_exporting())
+
+    def _tail(self, feats: torch.Tensor, coords: torch.Tensor,
+              mask: torch.Tensor):
+        """The sparse encoder's output -> the head's outputs: the dense
+        scatter, SECOND + FPN and the head."""
+        maps = self.bev_maps(self.pts_middle_encoder.dense(feats, coords,
+                                                           mask))
+        with profiling.span("head"):
+            return self.bbox_head(maps)
+
     def forward(self, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None):
         """generator: in train mode GridMask's draws, then the head's
-        dropout masks, in that order (on the model's device)."""
+        dropout masks, in that order (on the model's device).  Where
+        `tail_graphed`, everything after the sparse encoder is one CUDA
+        graph's replay."""
         points, mask = self._inputs(batch)
+        if self.tail_graphed(batch):
+            feats, vox = self.voxel_features(points, mask)
+            sparse = self.middle(feats, vox, dense=False)
+            with profiling.span("tail_graph"):
+                logits, boxes = self._tail_graphs.run(
+                    self._tail, sparse, self, TAIL_MODULES)
+            # the head's call hands this frame's outputs to its hooks, as
+            # an eager call does
+            return self.bbox_head(GraphOutputs(logits, boxes))
+        if (self.device.type == "cuda" and not torch.is_grad_enabled()
+                and _lidar_only(self.cfg, batch)):
+            # an inference forward on the card that could not use the graph
+            profiling.count("tail_graph.eager")
         maps = self.extract_point_features(points, mask)
         if self.training and self.cfg.optim.freeze_lidar:
             maps = tuple(f.detach() for f in maps)
-        if not self.cfg.use_img or "images" not in batch:
+        if _lidar_only(self.cfg, batch):
             # an LC model given no images runs its LiDAR branch alone
             with profiling.span("head"):
                 return self.bbox_head(maps, generator)

@@ -68,6 +68,7 @@ from ..geometry.iou import multiclass_nms_3d
 from ..ops.roi_align import Offset, multilevel_roi_align, row_offsets
 from ..parallel import mesh as pmesh
 from ..utils import profiling
+from ..utils.constants import constant
 from .deform_attn import LidarBEVEncoder
 from .layers import (Conv2d, ConvBNReLU, LayerNorm, Linear, dropout,
                      softmax)
@@ -90,10 +91,8 @@ def focal_bias(prior_prob: float) -> float:
 
 def denormalize_centers(boxes: torch.Tensor, pc_range) -> torch.Tensor:
     """[0, 1] centers -> absolute within pc_range (columns 0:3)."""
-    lo = boxes.new_tensor(pc_range[:3])
-    hi = boxes.new_tensor(pc_range[3:6])
-    # on a card each copy from host memory waits for the stream
-    profiling.count("host_sync", 2)
+    lo = constant(pc_range[:3], boxes)
+    hi = constant(pc_range[3:6], boxes)
     return torch.cat([boxes[..., :3] * (hi - lo) + lo, boxes[..., 3:]], -1)
 
 
@@ -103,9 +102,8 @@ def lidar_rois_from_boxes(boxes_abs: torch.Tensor, pc_range, voxel_size
     RoIs [x1, y1, x2, y2] in the stride-1 grid frame."""
     corners = boxes3d_to_corners3d(boxes_abs[..., :8], bottom_center=False,
                                    yaw_as_sincos=True, log_size=True)
-    lo = boxes_abs.new_tensor(pc_range[:2])
-    vs = boxes_abs.new_tensor(voxel_size[:2])
-    profiling.count("host_sync", 2)
+    lo = constant(pc_range[:2], boxes_abs)
+    vs = constant(voxel_size[:2], boxes_abs)
     xy = (corners[..., :2] - lo) / vs
     return torch.cat([xy.amin(-2), xy.amax(-2)], -1)
 
@@ -208,11 +206,19 @@ def torch_nearest_resize(x: torch.Tensor, hw) -> torch.Tensor:
     rounding of F.interpolate's own index differs at some sizes, e.g. 70
     -> 30)."""
     h, w = x.shape[-2:]
-    iy = (np.arange(hw[0]) * (h / hw[0])).astype(np.int32)
-    ix = (np.arange(hw[1]) * (w / hw[1])).astype(np.int32)
-    profiling.count("host_sync", 2)
-    return x[:, :, torch.as_tensor(iy, device=x.device)][
-        ..., torch.as_tensor(ix, device=x.device)]
+    iy = (np.arange(hw[0]) * (h / hw[0])).astype(np.int32).tolist()
+    ix = (np.arange(hw[1]) * (w / hw[1])).astype(np.int32).tolist()
+    return x[:, :, constant(iy, dtype=torch.int32, device=x.device)][
+        ..., constant(ix, dtype=torch.int32, device=x.device)]
+
+
+class GraphOutputs(NamedTuple):
+    """The head's outputs of a frame, computed by a replay of a CUDA graph
+    that holds the head (models/tail_graph.py).  `SRFDetHead` called on
+    them returns them: the call runs the module's hooks on them, as an
+    eager call would on the outputs it computes."""
+    pred_logits: torch.Tensor
+    pred_boxes: torch.Tensor
 
 
 class ProposalBlock(NamedTuple):
@@ -421,9 +427,8 @@ class SingleSRFDetHead(nn.Module):
         d, b = d.float(), b.float()
         ctr = b[..., 0:3] + d[..., 0:3] * torch.exp(b[..., 3:6])
         new_sizes = b[..., 3:6] + d[..., 3:6].clamp_max(self.scale_clamp)
-        lo = b.new_tensor(self.pc_range[:3])
-        hi = b.new_tensor(self.pc_range[3:6])
-        profiling.count("host_sync", 2)
+        lo = constant(self.pc_range[:3], b)
+        hi = constant(self.pc_range[3:6], b)
         ctr = ((ctr - lo) / (hi - lo)).clamp(0.0, 1.0)
         return torch.cat([ctr, new_sizes, d[..., 6:]], -1)
 
@@ -556,7 +561,10 @@ class SRFDetHead(nn.Module):
         stop_gradient on the scan carry).  Inside proposal_sharding, when
         the model axis divides n_p, the iterations run on this rank's
         block and the outputs are gathered over the model group (every
-        model rank returns the whole set)."""
+        model rank returns the whole set).  `point_feats` may be
+        GraphOutputs instead: they are returned as they are."""
+        if isinstance(point_feats, GraphOutputs):
+            return point_feats.pred_logits, point_feats.pred_boxes
         nhwc = [f.permute(0, 2, 3, 1).contiguous() for f in point_feats]
         if self.lidar_encoder is not None:
             # JAX head.py:519-525: the encoded levels feed the DPG too
@@ -668,8 +676,7 @@ def decode_boxes(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
             -1, -1, raw.shape[-1]))
         out_v = F.pad(torch.ones(b, k_eff, dtype=torch.bool,
                                  device=raw.device), (0, pad))
-    pcr = out_b.new_tensor(post_center_range)
-    profiling.count("host_sync")
+    pcr = constant(post_center_range, out_b)
     in_range = ((out_b[..., :3] >= pcr[:3]).all(-1) &
                 (out_b[..., :3] <= pcr[3:]).all(-1))
     return {"boxes": out_b, "scores": out_s, "labels": out_l,

@@ -101,10 +101,9 @@ class BitmapRulebooks:
         self.cs, self.vcol, self.vz, self.mask = cs, vcol, vz, vm
         return gidx
 
-    def dense(self, feats):
-        coords = dense_bev_coords(self.cs, self.vcol, self.vz)
-        return sparse_to_dense_batched(feats, coords, self.mask,
-                                       self.cs.shape)
+    def sites(self):
+        """(zyx coords, mask) of the stage's sites."""
+        return dense_bev_coords(self.cs, self.vcol, self.vz), self.mask
 
 
 class TableRulebooks:
@@ -145,6 +144,10 @@ class TableRulebooks:
 
     def convout(self, capacity):
         return self._strided((3, 1, 1), (2, 1, 1), (0, 0, 0), capacity)
+
+    def sites(self):
+        """(zyx coords, mask) of the stage's sites."""
+        return self.coords, self.mask
 
     def dense(self, feats):
         return sparse_to_dense_batched(feats, self.coords, self.mask,
@@ -242,11 +245,26 @@ class SparseEncoder(nn.Module):
                     raise ValueError(block_type)
                 cin = out_ch
         self.conv_out = GatheredConvBN(cin, output_channels, 3)
+        # the grid of conv_out's sites, which `dense` scatters to
+        shape = self.sparse_shape
+        for pad in down_pads(block_type, encoder_channels, encoder_paddings):
+            shape = conv_out_shape(shape, (3, 3, 3), (2, 2, 2), _pad3(pad))
+        self.out_shape = conv_out_shape(shape, (3, 1, 1), (2, 1, 1),
+                                        (0, 0, 0))
 
     def forward(self, voxel_feats: torch.Tensor, voxel_coords: torch.Tensor,
-                voxel_mask: torch.Tensor) -> torch.Tensor:
+                voxel_mask: torch.Tensor, dense: bool = True):
         """(B, V, C) feats, (B, V, 3) zyx coords (plan-major for the bitmap
-        backend), (B, V) mask -> (B, H, W, D*C) BEV map."""
+        backend), (B, V) mask -> (B, H, W, D*C) BEV map; with dense False,
+        the `sparse` output it is scattered from."""
+        out = self.sparse(voxel_feats, voxel_coords, voxel_mask)
+        return self.dense(*out) if dense else out
+
+    def sparse(self, voxel_feats: torch.Tensor, voxel_coords: torch.Tensor,
+               voxel_mask: torch.Tensor):
+        """The encoder up to its dense scatter: conv_out's sites at the
+        last capacity, (feats (B, cap, C), zyx coords (B, cap, 3) int64,
+        mask (B, cap) bool).  Their shapes are fixed by the config."""
         backend = BitmapRulebooks if self.use_bitmap else TableRulebooks
         rb = backend(voxel_coords, voxel_mask, self.sparse_shape)
         mask = voxel_mask
@@ -268,6 +286,14 @@ class SparseEncoder(nn.Module):
                 feats = torch.where(mask[..., None], F.relu(f + feats), 0.0)
         gidx = rb.convout(self.capacities[-1])
         feats = self.conv_out(feats, gidx, rb.mask)
-        dense = rb.dense(feats)                         # (B, D, H, W, C)
+        coords, mask = rb.sites()
+        return feats, coords, mask
+
+    def dense(self, feats: torch.Tensor, coords: torch.Tensor,
+              mask: torch.Tensor) -> torch.Tensor:
+        """`sparse`'s output -> the (B, H, W, D*C) BEV map, z-major channel
+        groups."""
+        dense = sparse_to_dense_batched(feats, coords, mask,
+                                        self.out_shape)  # (B, D, H, W, C)
         b, d, h, w, c = dense.shape
         return dense.permute(0, 2, 3, 1, 4).reshape(b, h, w, d * c)

@@ -42,7 +42,7 @@ from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 
-from ..utils import profiling
+from ..utils.constants import constant
 
 # takes the rows' (rows,) counts, returns each row's slot offset (rows,)
 Offset = Optional[Callable[[torch.Tensor], torch.Tensor]]
@@ -62,15 +62,13 @@ def _level_geometry(shapes, rois, strides, finest_scale):
     """Per-RoI level, scale, level extent (float) and row offset."""
     dev = rois.device
     num_levels = len(shapes)
-    hs = torch.tensor([float(h) for h, _ in shapes], device=dev)
-    ws = torch.tensor([float(w) for _, w in shapes], device=dev)
-    scales = torch.tensor([1.0 / s for s in strides], dtype=torch.float32,
-                          device=dev)
+    hs = constant([float(h) for h, _ in shapes], device=dev)
+    ws = constant([float(w) for _, w in shapes], device=dev)
+    scales = constant([1.0 / s for s in strides], dtype=torch.float32,
+                      device=dev)
     sizes = [h * w for h, w in shapes]
-    offsets = torch.tensor([sum(sizes[:i]) for i in range(num_levels)],
-                           device=dev)
-    # on a card each copy from host memory waits for the stream
-    profiling.count("host_sync", 4)
+    offsets = constant([sum(sizes[:i]) for i in range(num_levels)],
+                       device=dev)
     x1, y1, x2, y2 = rois.unbind(-1)
     scale = torch.sqrt((x2 - x1).clamp_min(0) * (y2 - y1).clamp_min(0))
     lvl = torch.floor(torch.log2(scale / finest_scale + 1e-6))

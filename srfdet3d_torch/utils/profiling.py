@@ -247,13 +247,29 @@ class _On(_Site):
 
 
 _OFF: Dict[str, _Off] = {}
+# > 0 inside `muted()`
+_muted = 0
+
+
+@contextlib.contextmanager
+def muted() -> Iterator[None]:
+    """No span records inside: the work that sets up a CUDA graph (its
+    eager warm-up and its capture, whose kernels never run) is no stage
+    of a frame, and an event recorded inside a capture has no time."""
+    global _muted
+    _muted += 1
+    try:
+        yield
+    finally:
+        _muted -= 1
 
 
 def span(name: str):
     """A span `srfdet/<name>` over a `with` block or, as a decorator, over
-    each call of the function.  Off (no profiler session open, or inside
-    an export or compile) it is one shared object that records nothing."""
-    if not _autograd_profiler._is_profiler_enabled or \
+    each call of the function.  Off (no profiler session open, inside an
+    export or compile, or `muted()`) it is one shared object that records
+    nothing."""
+    if _muted or not _autograd_profiler._is_profiler_enabled or \
             torch.compiler.is_exporting() or torch.compiler.is_compiling():
         off = _OFF.get(name)
         if off is None:
